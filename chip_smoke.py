@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU — the quickest proof that the port starts on the card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+
+  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
+  2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+     ``nvcc`` per source, in parallel) and print the build seconds;
+  3. hold each kernel against its plain PyTorch version on the card at
+     the main path's shapes in bfloat16 (rtol 2e-2 / atol 1e-2, the bf16
+     tolerance of ``tests/test_kernels.py``), and time the kernel, the
+     plain version and one library call computing the same function
+     (a yardstick only — the port never calls it) as device time from
+     CUDA-graph replay, beside the least time the card could take (bytes
+     at 3.35 TB/s, bf16 operations at 989 TFLOP/s, whichever is larger)
+     and the kernel's eager time (host launch cost included);
+  4. serve qwen3-0.6b ``sparse()`` (2:4, g=128 on all seven projections)
+     at full width, 28 layers, bf16, random weights from a seed, through
+     ``Engine`` over the paged KV cache: 16 requests of 16–128 tokens.
+     Every request must reach its budget, ``sync_count`` must equal the
+     number of decode chunks, and every kernel's launch count (set to 0
+     just before, read just after) must be positive.  Then one more
+     decode chunk under ``torch.profiler``: the card's busy share of the
+     wall time and the kernels that fill it;
+  5. the same model cut to 2 layers at float32: greedy tokens on the card
+     against the port's CPU path; a token may differ only where the CPU
+     logits' top-2 gap is under 1e-2 (the gaps are printed).
+
+The line before the last is a JSON object with every kernel's launches,
+error and times; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+RTOL, ATOL = 2e-2, 1e-2            # bf16 tolerance of tests/test_kernels.py
+GAP_TOL = 1e-2                     # phase 5: a CPU/GPU token split needs a
+#                                    CPU top-2 logit gap below this
+SEED = 0
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _events_ms(run, n: int) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds of ``fn()`` issued eagerly from Python (CUDA
+    events, warmed): the device time or the host's launch time, whichever
+    is longer."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, reps)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in
+    one CUDA graph and replayed, so the host's launch cost drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
+def timings(kernel, plain, library, copies: int) -> dict:
+    """Per-call device ms of the kernel, its plain version and the library
+    yardstick (each ``fn`` makes ``copies`` calls), plus the kernel's
+    eager per-call ms."""
+    return dict(ms=device_ms(kernel) / copies,
+                plain_ms=device_ms(plain, reps=3) / copies,
+                library_ms=device_ms(library) / copies,
+                eager_ms=cuda_ms(kernel) / copies)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = err > ATOL + RTOL * want.abs()
+    if not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version (max abs err "
+            f"{err.max().item():.3e}, {int(bad.sum())} elements outside "
+            f"rtol={RTOL} atol={ATOL})")
+    return err.max().item()
+
+
+# --- phase 3: each kernel against its plain version -------------------------
+
+def qwen3_projections(cfg):
+    """(name, K, N) of the seven projections of one qwen3 layer."""
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
+            ("w_in", d, ff), ("w_gate", d, ff), ("w_out", ff, d)]
+
+
+def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
+    """All seven projection geometries at M = 8 (decode) and 128
+    (prefill).  Timed per layer: ``copies`` layers of distinct packs, so
+    the weights stream from HBM as they do through 28 layers."""
+    from repro_torch.core import pruning, sparsity
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    packs, dense = [], []
+    for _ in range(copies):
+        for _, k, n in qwen3_projections(cfg):
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 / k ** 0.5).to(torch.bfloat16)
+            pw, _ = pruning.n_m(w, 2, 4, group=128)
+            packs.append(sparsity.pack_nm(pw, 2, 4, g=128))
+            dense.append(pw)
+    err, rows = 0.0, {}
+    for M in (8, 128):
+        xs = {k: torch.randn((M, k), generator=gen, device=dev)
+              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+        for p in packs[:7]:
+            err = max(err, check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
+                                       K.nm_spmm(xs[p.K], p),
+                                       ref.nm_spmm_ref(xs[p.K], p)))
+        nbytes = flops = 0.0
+        for p in packs[:7]:
+            nbytes += (M * p.K + p.Kc * p.N + M * p.N) * 2 + p.idx.numel() * 4
+            flops += 2.0 * M * p.Kc * p.N
+        b, by = bound_ms(nbytes, flops)
+        rows[M] = dict(
+            **timings(lambda: [K.nm_spmm(xs[p.K], p) for p in packs],
+                      lambda: [ref.nm_spmm_ref(xs[p.K], p) for p in packs],
+                      lambda: [torch.matmul(xs[w.shape[0]], w)
+                               for w in dense], copies),
+            bound_ms=b, bound_by=by)
+        log(f"[kernels] nm_spmm  one layer's 7 projections at M={M}: "
+            f"{json.dumps(rows[M])}")
+    return dict(name="nm_spmm", source="src/repro_torch/csrc/nm_spmm.cu",
+                replaces="src/repro/kernels/nm_spmm.py:68",
+                max_abs_err=err, **rows[8])
+
+
+def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
+    """Decode attention at B = 8 slots with mixed lens (one dead slot) over
+    a 256-page pool of 16-row pages, a 32-page (512-row) view.  Timed over
+    ``copies`` pools, so the live rows (5.7 MB a pool) stream from HBM
+    rather than the 50 MB L2, as one layer's do in a decode step."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.kernels import ref
+    B, H, Hk, D, ps, P, mp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        16, 257, 32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lens_np = np.asarray([0, 1, 17, 64, 130, 256, 400, 512], np.int32)
+    rng = np.random.default_rng(SEED)
+    ptab = torch.from_numpy(np.stack([rng.permutation(np.arange(1, P))[:mp]
+                                      for _ in range(B)]).astype(np.int32))
+    ptab, lens = ptab.to(dev), torch.from_numpy(lens_np).to(dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    pools = [tuple(torch.randn((P, ps, Hk, D), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(2))
+             for _ in range(copies)]
+    kp, vp = pools[0]
+    err = check_close("paged_attention",
+                      K.paged_attention(q, kp, vp, ptab, lens),
+                      ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    # the library yardstick: SDPA over the gathered (B, H, L, D) view
+    views = []
+    for k, v in pools:
+        kv = [t[ptab.long()].reshape(B, mp * ps, Hk, D).transpose(1, 2)
+              .repeat_interleave(H // Hk, dim=1).contiguous() for t in (k, v)]
+        views.append(kv)
+    mask = (torch.arange(mp * ps, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    live = int(lens_np.sum())
+    pages = int(sum(-(-int(n) // ps) for n in lens_np))
+    nbytes = 2 * B * H * D * 2 + live * Hk * D * 2 * 2 + pages * 4 + B * 4
+    b, by = bound_ms(nbytes, 4.0 * H * D * live)
+    row = dict(
+        **timings(lambda: [K.paged_attention(q, k, v, ptab, lens)
+                           for k, v in pools],
+                  lambda: [ref.paged_attention_ref(q, k, v, ptab, lens)
+                           for k, v in pools],
+                  lambda: [sdpa(q[:, :, None], k, v, attn_mask=mask)
+                           for k, v in views], copies),
+        bound_ms=b, bound_by=by)
+    log(f"[kernels] paged_attention B={B} lens={lens_np.tolist()} "
+        f"err={err:.3e}: {json.dumps(row)}")
+    return dict(name="paged_attention",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:107",
+                max_abs_err=err, **row)
+
+
+def check_flash_attention(cfg, dev) -> dict:
+    """Prefill attention of one prompt: L = 128 (timed) and a ragged 200."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err, rows = 0.0, {}
+    for L in (128, 200):
+        q, k, v = (torch.randn((1, h, L, D), generator=gen, device=dev)
+                   .to(torch.bfloat16) for h in (H, Hk, Hk))
+        err = max(err, check_close(
+            f"flash_attention L={L}", K.flash_attention(q, k, v),
+            ref.mha_ref(q.float(), k.float(), v.float())))
+        kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+        pairs = L * (L + 1) / 2
+        b, by = bound_ms((2 * H + 2 * Hk) * L * D * 2, 4.0 * H * D * pairs)
+        rows[L] = dict(
+            **timings(lambda: K.flash_attention(q, k, v),
+                      lambda: ref.mha_ref(q, k, v),
+                      lambda: sdpa(q, kr, vr, is_causal=True), 1),
+            bound_ms=b, bound_by=by)
+        log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} L={L}: "
+            f"{json.dumps(rows[L])}")
+    return dict(name="flash_attention",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:97",
+                max_abs_err=err, **rows[128])
+
+
+# --- phases 4 and 5 --------------------------------------------------------
+
+def sparse_model(cfg, dev, seed):
+    from repro_torch import models
+    from repro_torch.core.sparse_linear import pack_params
+    return pack_params(models.init_model(cfg, seed=seed, device=dev), cfg)
+
+
+def serve_full_width(cfg, dev, counters) -> dict:
+    from repro_torch.serving import Engine, ServeConfig
+    t0 = time.perf_counter()
+    params = sparse_model(cfg, dev, SEED)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"{cfg.dtype}: random init + 2:4 pack in "
+        f"{time.perf_counter() - t0:.1f} s")
+    scfg = ServeConfig(slots=8, max_len=512, prompt_pad=128, page_size=16,
+                       decode_chunk=16, max_new_tokens=64, eos_token=-1)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 129, size=16)]
+    eng = Engine(cfg, scfg, params, device=dev)
+    for mod in counters:
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+                for mod in counters}
+    st = eng.stats()
+    outs = [h.tokens for h in handles]
+    if not all(h.status.value == "done" and len(o) == scfg.max_new_tokens
+               for h, o in zip(handles, outs)):
+        raise AssertionError("a request did not finish with its budget: "
+                             f"{[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("a token outside the vocabulary")
+    if st.sync_count != len(st.chunk_s):
+        raise AssertionError(f"sync_count {st.sync_count} != "
+                             f"{len(st.chunk_s)} chunks")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    ntok = sum(len(o) for o in outs)
+    ttft = sorted(eng.ttfts_s())
+    report = {
+        "requests": len(handles), "tokens": ntok,
+        "tok_per_s": ntok / wall, "wall_s": wall,
+        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+        "decode_ms_per_step": 1e3 * sum(st.chunk_s)
+        / (len(st.chunk_s) * scfg.decode_chunk),
+        "chunks": len(st.chunk_s), "sync_count": st.sync_count,
+        "prefills": st.prefills, "peak_pages": st.peak_pages,
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"[serve] {json.dumps(report)}")
+    log(f"[serve] first request's tokens: {outs[0][:16]}")
+    profile_decode_chunk(eng, prompts)
+    return launches
+
+
+def profile_decode_chunk(eng, prompts) -> None:
+    """torch.profiler over one decode chunk with every slot live: the
+    card's busy share of the chunk's wall time and the kernels that fill
+    it.  Runs after the launch counts were read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts[:eng.scfg.slots]:
+        eng.submit(p)
+    eng.step()                                 # admission + a first chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run()
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_ops += 1
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ")[:100]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] one decode chunk of {eng.scfg.decode_chunk} steps: wall "
+        f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({busy / wall_us:.3f} of the wall), {n_ops} device operations")
+    for name, us in top:
+        log(f"[profile]   {us / 1e3:9.3f} ms  {name}")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def cpu_greedy(params, cfg, prompt, max_new, prompt_pad, max_len):
+    """1-token-at-a-time greedy decode on the port's CPU path; returns the
+    tokens and each step's top-2 logit gap."""
+    from repro_torch import models
+    tokens = np.zeros((1, prompt_pad), np.int32)
+    tokens[0, prompt_pad - len(prompt):] = prompt
+    cache = models.init_cache(cfg, 1, max_len, device="cpu")
+    logits, cache = models.prefill(
+        params, cfg, {"tokens": torch.from_numpy(tokens)}, cache)
+    out, gaps, pos = [], [], prompt_pad
+    for t in range(max_new):
+        lg = logits[0, :cfg.vocab_size]
+        top = lg.topk(2).values
+        gaps.append(float(top[0] - top[1]))
+        out.append(int(lg.argmax()))
+        if t == max_new - 1:
+            break
+        logits, cache = models.decode_step(
+            params, cfg, torch.tensor([out[-1]], dtype=torch.int32), cache,
+            torch.tensor([pos], dtype=torch.int32))
+        pos += 1
+    return out, gaps
+
+
+def card_vs_cpu(cfg, dev) -> None:
+    from repro_torch.serving import Engine, ServeConfig
+    params = sparse_model(cfg, dev, SEED + 1)
+    scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32, page_size=16,
+                       decode_chunk=8, max_new_tokens=16, eos_token=-1)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in (5, 17, 26, 32)]
+    gpu = Engine(cfg, scfg, params, device=dev).generate(prompts)
+    cpu_params = _to(params, "cpu")
+    for i, (p, got) in enumerate(zip(prompts, gpu)):
+        want, gaps = cpu_greedy(cpu_params, cfg, p, scfg.max_new_tokens,
+                                scfg.prompt_pad, scfg.max_len)
+        split = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        log(f"[fidelity] request {i}: {len(got)} tokens, first split at "
+            f"{split}, min CPU top-2 gap {min(gaps):.3e}"
+            + ("" if split is None else f", gap there {gaps[split]:.3e}"))
+        if len(got) != len(want) or (split is not None
+                                     and gaps[split] >= GAP_TOL):
+            raise AssertionError(f"request {i}: card {got} vs CPU {want}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention, nm_spmm, \
+            paged_attention
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e}); run this "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(nvidia_smi())
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    log(f"[build] {len(reports)} kernel libraries built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    cfg = qwen3_0_6b.sparse()
+    rows = [check_nm_spmm(cfg, dev), check_paged_attention(cfg, dev),
+            check_flash_attention(cfg, dev)]
+
+    launches = serve_full_width(cfg, dev, (nm_spmm, paged_attention,
+                                           flash_attention))
+    card_vs_cpu(dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
+                                    dtype="float32"), dev)
+
+    kernels = [dict(name=r["name"], route="cuda", source=r["source"],
+                    replaces=r["replaces"], launches=launches[r["name"]],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for r in rows]
+    log(nvidia_smi())
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
