@@ -7,7 +7,7 @@ GPU — the quickest proof that the port starts on the card.
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+  2. build the six CUDA kernels from ``src/repro_torch/csrc`` (one
      ``nvcc`` per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes in bfloat16 (rtol 2e-2 / atol 1e-2, the bf16
@@ -16,18 +16,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (a yardstick only — the port never calls it) as device time from
      CUDA-graph replay, beside the least time the card could take (bytes
      at 3.35 TB/s, bf16 operations at 989 TFLOP/s, whichever is larger)
-     and the kernel's eager time (host launch cost included);
-  4. serve qwen3-0.6b ``sparse()`` (2:4, g=128 on all seven projections)
-     at full width, 28 layers, bf16, random weights from a seed, through
-     ``Engine`` over the paged KV cache: 16 requests of 16–128 tokens.
-     Every request must reach its budget, ``sync_count`` must equal the
-     number of decode chunks, and every kernel's launch count (set to 0
-     just before, read just after) must be positive.  Then one more
+     and the kernel's eager time (host launch cost included).  The block
+     and combined packs have exactly half of each weight's (128, 128)
+     tiles zeroed, one empty strip and padding slots; the lookahead
+     kernel also reproduces integer weights bit-exactly;
+  4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
+     a seed, through ``Engine`` over the paged KV cache, once per pack
+     format on all seven projections: ``sparse()`` (2:4, g=128) and
+     ``combined`` with 16 requests of 16–128 tokens and 64 new tokens
+     each, ``block`` and ``lookahead`` with 8 requests and 32 tokens.
+     Before packing, exactly half of each projection's tiles are zeroed
+     (not for ``sparse()``), so block and combined packs have tile
+     density 0.50.  Every request must reach its budget, ``sync_count``
+     must equal the number of decode chunks, the kernels of the format's
+     path must launch (counts set to 0 just before each serve, read just
+     after) and no other format's matmul kernel may; each scheduler
+     tick (admission, prefill and chunk) and each decode chunk is timed
+     on the host clock.  After the 2:4 and the combined serve, one more
      decode chunk under ``torch.profiler``: the card's busy share of the
      wall time and the kernels that fill it;
-  5. the same model cut to 2 layers at float32: greedy tokens on the card
-     against the port's CPU path; a token may differ only where the CPU
-     logits' top-2 gap is under 1e-2 (the gaps are printed).
+  5. each format's model cut to 2 layers at float32: greedy tokens on
+     the card against the port's CPU path; a token may differ only where
+     the CPU logits' top-2 gap is under 1e-2 (the gaps are printed).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -268,34 +278,243 @@ def check_flash_attention(cfg, dev) -> dict:
                 max_abs_err=err, **rows[128])
 
 
+FORMATS = {   # the other pack formats, as the JAX tests declare them
+    "combined": dict(format="combined", sparsity=0.5, n=2, m=4,
+                     block_k=128, block_n=128),
+    "block": dict(format="block", sparsity=0.5, block_k=128, block_n=128),
+    "lookahead": dict(format="lookahead", sparsity=0.5),
+}
+TILE = 128
+
+
+def zero_half_tiles(w: torch.Tensor, rng, empty_strip: bool = False
+                    ) -> torch.Tensor:
+    """``w`` with exactly half of its ``(128, 128)`` tiles zeroed, chosen
+    by ``rng``; with ``empty_strip`` the first N-strip's tiles are among
+    them, so a block pack has a strip with ``counts == 0``."""
+    K, N = w.shape
+    Kb, Nb = K // TILE, N // TILE
+    zero = np.zeros(Kb * Nb, bool)
+    if empty_strip:
+        zero[np.arange(Kb * Nb) % Nb == 0] = True
+    if zero.sum() > Kb * Nb // 2:
+        raise ValueError(f"one strip of {w.shape} is more than half its "
+                         "tiles")
+    rest = np.flatnonzero(~zero)
+    zero[rng.permutation(rest)[:Kb * Nb // 2 - int(zero.sum())]] = True
+    keep = torch.from_numpy(~zero.reshape(Kb, Nb)).to(w.device)
+    return w * keep.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+
+
+def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
+    """``copies`` layers of seven tile-zeroed projections packed in
+    ``fmt`` (block or combined), each padded one slot past the largest
+    strip count; with the pruned dense weights."""
+    from repro_torch.core import pruning, sparsity
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    packs, dense = [], []
+    for _ in range(copies):
+        for _, k, n in qwen3_projections(cfg):
+            w = zero_half_tiles((torch.randn((k, n), generator=gen,
+                                             device=dev) / k ** 0.5)
+                                .to(torch.bfloat16), rng, empty_strip=True)
+            if fmt == "block":
+                pw, _ = pruning.block_semi_structured(w, 0.5, block=TILE)
+                p = sparsity.pack_block_sparse(pw, TILE, TILE)
+                p = sparsity.pack_block_sparse(pw, TILE, TILE,
+                                               pad_to=p.max_nnz + 1)
+            else:
+                pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=TILE,
+                                            block=TILE)
+                p = sparsity.pack_combined(pw, 2, 4, TILE, TILE)
+                p = sparsity.pack_combined(pw, 2, 4, TILE, TILE,
+                                           pad_to=p.max_nnz + 1)
+            counts = p.counts.tolist()
+            assert counts[0] == 0 and max(counts) < p.max_nnz
+            assert p.density == 0.5, p.density
+            packs.append(p)
+            dense.append(pw)
+    return packs, dense
+
+
+def check_strip_kernel(cfg, dev, fmt: str, copies: int) -> dict:
+    """``bsr_matmul`` (block) or ``csa_matmul`` (combined) on one layer's
+    seven tile-zeroed projections at M = 8 and 128; timed over ``copies``
+    layers of distinct packs so the kept tiles stream from HBM."""
+    from repro_torch.kernels import bsr_matmul, csa_matmul, ref
+    if fmt == "block":
+        name, kernel, plain = "bsr_matmul", bsr_matmul.bsr_matmul, \
+            ref.bsr_matmul_ref
+    else:
+        name, kernel, plain = "csa_matmul", csa_matmul.csa_matmul, \
+            ref.csa_matmul_ref
+    packs, dense = strip_packs(cfg, dev, fmt, copies, SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    err, rows = 0.0, {}
+    for M in (8, 128):
+        xs = {k: torch.randn((M, k), generator=gen, device=dev)
+              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+        for p in packs[:7]:
+            err = max(err, check_close(f"{name} M={M} K={p.K} N={p.N}",
+                                       kernel(xs[p.K], p), plain(xs[p.K], p)))
+        nbytes = flops = 0.0
+        for p in packs[:7]:
+            rows_kept = int(p.counts.sum()) * p.values.shape[2]
+            nbytes += (M * p.K + rows_kept * p.bn + M * p.N) * 2 \
+                + (int(p.counts.sum()) + p.counts.numel()) * 4
+            if fmt == "combined":
+                nbytes += rows_kept * 4                       # gidx
+            flops += 2.0 * M * rows_kept * p.bn
+        b, by = bound_ms(nbytes, flops)
+        rows[M] = dict(
+            **timings(lambda: [kernel(xs[p.K], p) for p in packs],
+                      lambda: [plain(xs[p.K], p) for p in packs],
+                      lambda: [torch.matmul(xs[w.shape[0]], w)
+                               for w in dense], copies),
+            bound_ms=b, bound_by=by)
+        log(f"[kernels] {name} one layer's 7 projections at M={M}, tile "
+            f"density 0.50: {json.dumps(rows[M])}")
+    return dict(name=name, source=f"src/repro_torch/csrc/{name}.cu",
+                replaces={"bsr_matmul": "src/repro/kernels/bsr_matmul.py:63",
+                          "csa_matmul": "src/repro/kernels/csa_matmul.py:56"
+                          }[name],
+                max_abs_err=err, **rows[8])
+
+
+def check_lookahead(cfg, dev, copies: int = 4) -> dict:
+    """``lookahead_matmul`` on one layer's seven projections (pruned at
+    block 4 after zeroing half of each weight's tiles) at M = 8 and 128,
+    timed over ``copies`` layers; then the bit-exact check of
+    ``tests/test_kernels.py::test_lookahead_int7_exact`` on the card."""
+    from repro_torch.core import encoding, pruning, sparsity
+    from repro_torch.kernels import lookahead_decode as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    packs, dense = [], []
+    for _ in range(copies):
+        for _, k, n in qwen3_projections(cfg):
+            w = zero_half_tiles((torch.randn((k, n), generator=gen,
+                                             device=dev) / k ** 0.5)
+                                .to(torch.bfloat16), rng)
+            pw, _ = pruning.block_semi_structured(w, 0.5, block=4)
+            p = sparsity.LookaheadPack.from_float(pw)
+            packs.append(p)
+            dense.append(p.decode().to(torch.bfloat16))
+    err, rows = 0.0, {}
+    for M in (8, 128):
+        xs = {k: torch.randn((M, k), generator=gen, device=dev)
+              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+        for p in packs[:7]:
+            err = max(err, check_close(
+                f"lookahead_matmul M={M} K={p.K} N={p.N}",
+                K.lookahead_matmul(xs[p.K], p),
+                ref.lookahead_matmul_ref(xs[p.K], p)))
+        nbytes = flops = 0.0
+        for p in packs[:7]:
+            nbytes += (M * p.K + M * p.N) * 2 + p.K * p.N + p.N * 4
+            flops += 2.0 * M * p.K * p.N
+        b, by = bound_ms(nbytes, flops)
+        rows[M] = dict(
+            **timings(lambda: [K.lookahead_matmul(xs[p.K], p)
+                               for p in packs],
+                      lambda: [ref.lookahead_matmul_ref(xs[p.K], p)
+                               for p in packs],
+                      lambda: [torch.matmul(xs[w.shape[0]], w)
+                               for w in dense], copies),
+            bound_ms=b, bound_by=by)
+        log(f"[kernels] lookahead_matmul one layer's 7 projections at "
+            f"M={M}: {json.dumps(rows[M])}")
+    ints = torch.from_numpy(rng.integers(-64, 64, size=(1024, 1024))
+                            .astype(np.int8))
+    exact = sparsity.LookaheadPack(
+        enc=encoding.encode_weight_matrix(ints).to(dev),
+        scale=torch.ones((1, 1024), device=dev), K=1024, N=1024)
+    out = K.lookahead_matmul(torch.eye(1024, device=dev,
+                                       dtype=torch.bfloat16), exact)
+    if not torch.equal(out.float().cpu(), ints.float()):
+        raise AssertionError("lookahead_matmul is not bit-exact on integer "
+                             "weights")
+    log("[kernels] lookahead_matmul reproduces 1024x1024 int7 weights "
+        "bit-exactly (identity x, scale 1)")
+    return dict(name="lookahead_matmul",
+                source="src/repro_torch/csrc/lookahead_decode.cu",
+                replaces="src/repro/kernels/lookahead_decode.py:62",
+                max_abs_err=err, **rows[8])
+
+
 # --- phases 4 and 5 --------------------------------------------------------
 
-def sparse_model(cfg, dev, seed):
+def sparse_model(cfg, dev, seed, zero_tiles: bool = False):
+    """Random params from ``seed``, packed per ``cfg``; ``zero_tiles``
+    first zeroes exactly half of each projection's tiles."""
     from repro_torch import models
     from repro_torch.core.sparse_linear import pack_params
-    return pack_params(models.init_model(cfg, seed=seed, device=dev), cfg)
+    params = models.init_model(cfg, seed=seed, device=dev)
+    if zero_tiles:
+        rng = np.random.default_rng(seed)
+        for layer in params["layers"]:
+            for fam, names in (("attn", ("wq", "wk", "wv", "wo")),
+                               ("mlp", ("w_in", "w_gate", "w_out"))):
+                for name in names:
+                    layer[fam][name] = zero_half_tiles(layer[fam][name], rng)
+    return pack_params(params, cfg)
 
 
-def serve_full_width(cfg, dev, counters) -> dict:
+def pack_summary(params) -> str:
+    """Tile density of the block/combined packs, or the share of zero
+    4-blocks the lookahead skip bits encode."""
+    from repro_torch.core import encoding
+    from repro_torch.core.sparsity import LookaheadPack
+    weights = [w for layer in params["layers"] for fam in layer.values()
+               for w in fam.values()]
+    looks = [w for w in weights if isinstance(w, LookaheadPack)]
+    strips = [w for w in weights if hasattr(w, "counts")]
+    if looks:
+        zero = sum(int(encoding.block_is_zero(encoding.decode_values(
+            p.enc).T).sum()) for p in looks)
+        blocks = sum(p.K * p.N // 4 for p in looks)
+        return f"zero 4-block share {zero / blocks:.4f}"
+    if strips:
+        kept = sum(int(p.counts.sum()) for p in strips)
+        tiles = sum((p.K // p.bk) * (p.N // p.bn) for p in strips)
+        return f"tile density {kept / tiles:.4f}"
+    return "no tile skipping"
+
+
+def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
+                     max_new: int = 64, zero_tiles: bool = False,
+                     profile: bool = True) -> dict:
+    """Serve ``requests`` random prompts of 16–128 tokens through the
+    paged Engine; ``path`` names the kernels that must launch, every
+    other module of ``counters`` must not."""
     from repro_torch.serving import Engine, ServeConfig
+    fmt = cfg.mlp_sparsity.format
     t0 = time.perf_counter()
-    params = sparse_model(cfg, dev, SEED)
+    params = sparse_model(cfg, dev, SEED, zero_tiles=zero_tiles)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
-        f"{cfg.dtype}: random init + 2:4 pack in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[serve {fmt}] {cfg.name} {cfg.n_layers} layers "
+        f"d_model={cfg.d_model} {cfg.dtype}: random init + pack in "
+        f"{time.perf_counter() - t0:.1f} s, {pack_summary(params)}")
     scfg = ServeConfig(slots=8, max_len=512, prompt_pad=128, page_size=16,
-                       decode_chunk=16, max_new_tokens=64, eos_token=-1)
+                       decode_chunk=16, max_new_tokens=max_new, eos_token=-1)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in rng.integers(16, 129, size=16)]
+               for n in rng.integers(16, 129, size=requests)]
     eng = Engine(cfg, scfg, params, device=dev)
     for mod in counters:
         mod.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(p) for p in prompts]
-    eng.run()
+    step_s = []                  # whole ticks: admission + prefill + chunk
+    while eng.num_queued or eng.num_live:
+        if len(step_s) > 4 * requests:
+            raise AssertionError("the serve does not drain")
+        t1 = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
@@ -311,8 +530,9 @@ def serve_full_width(cfg, dev, counters) -> dict:
     if st.sync_count != len(st.chunk_s):
         raise AssertionError(f"sync_count {st.sync_count} != "
                              f"{len(st.chunk_s)} chunks")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if any((launches[name] > 0) != (name in path) for name in launches):
+        raise AssertionError(f"{fmt}: the kernels of {sorted(path)} must "
+                             f"launch and no other: {launches}")
     ntok = sum(len(o) for o in outs)
     ttft = sorted(eng.ttfts_s())
     report = {
@@ -321,14 +541,17 @@ def serve_full_width(cfg, dev, counters) -> dict:
         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
         "decode_ms_per_step": 1e3 * sum(st.chunk_s)
         / (len(st.chunk_s) * scfg.decode_chunk),
+        "step_ms": [round(1e3 * t, 1) for t in step_s],
+        "chunk_ms": [round(1e3 * t, 1) for t in st.chunk_s],
         "chunks": len(st.chunk_s), "sync_count": st.sync_count,
         "prefills": st.prefills, "peak_pages": st.peak_pages,
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log(f"[serve] {json.dumps(report)}")
-    log(f"[serve] first request's tokens: {outs[0][:16]}")
-    profile_decode_chunk(eng, prompts)
+    log(f"[serve {fmt}] {json.dumps(report)}")
+    log(f"[serve {fmt}] first request's tokens: {outs[0][:16]}")
+    if profile:
+        profile_decode_chunk(eng, prompts)
     return launches
 
 
@@ -398,9 +621,10 @@ def cpu_greedy(params, cfg, prompt, max_new, prompt_pad, max_len):
     return out, gaps
 
 
-def card_vs_cpu(cfg, dev) -> None:
+def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
     from repro_torch.serving import Engine, ServeConfig
-    params = sparse_model(cfg, dev, SEED + 1)
+    fmt = cfg.mlp_sparsity.format
+    params = sparse_model(cfg, dev, SEED + 1, zero_tiles=zero_tiles)
     scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32, page_size=16,
                        decode_chunk=8, max_new_tokens=16, eos_token=-1)
     rng = np.random.default_rng(SEED + 1)
@@ -413,12 +637,20 @@ def card_vs_cpu(cfg, dev) -> None:
                                 scfg.prompt_pad, scfg.max_len)
         split = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
                      None)
-        log(f"[fidelity] request {i}: {len(got)} tokens, first split at "
-            f"{split}, min CPU top-2 gap {min(gaps):.3e}"
+        log(f"[fidelity {fmt}] request {i}: {len(got)} tokens, first "
+            f"split at {split}, min CPU top-2 gap {min(gaps):.3e}"
             + ("" if split is None else f", gap there {gaps[split]:.3e}"))
         if len(got) != len(want) or (split is not None
                                      and gaps[split] >= GAP_TOL):
-            raise AssertionError(f"request {i}: card {got} vs CPU {want}")
+            raise AssertionError(f"{fmt} request {i}: card {got} vs CPU "
+                                 f"{want}")
+
+
+def with_format(cfg, fmt: str):
+    """``cfg`` with all seven projections in pack format ``fmt``."""
+    from repro_torch.core.sparse_linear import SparsityConfig
+    sp = SparsityConfig(**FORMATS[fmt])
+    return dataclasses.replace(cfg, mlp_sparsity=sp, attn_sparsity=sp)
 
 
 def main() -> int:
@@ -429,8 +661,8 @@ def main() -> int:
     try:
         from repro_torch.configs import qwen3_0_6b
         from repro_torch.kernels import _build
-        from repro_torch.kernels import flash_attention, nm_spmm, \
-            paged_attention
+        from repro_torch.kernels import bsr_matmul, csa_matmul, \
+            flash_attention, lookahead_decode, nm_spmm, paged_attention
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e}); run this "
               "from a checkout of the repository", file=sys.stderr)
@@ -442,6 +674,11 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    seconds = {}
+
+    def timed(phase: str, t0: float) -> None:
+        seconds[phase] = time.perf_counter() - t0
+        log(f"[phase] {phase}: {seconds[phase]:.1f} s")
 
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -451,15 +688,45 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    timed("2 build", t0)
 
+    t0 = time.perf_counter()
     cfg = qwen3_0_6b.sparse()
     rows = [check_nm_spmm(cfg, dev), check_paged_attention(cfg, dev),
-            check_flash_attention(cfg, dev)]
+            check_flash_attention(cfg, dev),
+            check_strip_kernel(cfg, dev, "combined", copies=8),
+            check_strip_kernel(cfg, dev, "block", copies=4),
+            check_lookahead(cfg, dev)]
+    timed("3 kernels", t0)
 
-    launches = serve_full_width(cfg, dev, (nm_spmm, paged_attention,
-                                           flash_attention))
-    card_vs_cpu(dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
-                                    dtype="float32"), dev)
+    # each format's serve: (kernel module, kernel name, requests, tokens,
+    # profiled); the paged and flash kernels run on every path
+    counters = (nm_spmm, paged_attention, flash_attention, csa_matmul,
+                bsr_matmul, lookahead_decode)
+    attention = {"paged_attention", "flash_attention"}
+    serves = {"combined": ("csa_matmul", "csa_matmul", 16, 64, True),
+              "block": ("bsr_matmul", "bsr_matmul", 8, 32, False),
+              "lookahead": ("lookahead_decode", "lookahead_matmul", 8, 32,
+                            False)}
+    t0 = time.perf_counter()
+    launches = serve_full_width(cfg, dev, counters, {"nm_spmm"} | attention)
+    timed("4 serve nm", t0)
+    for fmt, (module, kernel, requests, max_new, profile) in serves.items():
+        t0 = time.perf_counter()
+        got = serve_full_width(with_format(qwen3_0_6b.config(), fmt), dev,
+                               counters, {module} | attention,
+                               requests=requests, max_new=max_new,
+                               zero_tiles=True, profile=profile)
+        launches[kernel] = got[module]
+        timed(f"4 serve {fmt}", t0)
+
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
+                                dtype="float32")
+    card_vs_cpu(small, dev)
+    for fmt in serves:
+        card_vs_cpu(with_format(small, fmt), dev, zero_tiles=True)
+    timed("5 fidelity", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
@@ -467,6 +734,7 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for r in rows]
+    log(f"[phase] seconds {json.dumps(seconds)}")
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

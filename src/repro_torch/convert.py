@@ -2,24 +2,31 @@
 bridge (this module imports neither ``jax`` nor ``repro``).
 
 The input is the JAX parameter tree flattened to nested dicts of numpy
-arrays: every ``NMPack`` becomes a dict with ``values``, ``idx``, ``K``,
-``N``, ``n``, ``m`` and ``g``, and the ``layers`` subtree keeps its
-leading layer axis (the JAX model scans over it).  The output is the
-port's tree: ``layers`` becomes a list of per-layer dicts, packs become
-:class:`~repro_torch.core.sparsity.NMPack`, arrays become tensors on
+arrays: every pack becomes the dict of its fields (``NMPack``:
+``values, idx, K, N, n, m, g``; ``BlockSparsePack``: ``values, indices,
+counts, K, N, bk, bn, max_nnz``; ``CombinedPack``: those plus ``gidx, n,
+m``; ``LookaheadPack``: ``enc, scale, K, N``), and the ``layers``
+subtree keeps its leading layer axis (the JAX model scans over it).  The
+output is the port's tree: ``layers`` becomes a list of per-layer dicts,
+packs become the port's pack classes, arrays become tensors on
 ``device`` in their own dtype — so both sides compute the same thing.
+A layer of a stacked block or combined pack keeps the padding slots the
+JAX packer added up to the largest layer's ``max_nnz``.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.sparsity import NMPack
+from repro_torch.core.sparsity import PACK_TYPES
 
-_PACK_KEYS = {"values", "idx", "K", "N", "n", "m", "g"}
+#: field names of each pack class; the key sets are distinct
+_PACKS = {frozenset(f.name for f in dataclasses.fields(c)): c
+          for c in PACK_TYPES}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -30,19 +37,18 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _is_pack(node: Any) -> bool:
-    return isinstance(node, dict) and set(node) == _PACK_KEYS
+def _pack_class(node: Any) -> Optional[type]:
+    return _PACKS.get(frozenset(node)) if isinstance(node, dict) else None
 
 
 def _convert(node: Any, device, layer=None) -> Any:
     """Convert a subtree, taking slice ``layer`` of every array when the
     subtree is a layer stack."""
-    if _is_pack(node):
-        pick = (lambda a: a[layer]) if layer is not None else (lambda a: a)
-        return NMPack(values=_tensor(pick(node["values"]), device),
-                      idx=_tensor(pick(node["idx"]), device).to(torch.int32),
-                      K=int(node["K"]), N=int(node["N"]), n=int(node["n"]),
-                      m=int(node["m"]), g=int(node["g"]))
+    cls = _pack_class(node)
+    if cls is not None:
+        return cls(**{k: int(v) if isinstance(v, (int, np.integer)) else
+                      _tensor(v[layer] if layer is not None else v, device)
+                      for k, v in node.items()})
     if isinstance(node, dict):
         return {k: _convert(v, device, layer) for k, v in node.items()}
     a = np.asarray(node)
@@ -51,8 +57,10 @@ def _convert(node: Any, device, layer=None) -> Any:
 
 def _depth(node: Any) -> int:
     """Leading-axis length of the first array in a layer stack."""
-    if _is_pack(node):
-        return np.asarray(node["values"]).shape[0]
+    cls = _pack_class(node)
+    if cls is not None:
+        first = "enc" if "enc" in node else "values"
+        return np.asarray(node[first]).shape[0]
     if isinstance(node, dict):
         return _depth(next(iter(node.values())))
     return np.asarray(node).shape[0]

@@ -6,8 +6,10 @@ branch on format.  Lifecycle as in the JAX package: dense init →
 ``pack_params`` (offline prune + pack per layer) → forward through
 ``kernels.dispatch.sparse_matmul``.
 
-Formats ported: ``dense`` and ``nm``.  ``lookahead``, ``block`` and
-``combined`` raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
+Formats: ``dense``, ``nm`` (2:4-style, ``nm_spmm``), ``block``
+(block skip, ``bsr_matmul``), ``combined`` (block skip × n:m,
+``csa_matmul``) and ``lookahead`` (int7 with LSB skip bits,
+``lookahead_matmul``).
 """
 
 from __future__ import annotations
@@ -19,9 +21,8 @@ from typing import Any, Optional, Sequence
 import torch
 
 from repro_torch.core import pruning, sparsity
+from repro_torch.core.sparsity import PACK_TYPES, LookaheadPack
 from repro_torch.kernels import dispatch
-
-_LATER = "format {!r} is not ported yet (ROADMAP queue 1 item 10)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,9 +30,11 @@ class SparsityConfig:
     """Per-layer-family sparsity declaration (config-file level).
 
     ``format``: ``dense | lookahead | block | nm | combined``;
-    ``n, m``: the N:M pattern; ``block_n``: the column-group width ``g``
-    that shares kept positions.  ``sparsity``, ``block_k`` and ``impl``
-    are carried for field parity with the JAX config.
+    ``sparsity``: the block sparsity of ``block``/``combined``/
+    ``lookahead`` (the paper's x_ss); ``n, m``: the N:M pattern of
+    ``nm``/``combined``; ``block_k, block_n``: the skip-tile geometry
+    (``block_n`` is also the column group ``g`` of ``nm``).  ``impl`` is
+    carried for field parity with the JAX config.
     """
     format: str = "dense"
     sparsity: float = 0.5
@@ -61,19 +64,38 @@ def prune_weight(w: torch.Tensor, cfg: SparsityConfig):
     """Offline pruning matching the configured format's structure."""
     if cfg.format == "dense":
         return w, torch.ones_like(w)
+    if cfg.format == "lookahead":
+        # the faithful path prunes at the paper's block-4 granularity
+        return pruning.block_semi_structured(w, cfg.sparsity, block=4)
+    if cfg.format == "block":
+        return pruning.block_semi_structured(w, cfg.sparsity,
+                                             block=cfg.block_k)
     if cfg.format == "nm":
         return pruning.n_m(w, cfg.n, cfg.m, group=cfg.block_n)
-    raise NotImplementedError(_LATER.format(cfg.format))
+    if cfg.format == "combined":
+        return pruning.combined_nm(w, cfg.sparsity, cfg.n, cfg.m,
+                                   group=cfg.block_n, block=cfg.block_k)
+    raise ValueError(cfg.format)
 
 
-def pack_weight(w: torch.Tensor, cfg: SparsityConfig):
+def pack_weight(w: torch.Tensor, cfg: SparsityConfig,
+                pad_to: Optional[int] = None):
     """Offline packing of a (pruned) dense weight; ``dense`` passes
-    through."""
+    through.  ``pad_to`` sets the slots per strip of a block or combined
+    pack."""
     if cfg.format == "dense":
         return w
+    if cfg.format == "lookahead":
+        return LookaheadPack.from_float(w)
+    if cfg.format == "block":
+        return sparsity.pack_block_sparse(w, cfg.block_k, cfg.block_n,
+                                          pad_to=pad_to)
     if cfg.format == "nm":
         return sparsity.pack_nm(w, cfg.n, cfg.m, g=cfg.block_n)
-    raise NotImplementedError(_LATER.format(cfg.format))
+    if cfg.format == "combined":
+        return sparsity.pack_combined(w, cfg.n, cfg.m, cfg.block_k,
+                                      cfg.block_n, pad_to=pad_to)
+    raise ValueError(cfg.format)
 
 
 def _family_sparsity(names: Sequence[str], cfg: Any
@@ -132,3 +154,22 @@ def apply_linear(x: torch.Tensor, weight: Any,
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = dispatch.sparse_matmul(x2, weight)
     return out.reshape(*lead, out.shape[-1])
+
+
+def weight_out_features(weight: Any) -> int:
+    if isinstance(weight, PACK_TYPES):
+        return weight.N
+    return weight.shape[-1]
+
+
+def format_stats(weight: Any) -> dict:
+    """Values and metadata bytes of a weight, plus the tile density of a
+    block pack and 1.0 for a dense weight."""
+    if isinstance(weight, PACK_TYPES):
+        stats = {"values_bytes": sparsity.values_bytes(weight),
+                 "metadata_bytes": sparsity.metadata_bytes(weight)}
+        if isinstance(weight, sparsity.BlockSparsePack):
+            stats["density"] = weight.density
+        return stats
+    return {"values_bytes": weight.numel() * weight.element_size(),
+            "metadata_bytes": 0, "density": 1.0}

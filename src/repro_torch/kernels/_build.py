@@ -22,7 +22,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("nm_spmm", "paged_attention", "flash_attention")
+SOURCES = ("nm_spmm", "paged_attention", "flash_attention", "bsr_matmul",
+           "csa_matmul", "lookahead_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -17,9 +17,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.sparsity import NMPack
+from repro_torch.core.sparsity import (PACK_TYPES, BlockSparsePack,
+                                       CombinedPack, LookaheadPack, NMPack)
 from repro_torch.kernels import ref
+from repro_torch.kernels.bsr_matmul import bsr_matmul
+from repro_torch.kernels.csa_matmul import csa_matmul
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lookahead_decode import lookahead_matmul
 from repro_torch.kernels.nm_spmm import nm_spmm
 from repro_torch.kernels.paged_attention import PagedKV
 from repro_torch.kernels.paged_attention import \
@@ -31,12 +35,13 @@ class SparsityDescriptor:
     """Structural summary of a weight: the dispatch key.
 
     ``pattern`` is the sparsity signature used in plans and logs, with
-    the JAX package's strings: ``"2:4g128"``, ``"paged16x32"``,
+    the JAX package's strings: ``"2:4g128"``, ``"bsr128x128d0.50"``,
+    ``"csa128x128d0.50+2:4"``, ``"lookahead"``, ``"paged16x32"``,
     ``"dense"``.  For a paged cache ``K`` is the logical view
     (``max_pages * page_size``), ``N`` the head dim, ``g`` the page size
     and ``bk`` the page count.
     """
-    kind: str          # dense | nm | paged
+    kind: str          # dense | block | nm | combined | lookahead | paged
     K: int
     N: int
     dtype: str
@@ -44,31 +49,62 @@ class SparsityDescriptor:
     m: Optional[int] = None
     g: Optional[int] = None
     bk: Optional[int] = None
+    bn: Optional[int] = None
+    density: Optional[float] = None  # non-zero tile fraction
 
     @property
     def pattern(self) -> str:
         if self.kind == "nm":
             return f"{self.n}:{self.m}g{self.g}"
+        if self.kind == "block":
+            return f"bsr{self.bk}x{self.bn}d{self.density:.2f}"
+        if self.kind == "combined":
+            return (f"csa{self.bk}x{self.bn}d{self.density:.2f}"
+                    f"+{self.n}:{self.m}")
         if self.kind == "paged":
             return f"paged{self.g}x{self.bk}"
         return self.kind
 
     @classmethod
     def of(cls, weight: Any) -> "SparsityDescriptor":
+        """The descriptor of a dense tensor, a pack or a paged cache; a
+        block or combined pack's density reads its ``counts`` on the
+        host."""
         if isinstance(weight, NMPack):
             return cls(kind="nm", K=weight.K, N=weight.N,
-                       dtype=str(weight.values.dtype).replace("torch.", ""),
-                       n=weight.n, m=weight.m, g=weight.g)
+                       dtype=_dtype(weight.values), n=weight.n, m=weight.m,
+                       g=weight.g)
+        if isinstance(weight, BlockSparsePack):
+            return cls(kind="block", K=weight.K, N=weight.N,
+                       dtype=_dtype(weight.values), bk=weight.bk,
+                       bn=weight.bn, density=weight.density)
+        if isinstance(weight, CombinedPack):
+            return cls(kind="combined", K=weight.K, N=weight.N,
+                       dtype=_dtype(weight.values), n=weight.n, m=weight.m,
+                       bk=weight.bk, bn=weight.bn, density=weight.density)
+        if isinstance(weight, LookaheadPack):
+            return cls(kind="lookahead", K=weight.K, N=weight.N,
+                       dtype=_dtype(weight.enc))
         if isinstance(weight, PagedKV):
             return cls(kind="paged", K=weight.max_pages * weight.page_size,
                        N=weight.head_dim,
-                       dtype=str(weight.k.dtype).replace("torch.", ""),
-                       g=weight.page_size, bk=weight.max_pages)
+                       dtype=_dtype(weight.k), g=weight.page_size,
+                       bk=weight.max_pages)
         if isinstance(weight, torch.Tensor) and weight.dim() == 2:
             return cls(kind="dense", K=weight.shape[0], N=weight.shape[1],
-                       dtype=str(weight.dtype).replace("torch.", ""))
-        raise TypeError(f"cannot describe weight of type {type(weight)} "
-                        "(only dense and nm are ported)")
+                       dtype=_dtype(weight))
+        raise TypeError(f"cannot describe weight of type {type(weight)}")
+
+
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+#: The descriptor kind of each weight type: what :func:`sparse_matmul`
+#: dispatches on without building a descriptor (whose density would read
+#: ``counts`` back from the card on every call).
+_KINDS = {NMPack: "nm", BlockSparsePack: "block", CombinedPack: "combined",
+          LookaheadPack: "lookahead", torch.Tensor: "dense"}
 
 
 def resolve_device(device) -> torch.device:
@@ -107,6 +143,21 @@ def _nm_run(x, pack, mode):
     return ref.nm_spmm_ref(x, pack) if mode == "ref" else nm_spmm(x, pack)
 
 
+def _bsr_run(x, pack, mode):
+    return ref.bsr_matmul_ref(x, pack) if mode == "ref" else \
+        bsr_matmul(x, pack)
+
+
+def _csa_run(x, pack, mode):
+    return ref.csa_matmul_ref(x, pack) if mode == "ref" else \
+        csa_matmul(x, pack)
+
+
+def _lookahead_run(x, pack, mode):
+    return ref.lookahead_matmul_ref(x, pack) if mode == "ref" else \
+        lookahead_matmul(x, pack)
+
+
 def _paged_run(q, kv, mode):
     if mode == "ref":
         return ref.paged_attention_ref(q, kv.k, kv.v, kv.ptab, kv.lens)
@@ -115,6 +166,9 @@ def _paged_run(q, kv, mode):
 
 _REGISTRY: Dict[str, KernelEntry] = {e.name: e for e in (
     KernelEntry("nm_spmm", "nm", _nm_run),
+    KernelEntry("bsr_matmul", "block", _bsr_run),
+    KernelEntry("csa_matmul", "combined", _csa_run),
+    KernelEntry("lookahead_decode", "lookahead", _lookahead_run),
     KernelEntry("paged_attention", "paged", _paged_run),
     # a plain matrix product: what the JAX package leaves to XLA
     KernelEntry("dense", "dense", lambda x, w, mode: x @ w),
@@ -125,18 +179,22 @@ def registry() -> Dict[str, KernelEntry]:
     return dict(_REGISTRY)
 
 
-def _entry_for(desc: SparsityDescriptor) -> KernelEntry:
+def _entry_for(kind: str) -> KernelEntry:
     for e in _REGISTRY.values():
-        if e.kind == desc.kind:
+        if e.kind == kind:
             return e
-    raise NotImplementedError(f"no kernel for {desc.kind!r} weights")
+    raise NotImplementedError(f"no kernel for {kind!r} weights")
 
 
 def sparse_matmul(x: torch.Tensor, weight: Any) -> torch.Tensor:
-    """``x (M, K) @ weight (K, N) -> (M, N)`` for a dense tensor or an
-    :class:`NMPack`."""
-    entry = _entry_for(SparsityDescriptor.of(weight))
-    return entry.run(x, weight, resolve_mode(x.device))
+    """``x (M, K) @ weight (K, N) -> (M, N)`` for a dense tensor or any
+    pack."""
+    kind = next((k for t, k in _KINDS.items() if isinstance(weight, t)),
+                None)
+    if kind is None or (kind == "dense" and weight.dim() != 2):
+        raise TypeError(f"cannot multiply by a weight of type "
+                        f"{type(weight)}")
+    return _entry_for(kind).run(x, weight, resolve_mode(x.device))
 
 
 def paged_attention(q: torch.Tensor, kv: PagedKV) -> torch.Tensor:
@@ -170,10 +228,10 @@ def plan_params(params: Any, M: int, device) -> List[dict]:
         elif isinstance(node, list):
             for i, v in enumerate(node):
                 visit(v, path + (str(i),))
-        elif isinstance(node, NMPack):
+        elif isinstance(node, PACK_TYPES):
             d = SparsityDescriptor.of(node)
             plan.append({"param": "/".join(path), "M": M,
-                         "kernel": _entry_for(d).name, "mode": mode,
+                         "kernel": _entry_for(d.kind).name, "mode": mode,
                          "pattern": d.pattern})
 
     visit(params, ())

@@ -12,7 +12,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sparsity import NMPack
+from repro_torch.core import encoding
+from repro_torch.core.sparsity import (BlockSparsePack, CombinedPack,
+                                       LookaheadPack, NMPack)
 
 NEG_INF = -1e30
 
@@ -26,6 +28,43 @@ def nm_spmm_ref(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
     vals = pack.values.reshape(pack.Kc, Ng, g)
     out = torch.einsum("mkj,kjg->mjg", xg.float(), vals.float())
     return out.reshape(M, pack.N).to(x.dtype)
+
+
+def bsr_matmul_ref(x: torch.Tensor, pack: BlockSparsePack) -> torch.Tensor:
+    """``x (M, K) @ densify(pack)`` over the packed tiles only: gather the
+    x K-tiles the strips list, mask the padding slots, contract."""
+    M, K = x.shape
+    bk = pack.bk
+    xt = x.reshape(M, K // bk, bk)
+    xg = xt[:, pack.indices.long(), :].permute(1, 2, 0, 3)  # (Nb, T, M, bk)
+    valid = (torch.arange(pack.max_nnz, device=x.device)[None, :]
+             < pack.counts[:, None])
+    vals = torch.where(valid[:, :, None, None], pack.values, 0)
+    out = torch.einsum("jtmk,jtkn->jmn", xg.float(), vals.float())
+    return out.permute(1, 0, 2).reshape(M, pack.N).to(x.dtype)
+
+
+def csa_matmul_ref(x: torch.Tensor, pack: CombinedPack) -> torch.Tensor:
+    """``x (M, K) @ densify(pack)``: gather each listed K-tile, then its
+    n:m-kept rows through ``gidx``, mask the padding slots, contract."""
+    M, K = x.shape
+    Nb, T, bkc = pack.gidx.shape
+    xt = x.reshape(M, K // pack.bk, pack.bk)
+    xg = xt[:, pack.indices.long(), :]                     # (M, Nb, T, bk)
+    xs = torch.gather(xg, 3, pack.gidx.long()[None].expand(M, Nb, T, bkc))
+    valid = (torch.arange(T, device=x.device)[None, :]
+             < pack.counts[:, None])
+    vals = torch.where(valid[:, :, None, None], pack.values, 0)
+    out = torch.einsum("mjtk,jtkn->mjn", xs.float(), vals.float())
+    return out.reshape(M, pack.N).to(x.dtype)
+
+
+def lookahead_matmul_ref(x: torch.Tensor, pack: LookaheadPack
+                         ) -> torch.Tensor:
+    """Decode the INT7 values, apply the per-column scale, then the
+    product (the kernel applies the scale after it)."""
+    w = encoding.decode_values(pack.enc).float() * pack.scale
+    return (x.float() @ w).to(x.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,8 +1,9 @@
 """The port's serving Engine against the JAX Engine on the same weights:
 greedy transcripts and sync counts, monolithic and paged layouts, on the
 CPU at float32 (bf16 KV cache, the engines' default).  This file serves
-dense projections; ``test_torch_engine_nm.py`` runs the same tests on
-2:4-packed ones (``FORMAT`` of the collecting module picks)."""
+dense projections; ``test_torch_engine_{nm,combined,block,lookahead}.py``
+run the same tests on packed ones (``FORMAT`` of the collecting module
+picks)."""
 
 import numpy as np
 import pytest
@@ -26,15 +27,19 @@ SERVE = dict(slots=2, max_len=64, prompt_pad=8, max_new_tokens=16,
 LAYOUTS = {"mono": {}, "paged": dict(page_size=8, page_view_chunk=1)}
 
 
-@pytest.fixture(scope="module")
-def served(request):
-    """Params of the module's format plus the 1-token-at-a-time JAX
-    oracle's transcripts."""
-    jcfg, jp, tcfg, tp = build_params(request.module.FORMAT)
+def served_params(fmt, zero_tiles=False):
+    """Params of ``fmt`` plus the 1-token-at-a-time JAX oracle's
+    transcripts."""
+    jcfg, jp, tcfg, tp = build_params(fmt, zero_tiles=zero_tiles)
     oracle = [reference_decode(jp, jcfg, p, n, SERVE["eos_token"],
                                SERVE["prompt_pad"], SERVE["max_len"])
               for p, n in zip(PROMPTS, BUDGETS)]
     return jcfg, jp, tcfg, tp, oracle
+
+
+@pytest.fixture(scope="module")
+def served(request):
+    return served_params(request.module.FORMAT)
 
 
 def serve_both(served, layout):
@@ -60,6 +65,20 @@ def test_greedy_transcripts_match_jax(served, layout):
     if layout == "paged":
         assert teng.stats().peak_pages > 0
         assert len(teng._backend.free_pages) == teng.scfg.pool_pages
+
+
+def check_tile_zeroed_parity(fmt):
+    """Paged serving of ``fmt`` packs with half of every projection's
+    tiles zeroed (tile density 0.50, strips of different counts, padding
+    slots from the JAX stack) matches the JAX Engine and the oracle."""
+    served = served_params(fmt, zero_tiles=True)
+    (jout, tout), jeng, teng = serve_both(served, "paged")
+    assert tout == jout == served[-1]
+    assert teng.sync_count == jeng.sync_count
+    tag = {"block": "bsr128x128d0.50", "combined": "csa128x128d0.50+2:4"}
+    assert {r["pattern"] for r in teng.decode_plan} == {tag[fmt]}
+    packs = [served[3]["layers"][0]["mlp"][n] for n in ("w_in", "w_out")]
+    assert any(int(p.counts.max()) < p.max_nnz for p in packs)
 
 
 def test_cancel_frees_pages_and_emits_nothing_more(served):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, in
 bfloat16 at rtol 2e-2 / atol 1e-2 (the bf16 tolerance of
-``tests/test_kernels.py``), plus a short paged Engine run.
+``tests/test_kernels.py``), plus a short paged Engine run per format.
 
 Marked ``gpu``; without a CUDA device each test skips.  This file
 imports neither ``jax`` nor ``repro``, so it also runs on a machine with
@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import pruning, sparsity
+from repro_torch.core import encoding, pruning, sparsity
+from repro_torch.kernels import bsr_matmul as bsr_mod
+from repro_torch.kernels import csa_matmul as csa_mod
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import lookahead_decode as lookahead_mod
 from repro_torch.kernels import nm_spmm as nm_mod
 from repro_torch.kernels import paged_attention as paged_mod
 from repro_torch.kernels import ref
@@ -61,6 +64,80 @@ def test_nm_spmm_kernel(cuda, M, K, N, dtype):
     close(got, (x.float() @ w.float()))
 
 
+def tile_zeroed(seed, K, N, dev, dtype=torch.bfloat16, tile=128):
+    """Random ``(K, N)`` weights with half of the ``(tile, tile)`` tiles
+    zeroed and the last strip emptied: a ``counts == 0`` strip and
+    strips of different counts."""
+    rng = np.random.default_rng(seed)
+    Kb, Nb = K // tile, N // tile
+    keep = np.zeros(Kb * Nb, bool)
+    keep[rng.permutation(Kb * Nb)[:Kb * Nb // 2]] = True
+    keep = keep.reshape(Kb, Nb)
+    keep[:, -1] = False
+    mask = np.kron(keep, np.ones((tile, tile), bool))
+    w = rng.normal(size=(K, N)).astype(np.float32) / K ** 0.5
+    return torch.from_numpy(w * mask).to(dev, dtype)
+
+
+BF16 = torch.bfloat16
+STRIP_CASES = [(1, 1024, 1024, BF16), (3, 1024, 2048, BF16),
+               (8, 3072, 1024, BF16), (130, 1024, 3072, BF16),
+               (5, 1024, 1024, torch.float32)]
+
+
+@pytest.mark.parametrize("M,K,N,dtype", STRIP_CASES)
+@pytest.mark.parametrize("fmt", ["block", "combined"])
+def test_strip_kernels(cuda, fmt, M, K, N, dtype):
+    w = tile_zeroed(M, K, N, cuda, dtype)
+    pad = K // 128 + 1                         # more slots than any count
+    if fmt == "block":
+        pw, _ = pruning.block_semi_structured(w, 0.5, block=128)
+        pack = sparsity.pack_block_sparse(pw, 128, 128, pad_to=pad)
+        mod, kernel, plain = bsr_mod, bsr_mod.bsr_matmul, ref.bsr_matmul_ref
+    else:
+        pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=128, block=128)
+        pack = sparsity.pack_combined(pw, 2, 4, 128, 128, pad_to=pad)
+        mod, kernel, plain = csa_mod, csa_mod.csa_matmul, ref.csa_matmul_ref
+    counts = pack.counts.tolist()
+    assert counts[-1] == 0 and max(counts) < pack.max_nnz
+    x = randn(1, (M, K), cuda).to(dtype)
+    before = mod.launches
+    got = kernel(x, pack)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    close(got, plain(x, pack))
+    close(got, x.float() @ pw.float())
+    assert (got[:, -128:] == 0).all()
+
+
+@pytest.mark.parametrize("M,K,N,dtype", STRIP_CASES)
+def test_lookahead_kernel(cuda, M, K, N, dtype):
+    pw, _ = pruning.block_semi_structured(tile_zeroed(M, K, N, cuda, dtype),
+                                          0.5, block=4)
+    pack = sparsity.LookaheadPack.from_float(pw)
+    x = randn(2, (M, K), cuda).to(dtype)
+    before = lookahead_mod.launches
+    got = lookahead_mod.lookahead_matmul(x, pack)
+    torch.cuda.synchronize()
+    assert lookahead_mod.launches == before + 1
+    close(got, ref.lookahead_matmul_ref(x, pack))
+    close(got, (x.float() @ pack.decode()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lookahead_kernel_is_bit_exact(cuda, dtype):
+    """Identity x, integer weights in [-64, 63], scale 1: the kernel
+    returns the weights exactly."""
+    w = np.random.default_rng(8).integers(-64, 64, size=(256, 128)).astype(
+        np.int8)
+    enc = encoding.encode_weight_matrix(torch.from_numpy(w)).to(cuda)
+    pack = sparsity.LookaheadPack(
+        enc=enc, scale=torch.ones((1, 128), device=cuda), K=256, N=128)
+    out = lookahead_mod.lookahead_matmul(
+        torch.eye(256, device=cuda, dtype=dtype), pack)
+    assert torch.equal(out.float().cpu(), torch.from_numpy(w).float())
+
+
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_paged_attention_kernel(cuda, q_dtype):
     B, H, Hk, D, ps, P, mp = 5, 16, 8, 128, 16, 40, 8
@@ -84,22 +161,37 @@ def test_flash_attention_kernel(cuda, L, kw):
     close(got, ref.mha_ref(q.float(), k.float(), v.float(), **kw))
 
 
-def test_paged_engine_runs_the_kernels(cuda):
+FORMATS = {
+    "nm": (dict(format="nm", n=2, m=4, block_n=128), nm_mod),
+    "combined": (dict(format="combined", sparsity=0.5, n=2, m=4,
+                      block_k=128, block_n=128), csa_mod),
+    "block": (dict(format="block", sparsity=0.5, block_k=128, block_n=128),
+              bsr_mod),
+    "lookahead": (dict(format="lookahead", sparsity=0.5), lookahead_mod),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_paged_engine_runs_the_kernels(cuda, fmt):
+    import dataclasses
+
     from repro_torch import models
     from repro_torch.configs import qwen3_0_6b
-    from repro_torch.core.sparse_linear import pack_params
+    from repro_torch.core.sparse_linear import SparsityConfig, pack_params
     from repro_torch.serving import Engine, ServeConfig
-    import dataclasses
-    cfg = dataclasses.replace(qwen3_0_6b.sparse(), n_layers=2,
-                              layer_kinds=())
+    fields, mod = FORMATS[fmt]
+    sp = SparsityConfig(**fields)
+    cfg = dataclasses.replace(qwen3_0_6b.config(), n_layers=2,
+                              layer_kinds=(), mlp_sparsity=sp,
+                              attn_sparsity=sp)
     params = pack_params(models.init_model(cfg, seed=0, device=cuda), cfg)
     eng = Engine(cfg, ServeConfig(slots=2, max_len=96, prompt_pad=32,
                                   page_size=16, decode_chunk=4,
                                   max_new_tokens=6, eos_token=-1), params,
                  device=cuda)
-    counts = [m.launches for m in (nm_mod, paged_mod, flash_mod)]
+    mods = (mod, paged_mod, flash_mod)
+    counts = [m.launches for m in mods]
     outs = eng.generate([[1, 2, 3], list(range(5, 40))])
     assert [len(o) for o in outs] == [6, 6]
-    assert all(m.launches > c for m, c in
-               zip((nm_mod, paged_mod, flash_mod), counts))
+    assert all(m.launches > c for m, c in zip(mods, counts))
     assert eng.sync_count == len(eng.stats().chunk_s)

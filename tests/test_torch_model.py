@@ -1,11 +1,14 @@
 """The port's model against the JAX model on the same weights: prefill
-and per-slot decode logits, monolithic and paged cache, dense and
-2:4-packed projections, on the CPU at float32.
+and per-slot decode logits, monolithic and paged cache, dense and every
+packed format (2:4, block, combined, int7 lookahead) on all seven
+projections, on the CPU at float32.
 
 Weights come from the JAX init (+ ``pack_params``) and are carried over
 with ``repro_torch.convert.params_from_numpy``; the helpers here are
 shared with ``test_torch_engine.py``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +20,11 @@ from jax.sharding import AxisType
 from repro import models as JM
 from repro.core.sparse_linear import SparsityConfig as JSparsity
 from repro.core.sparse_linear import pack_params as jax_pack_params
-from repro.core.sparsity import NMPack as JNMPack
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import models as TM
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.sparse_linear import SparsityConfig as TSparsity
+from repro_torch.core.sparsity import PACK_TYPES
 from repro_torch.models.config import ModelConfig as TModelConfig
 
 ATOL = 1e-4                     # float32 logits; sums run in other orders
@@ -29,8 +32,18 @@ ATOL = 1e-4                     # float32 logits; sums run in other orders
 TINY = dict(name="tiny-qwen3", n_layers=2, d_model=256, vocab_size=512,
             n_heads=4, n_kv_heads=2, d_ff=512, qk_norm=True,
             dtype="float32", remat=False)
-NM = dict(format="nm", n=2, m=4, block_n=128)
-FORMATS = ("dense", "nm")
+#: each format's SparsityConfig fields, as the JAX tests declare them
+SPARSE = {
+    "nm": dict(format="nm", n=2, m=4, block_n=128),
+    "combined": dict(format="combined", sparsity=0.5, n=2, m=4,
+                     block_k=128, block_n=128),
+    "block": dict(format="block", sparsity=0.5, block_k=128, block_n=128),
+    "lookahead": dict(format="lookahead", sparsity=0.5),
+}
+NM = SPARSE["nm"]
+FORMATS = ("dense", *SPARSE)
+PROJECTIONS = (("attn", ("wq", "wk", "wv", "wo")),
+               ("mlp", ("w_in", "w_gate", "w_out")))
 
 
 def jax_mesh():
@@ -44,28 +57,51 @@ def configs(fmt):
     """(JAX config, port config) of the tiny qwen3-style model."""
     if fmt == "dense":
         return JModelConfig(**TINY), TModelConfig(**TINY)
-    return (JModelConfig(**TINY, mlp_sparsity=JSparsity(**NM),
-                         attn_sparsity=JSparsity(**NM)),
-            TModelConfig(**TINY, mlp_sparsity=TSparsity(**NM),
-                         attn_sparsity=TSparsity(**NM)))
+    sp = SPARSE[fmt]
+    return (JModelConfig(**TINY, mlp_sparsity=JSparsity(**sp),
+                         attn_sparsity=JSparsity(**sp)),
+            TModelConfig(**TINY, mlp_sparsity=TSparsity(**sp),
+                         attn_sparsity=TSparsity(**sp)))
 
 
 def flatten(node):
-    """The JAX param tree as nested dicts of numpy arrays (packs as
-    dicts) — the input of ``params_from_numpy``."""
-    if isinstance(node, JNMPack):
-        return {"values": np.asarray(node.values),
-                "idx": np.asarray(node.idx), "K": node.K, "N": node.N,
-                "n": node.n, "m": node.m, "g": node.g}
+    """The JAX param tree as nested dicts of numpy arrays (a pack as the
+    dict of its fields) — the input of ``params_from_numpy``."""
+    if dataclasses.is_dataclass(node):
+        return {f.name: flatten(getattr(node, f.name))
+                for f in dataclasses.fields(node)}
     if isinstance(node, dict):
         return {k: flatten(v) for k, v in node.items()}
-    return np.asarray(node)
+    return node if isinstance(node, int) else np.asarray(node)
 
 
-def build_params(fmt):
-    """(JAX config, JAX params, port config, port params on the CPU)."""
+def zero_half_tiles(w: np.ndarray, seed: int, tile: int = 128) -> np.ndarray:
+    """``w (L, K, N)`` with exactly half of each layer's ``(tile, tile)``
+    tiles zeroed, chosen from ``seed``: pruning then keeps every
+    non-zero tile, so a block or combined pack has tile density 0.50 and
+    strips of different counts."""
+    L, K, N = w.shape
+    Kb, Nb = K // tile, N // tile
+    rng = np.random.default_rng(seed)
+    keep = np.zeros((L, Kb * Nb), bool)
+    for layer in keep:
+        layer[rng.permutation(Kb * Nb)[:Kb * Nb // 2]] = True
+    mask = np.repeat(np.repeat(keep.reshape(L, Kb, Nb), tile, 1), tile, 2)
+    return np.where(mask, w, 0).astype(w.dtype)
+
+
+def build_params(fmt, zero_tiles=False):
+    """(JAX config, JAX params, port config, port params on the CPU);
+    ``zero_tiles`` zeroes half of every projection's tiles before
+    packing (:func:`zero_half_tiles`)."""
     jcfg, tcfg = configs(fmt)
     jp = JM.init_model(jax.random.key(0), jcfg)
+    if zero_tiles:
+        for i, (fam, names) in enumerate(PROJECTIONS):
+            for j, name in enumerate(names):
+                w = np.asarray(jp["layers"][fam][name])
+                jp["layers"][fam][name] = jnp.asarray(
+                    zero_half_tiles(w, seed=10 * i + j))
     if fmt != "dense":
         jp = jax_pack_params(jp, jcfg)
     return jcfg, jp, tcfg, params_from_numpy(flatten(jp), "cpu")
@@ -119,14 +155,18 @@ def test_prefill_and_decode_logits_match_jax(both, page_size):
 
 
 def test_converted_params_keep_the_packs(both):
-    """Every projection of the nm config arrives as a pack; nothing else
-    does."""
-    jcfg, _, tcfg, tp = both
-    from repro_torch.core.sparsity import NMPack
-    layer = tp["layers"][0]
-    projs = [layer["attn"][k] for k in ("wq", "wk", "wv", "wo")] + \
-        [layer["mlp"][k] for k in ("w_in", "w_gate", "w_out")]
-    packed = tcfg.mlp_sparsity.format == "nm"
-    assert all(isinstance(w, NMPack) == packed for w in projs)
+    """Every projection of a packed config arrives as a pack of the JAX
+    pack's class; nothing else does."""
+    jcfg, jp, tcfg, tp = both
+    for fam, names in PROJECTIONS:
+        for name in names:
+            want = type(jp["layers"][fam][name])
+            for layer in tp["layers"]:
+                got = layer[fam][name]
+                assert isinstance(got, PACK_TYPES) == (
+                    tcfg.mlp_sparsity.format != "dense")
+                assert type(got).__name__ == (
+                    want.__name__ if isinstance(got, PACK_TYPES)
+                    else "Tensor")
     assert len(tp["layers"]) == tcfg.n_layers
-    assert not isinstance(tp["embed"], NMPack)
+    assert not isinstance(tp["embed"], PACK_TYPES)
