@@ -8,10 +8,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build the six CUDA kernels from ``src/repro_torch/csrc`` (one
-     ``nvcc`` per source, in parallel) and print the build seconds;
+     ``nvcc`` per source, in parallel), print the build seconds and each
+     compiled kernel's registers and spills from the ``ptxas`` report;
   3. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes in bfloat16 (rtol 2e-2 / atol 1e-2, the bf16
-     tolerance of ``tests/test_kernels.py``), and time the kernel, the
+     tolerance of ``tests/test_kernels.py``; ``nm_spmm`` and
+     ``lookahead_matmul`` at M = 1, 5, 8, 17, 128 and 200 rows, each
+     call's launch plan printed), and time the kernel, the
      plain version and one library call computing the same function
      (a yardstick only — the port never calls it) as device time from
      CUDA-graph replay, beside the least time the card could take (bytes
@@ -48,6 +51,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -145,6 +150,30 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err.max().item()
 
 
+def ptxas_table(report: str) -> list:
+    """(kernel, registers, spill line) of each function in an
+    ``nvcc -Xptxas -v`` report, the names demangled where ``c++filt``
+    is on the PATH."""
+    rows, fn, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        elif "spill stores" in line:
+            spills = line.strip().split(", ", 1)[-1]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), spills])
+            fn = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60)
+        for r, name in zip(rows, names.stdout.splitlines()):
+            r[0] = name.replace("(anonymous namespace)::", "") \
+                .removeprefix("void ").split("(")[0]
+    return rows
+
+
 # --- phase 3: each kernel against its plain version -------------------------
 
 def qwen3_projections(cfg):
@@ -154,10 +183,25 @@ def qwen3_projections(cfg):
             ("w_in", d, ff), ("w_gate", d, ff), ("w_out", ff, d)]
 
 
+SWEEP_M = (1, 5, 8, 17, 128, 200)   # decode, ragged and prefill rows
+TIMED_M = (8, 128)                  # decode at 8 slots; a 128-token prompt
+
+
+def log_plans(name: str, plan, M: int, projections) -> None:
+    """The bf16 launch plan of each projection (``kernels.*.plan``)."""
+    parts = []
+    for proj, k, n in projections:
+        p = plan(M, k, n, torch.bfloat16)
+        parts.append(f"{proj} {p['route']} bm{p['bm']} bn{p['bn']} "
+                     f"split{p['split']} grid{p['grid']}")
+    log(f"[plan] {name} M={M}: " + "; ".join(parts))
+
+
 def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
-    """All seven projection geometries at M = 8 (decode) and 128
-    (prefill).  Timed per layer: ``copies`` layers of distinct packs, so
-    the weights stream from HBM as they do through 28 layers."""
+    """All seven projection geometries at every M of ``SWEEP_M`` against
+    the plain version; timed at ``TIMED_M`` per layer: ``copies`` layers
+    of distinct packs, so the weights stream from HBM as they do through
+    28 layers."""
     from repro_torch.core import pruning, sparsity
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
@@ -171,13 +215,19 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
             packs.append(sparsity.pack_nm(pw, 2, 4, g=128))
             dense.append(pw)
     err, rows = 0.0, {}
-    for M in (8, 128):
+    for M in SWEEP_M:
+        log_plans("nm_spmm", K.plan, M, qwen3_projections(cfg))
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
-        for p in packs[:7]:
-            err = max(err, check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
-                                       K.nm_spmm(xs[p.K], p),
-                                       ref.nm_spmm_ref(xs[p.K], p)))
+        err_m = max(check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
+                                K.nm_spmm(xs[p.K], p),
+                                ref.nm_spmm_ref(xs[p.K], p))
+                    for p in packs[:7])
+        log(f"[kernels] nm_spmm M={M}: max abs err {err_m:.3e} against "
+            "the plain version")
+        err = max(err, err_m)
+        if M not in TIMED_M:
+            continue
         nbytes = flops = 0.0
         for p in packs[:7]:
             nbytes += (M * p.K + p.Kc * p.N + M * p.N) * 2 + p.idx.numel() * 4
@@ -384,9 +434,10 @@ def check_strip_kernel(cfg, dev, fmt: str, copies: int) -> dict:
 
 def check_lookahead(cfg, dev, copies: int = 4) -> dict:
     """``lookahead_matmul`` on one layer's seven projections (pruned at
-    block 4 after zeroing half of each weight's tiles) at M = 8 and 128,
-    timed over ``copies`` layers; then the bit-exact check of
-    ``tests/test_kernels.py::test_lookahead_int7_exact`` on the card."""
+    block 4 after zeroing half of each weight's tiles) at every M of
+    ``SWEEP_M``, timed at ``TIMED_M`` over ``copies`` layers; then the
+    bit-exact check of ``tests/test_kernels.py::test_lookahead_int7_exact``
+    on the card."""
     from repro_torch.core import encoding, pruning, sparsity
     from repro_torch.kernels import lookahead_decode as K
     from repro_torch.kernels import ref
@@ -403,14 +454,19 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
             packs.append(p)
             dense.append(p.decode().to(torch.bfloat16))
     err, rows = 0.0, {}
-    for M in (8, 128):
+    for M in SWEEP_M:
+        log_plans("lookahead_matmul", K.plan, M, qwen3_projections(cfg))
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
-        for p in packs[:7]:
-            err = max(err, check_close(
-                f"lookahead_matmul M={M} K={p.K} N={p.N}",
-                K.lookahead_matmul(xs[p.K], p),
-                ref.lookahead_matmul_ref(xs[p.K], p)))
+        err_m = max(check_close(f"lookahead_matmul M={M} K={p.K} N={p.N}",
+                                K.lookahead_matmul(xs[p.K], p),
+                                ref.lookahead_matmul_ref(xs[p.K], p))
+                    for p in packs[:7])
+        log(f"[kernels] lookahead_matmul M={M}: max abs err {err_m:.3e} "
+            "against the plain version")
+        err = max(err, err_m)
+        if M not in TIMED_M:
+            continue
         nbytes = flops = 0.0
         for p in packs[:7]:
             nbytes += (M * p.K + M * p.N) * 2 + p.K * p.N + p.N * 4
@@ -431,13 +487,15 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
     exact = sparsity.LookaheadPack(
         enc=encoding.encode_weight_matrix(ints).to(dev),
         scale=torch.ones((1, 1024), device=dev), K=1024, N=1024)
-    out = K.lookahead_matmul(torch.eye(1024, device=dev,
-                                       dtype=torch.bfloat16), exact)
+    eye = torch.eye(1024, device=dev, dtype=torch.bfloat16)
+    if K.plan(1024, 1024, 1024, eye.dtype)["route"] != "mma":
+        raise AssertionError("bf16 x must take the tensor-core route")
+    out = K.lookahead_matmul(eye, exact)
     if not torch.equal(out.float().cpu(), ints.float()):
         raise AssertionError("lookahead_matmul is not bit-exact on integer "
                              "weights")
     log("[kernels] lookahead_matmul reproduces 1024x1024 int7 weights "
-        "bit-exactly (identity x, scale 1)")
+        "bit-exactly on the tensor-core route (identity x, scale 1)")
     return dict(name="lookahead_matmul",
                 source="src/repro_torch/csrc/lookahead_decode.cu",
                 replaces="src/repro/kernels/lookahead_decode.py:62",
@@ -685,9 +743,8 @@ def main() -> int:
     log(f"[build] {len(reports)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, regs, spills in ptxas_table(rep):
+            log(f"[build] {name}: {fn}: {regs} registers, {spills}")
     timed("2 build", t0)
 
     t0 = time.perf_counter()

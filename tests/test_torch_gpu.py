@@ -127,15 +127,88 @@ def test_lookahead_kernel(cuda, M, K, N, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_lookahead_kernel_is_bit_exact(cuda, dtype):
     """Identity x, integer weights in [-64, 63], scale 1: the kernel
-    returns the weights exactly."""
+    returns the weights exactly, on the tensor-core route (bf16) as on
+    the FMA route (fp32)."""
     w = np.random.default_rng(8).integers(-64, 64, size=(256, 128)).astype(
         np.int8)
     enc = encoding.encode_weight_matrix(torch.from_numpy(w)).to(cuda)
     pack = sparsity.LookaheadPack(
         enc=enc, scale=torch.ones((1, 128), device=cuda), K=256, N=128)
+    assert lookahead_mod.plan(256, 256, 128, dtype)["route"] == \
+        ("mma" if dtype == torch.bfloat16 else "fma")
+    before = lookahead_mod.launches
     out = lookahead_mod.lookahead_matmul(
         torch.eye(256, device=cuda, dtype=dtype), pack)
+    torch.cuda.synchronize()
+    assert lookahead_mod.launches == before + 1
     assert torch.equal(out.float().cpu(), torch.from_numpy(w).float())
+
+
+# the seven projections of one qwen3-0.6b layer, (K, N)
+QWEN3 = {"wq": (1024, 2048), "wk": (1024, 1024), "wv": (1024, 1024),
+         "wo": (2048, 1024), "w_in": (1024, 3072), "w_gate": (1024, 3072),
+         "w_out": (3072, 1024)}
+RAGGED_M = [1, 5, 8, 17, 130, 200]
+
+
+def qwen3_weight(name, dtype, dev):
+    K, N = QWEN3[name]
+    seed = sorted(QWEN3).index(name)
+    return (randn(seed, (K, N), dev).float() / K ** 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", RAGGED_M)
+@pytest.mark.parametrize("proj", sorted(QWEN3))
+def test_nm_spmm_ragged_m(cuda, proj, M, dtype):
+    """Every tile edge of both routes: ragged M on each projection."""
+    w, _ = pruning.n_m(qwen3_weight(proj, dtype, cuda), 2, 4, group=128)
+    pack = sparsity.pack_nm(w, 2, 4, g=128)
+    x = randn(100 + M, (M, pack.K), cuda).to(dtype)
+    before = nm_mod.launches
+    got = nm_mod.nm_spmm(x, pack)
+    torch.cuda.synchronize()
+    assert nm_mod.launches == before + 1
+    close(got, ref.nm_spmm_ref(x, pack))
+
+
+@pytest.mark.parametrize("M", [5, 130])
+@pytest.mark.parametrize("g,N", [(32, 96), (64, 192)])
+def test_nm_spmm_narrow_tiles(cuda, g, N, M):
+    """Column groups narrower than 128 take the 32- and 64-column tiles."""
+    w, _ = pruning.n_m((randn(3, (1024, N), cuda).float() / 32).to(BF16), 2,
+                       4, group=g)
+    pack = sparsity.pack_nm(w, 2, 4, g=g)
+    assert nm_mod.plan(M, 1024, N, BF16, 2, 4, g)["bn"] == g
+    x = randn(4, (M, 1024), cuda)
+    close(nm_mod.nm_spmm(x, pack), ref.nm_spmm_ref(x, pack))
+
+
+@pytest.mark.parametrize("M", [5, 130])
+@pytest.mark.parametrize("N", [96, 192])
+def test_lookahead_narrow_tiles(cuda, N, M):
+    """Widths that are no multiple of 128 take the narrower tiles."""
+    pack = sparsity.LookaheadPack.from_float(
+        randn(5, (1024, N), cuda).float() / 32)
+    assert lookahead_mod.plan(M, 1024, N, BF16)["bn"] == N // 3
+    x = randn(6, (M, 1024), cuda)
+    close(lookahead_mod.lookahead_matmul(x, pack),
+          ref.lookahead_matmul_ref(x, pack))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", RAGGED_M)
+@pytest.mark.parametrize("proj", sorted(QWEN3))
+def test_lookahead_ragged_m(cuda, proj, M, dtype):
+    pw, _ = pruning.block_semi_structured(qwen3_weight(proj, dtype, cuda),
+                                          0.5, block=4)
+    pack = sparsity.LookaheadPack.from_float(pw)
+    x = randn(200 + M, (M, pack.K), cuda).to(dtype)
+    before = lookahead_mod.launches
+    got = lookahead_mod.lookahead_matmul(x, pack)
+    torch.cuda.synchronize()
+    assert lookahead_mod.launches == before + 1
+    close(got, ref.lookahead_matmul_ref(x, pack))
 
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])

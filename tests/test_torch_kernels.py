@@ -47,7 +47,7 @@ def nm_case(seed, K=256, N=256):
     return jp, tp
 
 
-@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("M", [1, 3, 8, 17, 130])
 def test_nm_spmm_plain_matches_jax(M):
     jp, tp = nm_case(0)
     x = rand(1, (M, 256))

@@ -54,7 +54,7 @@ KERNELS = {
 }
 
 
-@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("M", [1, 3, 8, 17, 130])
 @pytest.mark.parametrize("fmt", sorted(KERNELS))
 def test_plain_versions_match_jax(fmt, M):
     jp, tp = packs(0)
