@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      compiled kernel's registers and spills from the ``ptxas`` report;
   3. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes in bfloat16 (rtol 2e-2 / atol 1e-2, the bf16
-     tolerance of ``tests/test_kernels.py``; ``nm_spmm`` and
-     ``lookahead_matmul`` at M = 1, 5, 8, 17, 128 and 200 rows, each
-     call's launch plan printed), and time the kernel, the
+     tolerance of ``tests/test_kernels.py``; the four matmul kernels
+     at M = 1, 5, 8, 17, 128 and 200 rows, each call's launch plan
+     printed; the strip kernels' empty strip must come back zero and
+     two calls bitwise equal), and time the kernel, the
      plain version and one library call computing the same function
      (a yardstick only — the port never calls it) as device time from
      CUDA-graph replay, beside the least time the card could take (bytes
@@ -187,13 +188,12 @@ SWEEP_M = (1, 5, 8, 17, 128, 200)   # decode, ragged and prefill rows
 TIMED_M = (8, 128)                  # decode at 8 slots; a 128-token prompt
 
 
-def log_plans(name: str, plan, M: int, projections) -> None:
-    """The bf16 launch plan of each projection (``kernels.*.plan``)."""
-    parts = []
-    for proj, k, n in projections:
-        p = plan(M, k, n, torch.bfloat16)
-        parts.append(f"{proj} {p['route']} bm{p['bm']} bn{p['bn']} "
-                     f"split{p['split']} grid{p['grid']}")
+def log_plans(name: str, M: int, plans) -> None:
+    """The bf16 launch plan (``kernels.*.plan``) of each ``(projection,
+    plan)``."""
+    parts = [f"{proj} {p['route']} bm{p['bm']} bn{p['bn']} "
+             f"split{p['split']} steps{p['steps_per_block']} grid{p['grid']}"
+             for proj, p in plans]
     log(f"[plan] {name} M={M}: " + "; ".join(parts))
 
 
@@ -216,7 +216,8 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
             dense.append(pw)
     err, rows = 0.0, {}
     for M in SWEEP_M:
-        log_plans("nm_spmm", K.plan, M, qwen3_projections(cfg))
+        log_plans("nm_spmm", M, [(proj, K.plan(M, k, n, torch.bfloat16))
+                                 for proj, k, n in qwen3_projections(cfg)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
         err_m = max(check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
@@ -356,11 +357,25 @@ def zero_half_tiles(w: torch.Tensor, rng, empty_strip: bool = False
     return w * keep.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
 
 
-def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
-    """``copies`` layers of seven tile-zeroed projections packed in
-    ``fmt`` (block or combined), each padded one slot past the largest
-    strip count; with the pruned dense weights."""
+def pack_strip(w: torch.Tensor, fmt: str):
+    """The pruned ``w`` and its ``fmt`` (block or combined) pack of
+    (128, 128) tiles, padded one slot past the largest strip count."""
     from repro_torch.core import pruning, sparsity
+    if fmt == "block":
+        pw, _ = pruning.block_semi_structured(w, 0.5, block=TILE)
+        p = sparsity.pack_block_sparse(pw, TILE, TILE)
+        return pw, sparsity.pack_block_sparse(pw, TILE, TILE,
+                                              pad_to=p.max_nnz + 1)
+    pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=TILE, block=TILE)
+    p = sparsity.pack_combined(pw, 2, 4, TILE, TILE)
+    return pw, sparsity.pack_combined(pw, 2, 4, TILE, TILE,
+                                      pad_to=p.max_nnz + 1)
+
+
+def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
+    """``copies`` layers of seven tile-zeroed projections (the first strip
+    empty) packed in ``fmt`` by ``pack_strip``; with the pruned dense
+    weights."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
     packs, dense = [], []
@@ -369,17 +384,7 @@ def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
             w = zero_half_tiles((torch.randn((k, n), generator=gen,
                                              device=dev) / k ** 0.5)
                                 .to(torch.bfloat16), rng, empty_strip=True)
-            if fmt == "block":
-                pw, _ = pruning.block_semi_structured(w, 0.5, block=TILE)
-                p = sparsity.pack_block_sparse(pw, TILE, TILE)
-                p = sparsity.pack_block_sparse(pw, TILE, TILE,
-                                               pad_to=p.max_nnz + 1)
-            else:
-                pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=TILE,
-                                            block=TILE)
-                p = sparsity.pack_combined(pw, 2, 4, TILE, TILE)
-                p = sparsity.pack_combined(pw, 2, 4, TILE, TILE,
-                                           pad_to=p.max_nnz + 1)
+            pw, p = pack_strip(w, fmt)
             counts = p.counts.tolist()
             assert counts[0] == 0 and max(counts) < p.max_nnz
             assert p.density == 0.5, p.density
@@ -390,24 +395,39 @@ def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
 
 def check_strip_kernel(cfg, dev, fmt: str, copies: int) -> dict:
     """``bsr_matmul`` (block) or ``csa_matmul`` (combined) on one layer's
-    seven tile-zeroed projections at M = 8 and 128; timed over ``copies``
-    layers of distinct packs so the kept tiles stream from HBM."""
+    seven tile-zeroed projections at every M of ``SWEEP_M``: held against
+    the plain version, the empty first strip must come back zero and two
+    calls bitwise equal; timed at ``TIMED_M`` over ``copies`` layers of
+    distinct packs so the kept tiles stream from HBM."""
     from repro_torch.kernels import bsr_matmul, csa_matmul, ref
     if fmt == "block":
-        name, kernel, plain = "bsr_matmul", bsr_matmul.bsr_matmul, \
-            ref.bsr_matmul_ref
+        name, mod, plain = "bsr_matmul", bsr_matmul, ref.bsr_matmul_ref
     else:
-        name, kernel, plain = "csa_matmul", csa_matmul.csa_matmul, \
-            ref.csa_matmul_ref
+        name, mod, plain = "csa_matmul", csa_matmul, ref.csa_matmul_ref
+    kernel = getattr(mod, name)
     packs, dense = strip_packs(cfg, dev, fmt, copies, SEED + 3)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     err, rows = 0.0, {}
-    for M in (8, 128):
+    for M in SWEEP_M:
+        log_plans(name, M, [
+            (proj, mod.plan(M, p.K, p.N, torch.bfloat16, p.max_nnz))
+            for (proj, _, _), p in zip(qwen3_projections(cfg), packs)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+        err_m = 0.0
         for p in packs[:7]:
-            err = max(err, check_close(f"{name} M={M} K={p.K} N={p.N}",
-                                       kernel(xs[p.K], p), plain(xs[p.K], p)))
+            what = f"{name} M={M} K={p.K} N={p.N}"
+            got = kernel(xs[p.K], p)
+            if not torch.equal(got, kernel(xs[p.K], p)):
+                raise AssertionError(f"{what}: two calls differ")
+            if (got[:, :p.bn] != 0).any():
+                raise AssertionError(f"{what}: the empty strip is not zero")
+            err_m = max(err_m, check_close(what, got, plain(xs[p.K], p)))
+        log(f"[kernels] {name} M={M}: max abs err {err_m:.3e} against the "
+            "plain version; empty strip zero; two calls bitwise equal")
+        err = max(err, err_m)
+        if M not in TIMED_M:
+            continue
         nbytes = flops = 0.0
         for p in packs[:7]:
             rows_kept = int(p.counts.sum()) * p.values.shape[2]
@@ -455,7 +475,9 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
             dense.append(p.decode().to(torch.bfloat16))
     err, rows = 0.0, {}
     for M in SWEEP_M:
-        log_plans("lookahead_matmul", K.plan, M, qwen3_projections(cfg))
+        log_plans("lookahead_matmul", M,
+                  [(proj, K.plan(M, k, n, torch.bfloat16))
+                   for proj, k, n in qwen3_projections(cfg)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
         err_m = max(check_close(f"lookahead_matmul M={M} K={p.K} N={p.N}",

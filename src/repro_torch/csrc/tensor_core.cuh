@@ -1,15 +1,17 @@
-// The tensor-core route shared by nm_spmm.cu and lookahead_decode.cu:
+// The tensor-core route shared by nm_spmm.cu, lookahead_decode.cu and the
+// strip kernels (strip_spmm.cuh: bsr_matmul.cu, csa_matmul.cu):
 // asynchronous copies into a ring of shared-memory stages, bf16 mma.sync
 // with fp32 accumulators, and a K-split whose partial tiles are summed
 // inside a thread-block cluster.
 //
-// Both kernels compute out^T = W^T x^T ("swap AB"): the weight's output
+// Every kernel computes out^T = W^T x^T ("swap AB"): the weight's output
 // columns are the MMA's m (16 rows of a tile), the rows of x its n (8 per
 // tile), so a decode batch of <= 8 rows fills n exactly.  A block owns a
-// (BN columns) x (BM rows) output tile and one of `split` equal slices of
-// K; the `split` blocks of one tile form a cluster and sum their fp32
-// partial tiles through distributed shared memory, each block one
-// 1/split share of the tile, in a fixed order (cluster_reduce_store).
+// (BN columns) x (BM rows) output tile and one of `split` slices of K
+// (equal runs of stages, or every split-th stage of a strip); the `split`
+// blocks of one tile form a cluster and sum their fp32 partial tiles
+// through distributed shared memory, each block one 1/split share of the
+// tile, in a fixed order (cluster_reduce_store).
 // Nothing touches the output but that one store.
 #pragma once
 
@@ -87,20 +89,23 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
 
 // Shared memory of a block of tile TL with `steps` stages of `stage`
 // bytes: a ring of `alloc` slots (the partial tile overlays it once the
-// loop is done), then the receive buffer at `recv`; at most SMEM_BUDGET
-// where two slots fit in it.  `slots` is the ring modulus: steps + 1 when
-// every stage fits, so that all loads go out at once.
+// loop is done), then the receive buffer at `recv`, then `extra` bytes of
+// the kernel's own at `extra_at` (a multiple of 16 when `stage` is); at
+// most SMEM_BUDGET where two slots fit in it.  `slots` is the ring
+// modulus: steps + 1 when every stage fits, so that all loads go out at
+// once.
 template <class TL>
 struct Layout {
   int alloc, slots;
-  size_t recv, bytes;
-  __host__ Layout(int steps, size_t stage) {
-    const size_t room = SMEM_BUDGET - TL::RECV_BYTES;
+  size_t recv, extra_at, bytes;
+  __host__ Layout(int steps, size_t stage, size_t extra = 0) {
+    const size_t room = SMEM_BUDGET - TL::RECV_BYTES - extra;
     const int fit = std::min(STAGES, (int)(room / stage));
     alloc = std::min(steps, std::max(2, fit));
     slots = alloc == steps ? steps + 1 : alloc;
     recv = std::max(alloc * stage, TL::RED_BYTES);
-    bytes = recv + TL::RECV_BYTES;
+    extra_at = recv + TL::RECV_BYTES;
+    bytes = extra_at + extra;
   }
 };
 
@@ -111,6 +116,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// Four (two) 8x8 bf16 matrices as stored: lane l gets row l/4, columns
+// 2(l%4), 2(l%4)+1 of each, the B fragment of a row-major x^T tile.
+// Lanes 0..31 (0..15) give the row addresses, eight per matrix.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.

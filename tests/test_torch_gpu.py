@@ -211,6 +211,80 @@ def test_lookahead_ragged_m(cuda, proj, M, dtype):
     close(got, ref.lookahead_matmul_ref(x, pack))
 
 
+STRIP_KERNELS = {"block": (bsr_mod, bsr_mod.bsr_matmul, ref.bsr_matmul_ref),
+                 "combined": (csa_mod, csa_mod.csa_matmul,
+                              ref.csa_matmul_ref)}
+
+
+def strip_pack(fmt, w, pad=None):
+    """The pruned weight and its block or combined pack of (128, 128)
+    tiles, padded to ``pad`` slots per strip (default: the largest
+    count)."""
+    if fmt == "block":
+        pw, _ = pruning.block_semi_structured(w, 0.5, block=128)
+        return pw, sparsity.pack_block_sparse(pw, 128, 128, pad_to=pad)
+    pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=128, block=128)
+    return pw, sparsity.pack_combined(pw, 2, 4, 128, 128, pad_to=pad)
+
+
+def run_strip(fmt, x, pack):
+    """One launch of the format's kernel, on the route its plan names."""
+    mod, kernel, _ = STRIP_KERNELS[fmt]
+    M, K = x.shape
+    assert mod.plan(M, K, pack.N, x.dtype, pack.max_nnz)["route"] == \
+        ("mma" if x.dtype == BF16 else "fma")
+    before = mod.launches
+    got = kernel(x, pack)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", RAGGED_M)
+@pytest.mark.parametrize("proj", sorted(QWEN3))
+@pytest.mark.parametrize("fmt", ["block", "combined"])
+def test_strip_kernels_ragged_m(cuda, fmt, proj, M, dtype):
+    """Every tile edge of both routes on each projection, on a pack padded
+    to ``Kb`` slots per strip as converted JAX packs are (the largest
+    layer's ``max_nnz``); the emptied last strip comes back zero."""
+    K, N = QWEN3[proj]
+    w = tile_zeroed(sorted(QWEN3).index(proj), K, N, cuda, dtype)
+    pw, pack = strip_pack(fmt, w, pad=K // 128)
+    assert pack.counts.tolist()[-1] == 0
+    x = randn(300 + M, (M, K), cuda).to(dtype)
+    got = run_strip(fmt, x, pack)
+    close(got, STRIP_KERNELS[fmt][2](x, pack))
+    close(got, x.float() @ pw.float())
+    assert (got[:, -128:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [5, 130])
+@pytest.mark.parametrize("fmt", ["block", "combined"])
+def test_strip_kernels_edge_strips(cuda, fmt, M, dtype):
+    """Strip 0 keeps every tile (``counts == max_nnz``, no padding slot),
+    strip 1 one tile, strip 2 none (it must come back zero); two calls
+    give bitwise equal results."""
+    K, N, tile = 2048, 1024, 128
+    rng = np.random.default_rng(9)
+    Kb = K // tile
+    keep = rng.random((Kb, N // tile)) < 0.4
+    keep[:, 0] = True
+    keep[:, 1:3] = False
+    keep[rng.integers(Kb), 1] = True
+    w = rng.normal(size=(K, N)).astype(np.float32) / K ** 0.5
+    w = torch.from_numpy(w * np.kron(keep, np.ones((tile, tile))))
+    pw, pack = strip_pack(fmt, w.to(cuda, dtype))
+    assert pack.counts.tolist()[:3] == [Kb, 1, 0] and pack.max_nnz == Kb
+    x = randn(400 + M, (M, K), cuda).to(dtype)
+    got = run_strip(fmt, x, pack)
+    assert torch.equal(got, run_strip(fmt, x, pack))
+    close(got, STRIP_KERNELS[fmt][2](x, pack))
+    close(got, x.float() @ pw.float())
+    assert (got[:, 2 * tile:3 * tile] == 0).all()
+
+
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_paged_attention_kernel(cuda, q_dtype):
     B, H, Hk, D, ps, P, mp = 5, 16, 8, 128, 16, 40, 8
