@@ -15,12 +15,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      tolerance of ``tests/test_kernels.py``; the four matmul kernels
      at M = 1, 5, 8, 17, 128 and 200 rows, each call's launch plan
      printed; the strip kernels' empty strip must come back zero and
-     two calls bitwise equal), and time the kernel, the
-     plain version and one library call computing the same function
-     (a yardstick only — the port never calls it) as device time from
-     CUDA-graph replay, beside the least time the card could take (bytes
-     at 3.35 TB/s, bf16 operations at 989 TFLOP/s, whichever is larger)
-     and the kernel's eager time (host launch cost included).  The block
+     two calls bitwise equal; flash attention also with a suffix, a
+     window with softcap and in fp32, paged attention also as a Q = 4
+     verify block and with fp32 q, its dead slot exactly zero and two
+     calls bitwise equal, each attention call's plan printed), and time
+     the kernel, the plain version and one library call computing the
+     same function (a yardstick only — the port never calls it) as device
+     time from CUDA-graph replay, beside the least time the card could
+     take (bytes at 3.35 TB/s, bf16 operations at 989 TFLOP/s, whichever
+     is larger) and the kernel's eager time (host launch cost included).
+     The block
      and combined packs have exactly half of each weight's (128, 128)
      tiles zeroed, one empty strip and padding slots; the lookahead
      kernel also reproduces integer weights bit-exactly;
@@ -247,69 +251,108 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
                 max_abs_err=err, **rows[8])
 
 
+def log_attn_plan(name: str, what: str, plan: dict) -> None:
+    log(f"[plan] {name} {what}: " + " ".join(
+        f"{k}={v}" for k, v in plan.items()))
+
+
 def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
-    """Decode attention at B = 8 slots with mixed lens (one dead slot) over
-    a 256-page pool of 16-row pages, a 32-page (512-row) view.  Timed over
+    """Decode attention at B = 8 slots over a 256-page pool of 16-row
+    pages, a 32-page (512-row) view, held against the plain version: mixed
+    lens with one dead slot (its row must be exactly zero, two calls
+    bitwise equal), a Q = 4 verify block and fp32 q.  Timed over
     ``copies`` pools, so the live rows (5.7 MB a pool) stream from HBM
-    rather than the 50 MB L2, as one layer's do in a decode step."""
+    rather than the 50 MB L2, as one layer's do in a decode step: at the
+    mixed lens (the kernel's row) and at the serve's own lens, 129..192."""
     from repro_torch.kernels import paged_attention as K
     from repro_torch.kernels import ref
     B, H, Hk, D, ps, P, mp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         16, 257, 32
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    lens_np = np.asarray([0, 1, 17, 64, 130, 256, 400, 512], np.int32)
     rng = np.random.default_rng(SEED)
     ptab = torch.from_numpy(np.stack([rng.permutation(np.arange(1, P))[:mp]
                                       for _ in range(B)]).astype(np.int32))
-    ptab, lens = ptab.to(dev), torch.from_numpy(lens_np).to(dev)
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    ptab = ptab.to(dev)
     pools = [tuple(torch.randn((P, ps, Hk, D), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(2))
              for _ in range(copies)]
     kp, vp = pools[0]
-    err = check_close("paged_attention",
-                      K.paged_attention(q, kp, vp, ptab, lens),
-                      ref.paged_attention_ref(q, kp, vp, ptab, lens))
-    # the library yardstick: SDPA over the gathered (B, H, L, D) view
-    views = []
-    for k, v in pools:
-        kv = [t[ptab.long()].reshape(B, mp * ps, Hk, D).transpose(1, 2)
-              .repeat_interleave(H // Hk, dim=1).contiguous() for t in (k, v)]
-        views.append(kv)
-    mask = (torch.arange(mp * ps, device=dev)[None, :] < lens[:, None])
-    mask = mask[:, None, None, :]
+    cases = {"mixed": [0, 1, 17, 64, 130, 256, 400, 512],
+             "serve": sorted(rng.integers(129, 193, size=B).tolist())}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    live = int(lens_np.sum())
-    pages = int(sum(-(-int(n) // ps) for n in lens_np))
-    nbytes = 2 * B * H * D * 2 + live * Hk * D * 2 * 2 + pages * 4 + B * 4
-    b, by = bound_ms(nbytes, 4.0 * H * D * live)
-    row = dict(
-        **timings(lambda: [K.paged_attention(q, k, v, ptab, lens)
-                           for k, v in pools],
-                  lambda: [ref.paged_attention_ref(q, k, v, ptab, lens)
-                           for k, v in pools],
-                  lambda: [sdpa(q[:, :, None], k, v, attn_mask=mask)
-                           for k, v in views], copies),
-        bound_ms=b, bound_by=by)
-    log(f"[kernels] paged_attention B={B} lens={lens_np.tolist()} "
-        f"err={err:.3e}: {json.dumps(row)}")
+    err, rows = 0.0, {}
+    for what, lens_l in cases.items():
+        lens_np = np.asarray(lens_l, np.int32)
+        lens = torch.from_numpy(lens_np).to(dev)
+        for Q in ((4, 1) if what == "mixed" else (1,)):   # time Q = 1
+            shape = (B, H, D) if Q == 1 else (B, Q, H, D)
+            q = torch.randn(shape, generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            log_attn_plan("paged_attention", f"bf16 B={B} Q={Q} lens={what}",
+                          K.plan(B, H, Hk, Q, mp, D, (q.dtype, kp.dtype), ps))
+            got = K.paged_attention(q, kp, vp, ptab, lens)
+            err = max(err, check_close(
+                f"paged_attention Q={Q} lens={lens_l}", got,
+                ref.paged_attention_ref(q, kp, vp, ptab, lens)))
+            if not torch.equal(got, K.paged_attention(q, kp, vp, ptab, lens)):
+                raise AssertionError("paged_attention: two calls differ")
+            if lens_l[0] == 0 and (got[0] != 0).any():
+                raise AssertionError("paged_attention: the lens == 0 row "
+                                     "is not zero")
+        # the library yardstick: SDPA over the gathered (B, H, L, D) view
+        views = [[t[ptab.long()].reshape(B, mp * ps, Hk, D).transpose(1, 2)
+                  .repeat_interleave(H // Hk, dim=1).contiguous()
+                  for t in kv] for kv in pools]
+        mask = (torch.arange(mp * ps, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        live = int(lens_np.sum())
+        pages = int(sum(-(-int(n) // ps) for n in lens_np))
+        nbytes = 2 * B * H * D * 2 + live * Hk * D * 2 * 2 + pages * 4 + B * 4
+        b, by = bound_ms(nbytes, 4.0 * H * D * live)
+        rows[what] = dict(
+            **timings(lambda: [K.paged_attention(q, k, v, ptab, lens)
+                               for k, v in pools],
+                      lambda: [ref.paged_attention_ref(q, k, v, ptab, lens)
+                               for k, v in pools],
+                      lambda: [sdpa(q[:, :, None], k, v, attn_mask=mask)
+                               for k, v in views], copies),
+            bound_ms=b, bound_by=by)
+        log(f"[kernels] paged_attention B={B} lens={lens_l}: "
+            f"{json.dumps(rows[what])}")
+    q32 = torch.randn((B, H, D), generator=gen, device=dev)
+    log_attn_plan("paged_attention", f"fp32 q, bf16 pools, B={B} Q=1",
+                  K.plan(B, H, Hk, 1, mp, D, (q32.dtype, kp.dtype), ps))
+    err32 = check_close("paged_attention fp32 q",
+                        K.paged_attention(q32, kp, vp, ptab, lens),
+                        ref.paged_attention_ref(q32, kp, vp, ptab, lens))
+    log(f"[kernels] paged_attention max abs err {err:.3e} (bf16, Q = 1 and "
+        f"4), {err32:.3e} (fp32 q) against the plain version; the lens == 0 "
+        "row zero; two calls bitwise equal")
     return dict(name="paged_attention",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:107",
-                max_abs_err=err, **row)
+                max_abs_err=err, **rows["mixed"])
 
 
 def check_flash_attention(cfg, dev) -> dict:
-    """Prefill attention of one prompt: L = 128 (timed) and a ragged 200."""
+    """Prefill attention of one prompt, timed at L = 128 and a ragged 200;
+    checked, not timed: a suffix (37 queries over 200 keys), a window
+    with softcap, and fp32."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def qkv(Lq, Lk, dtype=torch.bfloat16):
+        return [torch.randn((1, h, n, D), generator=gen, device=dev).to(dtype)
+                for h, n in ((H, Lq), (Hk, Lk), (Hk, Lk))]
+
     err, rows = 0.0, {}
     for L in (128, 200):
-        q, k, v = (torch.randn((1, h, L, D), generator=gen, device=dev)
-                   .to(torch.bfloat16) for h in (H, Hk, Hk))
+        q, k, v = qkv(L, L)
+        log_attn_plan("flash_attention", f"bf16 B=1 H={H} Hk={Hk} L={L}",
+                      K.plan(1, H, Hk, L, L, D, q.dtype))
         err = max(err, check_close(
             f"flash_attention L={L}", K.flash_attention(q, k, v),
             ref.mha_ref(q.float(), k.float(), v.float())))
@@ -323,6 +366,23 @@ def check_flash_attention(cfg, dev) -> dict:
             bound_ms=b, bound_by=by)
         log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} L={L}: "
             f"{json.dumps(rows[L])}")
+    for what, (Lq, Lk, kw) in {
+            "suffix Lq=37 Lk=200": (37, 200, {}),
+            "window 64 softcap 30 L=200": (200, 200,
+                                           dict(window=64, softcap=30.0))
+    }.items():
+        q, k, v = qkv(Lq, Lk)
+        err = max(err, check_close(
+            f"flash_attention {what}", K.flash_attention(q, k, v, **kw),
+            ref.mha_ref(q.float(), k.float(), v.float(), **kw)))
+    q, k, v = qkv(128, 128, torch.float32)
+    log_attn_plan("flash_attention", f"fp32 B=1 H={H} Hk={Hk} L=128",
+                  K.plan(1, H, Hk, 128, 128, D, q.dtype))
+    err32 = check_close("flash_attention fp32", K.flash_attention(q, k, v),
+                        ref.mha_ref(q, k, v))
+    log(f"[kernels] flash_attention max abs err {err:.3e} (bf16: L = 128, "
+        f"200, suffix, window + softcap), {err32:.3e} (fp32) against the "
+        "plain version")
     return dict(name="flash_attention",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:97",

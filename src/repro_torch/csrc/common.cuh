@@ -1,6 +1,9 @@
 // Shared helpers of the port's hand-written Hopper kernels: element
 // conversion (every kernel computes in fp32), warp reductions, and the
 // dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16).
+// Internal linkage (an anonymous namespace): every kernel library that
+// includes this header keeps its own copy, even when two libraries built
+// from it are loaded into one process.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +11,7 @@
 #include <stdint.h>
 
 namespace repro {
+namespace {
 
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
@@ -62,4 +66,5 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+}  // namespace
 }  // namespace repro

@@ -12,7 +12,9 @@
 // blocks of one tile form a cluster and sum their fp32 partial tiles
 // through distributed shared memory, each block one 1/split share of the
 // tile, in a fixed order (cluster_reduce_store).
-// Nothing touches the output but that one store.
+// Nothing touches the output but that one store.  The attention kernels
+// (flash_attention.cu, paged_attention.cu) take the copy, ldmatrix, MMA
+// and cluster-launch helpers.  Internal linkage, as in common.cuh.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -22,6 +24,7 @@
 #include "common.cuh"
 
 namespace repro {
+namespace {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -235,4 +238,5 @@ cudaError_t launch_cluster(void (*kernel)(Params...), size_t& opted, dim3 grid,
 }
 
 }  // namespace tc
+}  // namespace
 }  // namespace repro

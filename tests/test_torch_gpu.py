@@ -20,9 +20,10 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import lookahead_decode as lookahead_mod
 from repro_torch.kernels import nm_spmm as nm_mod
 from repro_torch.kernels import paged_attention as paged_mod
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, tiling
 
 RTOL, ATOL = 2e-2, 1e-2
+CUDA = torch.device("cuda")
 
 pytestmark = pytest.mark.gpu
 
@@ -306,6 +307,136 @@ def test_flash_attention_kernel(cuda, L, kw):
                for s, h in ((6, 16), (7, 8), (8, 8)))
     got = flash_mod.flash_attention(q, k, v, **kw)
     close(got, ref.mha_ref(q.float(), k.float(), v.float(), **kw))
+
+
+# --- the bf16 attention routes (tensor cores) --------------------------------
+
+def flash_inputs(seed, Lq, Lk, H=16, Hk=8, D=128, dtype=torch.bfloat16):
+    return (randn(seed, (1, H, Lq, D), CUDA).to(dtype),
+            randn(seed + 1, (1, Hk, Lk, D), CUDA).to(dtype),
+            randn(seed + 2, (1, Hk, Lk, D), CUDA).to(dtype))
+
+
+def run_flash(q, k, v, route, **kw):
+    p = flash_mod.plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3], q.dtype)
+    assert p["route"] == route
+    before = flash_mod.launches
+    got = flash_mod.flash_attention(q, k, v, **kw)
+    assert flash_mod.launches == before + 1
+    close(got, ref.mha_ref(q.float(), k.float(), v.float(), **kw))
+    return got
+
+
+@pytest.mark.parametrize("L", [1, 16, 63, 128, 200, 333])
+def test_flash_attention_mma(cuda, L):
+    run_flash(*flash_inputs(20 + L, L, L), "mma")
+
+
+@pytest.mark.parametrize("Lq,Lk,H,Hk,D,kw", [
+    (37, 200, 16, 8, 128, {}),                                  # suffix
+    (200, 200, 16, 8, 128, {"window": 48, "softcap": 30.0}),
+    (50, 300, 16, 8, 128, {"window": 64}),                      # both
+    (96, 96, 8, 8, 128, {}), (96, 96, 8, 4, 128, {}),           # G = 1, 2
+    (96, 96, 16, 4, 128, {"softcap": 20.0}),                    # G = 4
+    (150, 150, 16, 8, 64, {}),                                  # D = 64
+    (40, 100, 16, 8, 128, {"causal": False}),
+])
+def test_flash_attention_mma_semantics(cuda, Lq, Lk, H, Hk, D, kw):
+    run_flash(*flash_inputs(30, Lq, Lk, H, Hk, D), "mma", **kw)
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("bq", [16, 32, 64])
+def test_flash_attention_every_tile(cuda, monkeypatch, bq, bk):
+    monkeypatch.setattr(flash_mod, "plan",
+                        lambda *a: dict(route="mma", bq=bq, bk=bk))
+    q, k, v = flash_inputs(40, 130, 130)
+    got = flash_mod.flash_attention(q, k, v, window=70)
+    close(got, ref.mha_ref(q.float(), k.float(), v.float(), window=70))
+
+
+@pytest.mark.parametrize("D", [32, 128, 256])
+def test_flash_attention_fma_route(cuda, D):
+    dtype = torch.float32 if D == 128 else torch.bfloat16
+    run_flash(*flash_inputs(50, 70, 70, D=D, dtype=dtype), "fma")
+
+
+def paged_inputs(seed, B, Q, H=16, Hk=8, D=128, ps=16, P=40, mp=8,
+                 lens=None, q_dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    shape = (B, H, D) if Q == 1 else (B, Q, H, D)
+    q = randn(seed, shape, CUDA).to(q_dtype)
+    kp, vp = (randn(seed + i, (P, ps, Hk, D), CUDA) for i in (1, 2))
+    ptab = torch.from_numpy(rng.integers(1, P, size=(B, 2 * mp)).astype(
+        np.int32)).to(CUDA)[:, 3:3 + mp]       # a column slice
+    if lens is None:
+        lens = rng.integers(0, mp * ps + 1, size=B)
+    lens = torch.tensor(lens, dtype=torch.int32, device=CUDA)
+    return q, kp, vp, ptab, lens
+
+
+def run_paged(q, kp, vp, ptab, lens, route):
+    Q = 1 if q.dim() == 3 else q.shape[1]
+    p = paged_mod.plan(q.shape[0], q.shape[-2], kp.shape[2], Q,
+                       ptab.shape[1], q.shape[-1], (q.dtype, kp.dtype),
+                       kp.shape[1])
+    assert p["route"] == route
+    before = paged_mod.launches
+    got = paged_mod.paged_attention(q, kp, vp, ptab, lens)
+    assert paged_mod.launches == before + 1
+    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    return got
+
+
+def test_paged_attention_mma_lens(cuda):
+    """lens 0, 1, 15, 16, 17 and the full view (and past it, clamped)
+    over a column-sliced page table; a dead row is exactly zero and two
+    calls are bitwise equal."""
+    args = paged_inputs(60, 7, 1, lens=[0, 1, 15, 16, 17, 128, 200])
+    got = run_paged(*args, "mma")
+    assert (got[0] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
+@pytest.mark.parametrize("Q", [2, 4, 8])
+def test_paged_attention_verify_block(cuda, Q):
+    """A (B, Q, H, D) block, G = 2: query i sees lens - (Q - 1 - i) keys;
+    rows that see none are zero."""
+    args = paged_inputs(70 + Q, 6, Q, lens=[0, 1, Q - 1, 16, 77, 128])
+    got = run_paged(*args, "mma")
+    assert (got[0] == 0).all() and (got[1, :Q - 1] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_paged_attention_every_split(cuda, monkeypatch, warps, split):
+    monkeypatch.setattr(paged_mod, "plan", lambda *a: dict(
+        route="mma", warps=warps, split=split,
+        ring=tiling.paged_ring(12, warps * split)))   # 6 pages of 32 rows
+    q, kp, vp, ptab, lens = paged_inputs(80, 5, 4, H=16, Hk=4, D=64, ps=32,
+                                         mp=6, lens=[0, 3, 40, 150, 192])
+    got = paged_mod.paged_attention(q, kp, vp, ptab, lens)
+    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    assert (got[0] == 0).all()
+
+
+def test_paged_attention_fma_route(cuda):
+    run_paged(*paged_inputs(90, 5, 1, D=256, lens=[0, 5, 16, 100, 128]),
+              "fma")
+    run_paged(*paged_inputs(91, 5, 1, q_dtype=torch.float32), "fma")
+
+
+def test_attention_unsupported_shapes_raise(cuda):
+    """A bf16 call no route takes raises rather than falling back."""
+    with pytest.raises(ValueError):          # Q * G = 32 > 16 rows
+        paged_mod.paged_attention(*paged_inputs(92, 2, 16, lens=[5, 9]))
+    with pytest.raises(ValueError):          # fp32 takes Q = 1 only
+        paged_mod.paged_attention(*paged_inputs(
+            93, 2, 2, lens=[5, 9], q_dtype=torch.float32))
+    with pytest.raises(ValueError):          # no kernel for D = 96
+        flash_mod.flash_attention(*flash_inputs(94, 8, 8, D=96))
 
 
 FORMATS = {

@@ -145,3 +145,108 @@ def test_plans_refuse_what_the_kernels_cannot_take(kernel):
             lookahead_mod.plan(8, 1024, 48, torch.float32)
         with pytest.raises(TypeError):
             lookahead_mod.plan(8, 1024, 256, torch.float16)
+
+
+# --- attention: flash_plan and paged_plan -----------------------------------
+
+H, HK, D = 16, 8, 128            # qwen3-0.6b attention
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("L", [1, 16, 63, 128, 200, 333, 512])
+def test_flash_plan_bf16_takes_the_tensor_cores(L, hd):
+    """bf16 at D = 64 or 128: a tile the kernel is built for whose rows
+    cover the prompt exactly once; the qwen3 prefill (L = 128, 200) takes
+    64 rows by 32 keys."""
+    p = tiling.flash_plan(1, H, HK, L, L, hd, BF16)
+    assert p["route"] == "mma"
+    assert p["bq"] in tiling.FLASH_BQ and p["bk"] in tiling.FLASH_BK
+    assert p["warps"] == p["bq"] // 16
+    gx, gy = p["grid"]
+    assert gx == H and (gy - 1) * p["bq"] < L <= gy * p["bq"]
+    if L in (128, 200):
+        assert (p["bq"], p["bk"]) == (64, 32)
+    assert p["bk"] == (32 if L <= tiling.FLASH_SHORT_KEYS else 64)
+
+
+@pytest.mark.parametrize("hd", tiling.HEAD_DIMS)
+def test_flash_plan_fp32_and_other_head_dims_take_fma(hd):
+    assert tiling.flash_plan(1, H, HK, 128, 128, hd, FP32)["route"] == "fma"
+    route = tiling.flash_plan(1, H, HK, 128, 128, hd, BF16)["route"]
+    assert route == ("mma" if hd in tiling.MMA_HEAD_DIMS else "fma")
+
+
+def test_flash_plan_refuses_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError):          # no kernel for D = 96
+        tiling.flash_plan(1, H, HK, 128, 128, 96, BF16)
+    with pytest.raises(ValueError):          # GQA needs H % Hk == 0
+        tiling.flash_plan(1, 12, 8, 128, 128, D, BF16)
+    with pytest.raises(TypeError):
+        tiling.flash_plan(1, H, HK, 128, 128, D, torch.float16)
+
+
+@pytest.mark.parametrize("Q,rows", [(1, 2), (4, 8)])
+def test_paged_plan_qwen3_decode(Q, rows):
+    """The decode step of chip_smoke.py: 8 slots, 8 kv heads, a 32-page
+    view of 16-row pages; Q = 4 is the verify block."""
+    p = tiling.paged_plan(8, H, HK, Q, 32, D, (BF16, BF16), 16)
+    assert p == dict(route="mma", warps=4, split=4, ring=2, rows=rows,
+                     grid=(256,))
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("n_pages,ps", [(1, 16), (8, 16), (32, 16),
+                                        (256, 16), (6, 32), (9, 8)])
+@pytest.mark.parametrize("Q", [1, 2, 4, 8])
+def test_paged_plan_covers_the_view(Q, n_pages, ps, B):
+    """Every chunk of the view has a part; a part's ring holds 2 to 4
+    chunks and all of its chunks where it walks at most 4; the cluster is
+    a portable one and the grid one wave."""
+    p = tiling.paged_plan(B, H, HK, Q, n_pages, D, (BF16, BF16), ps)
+    chunks = -(-n_pages * ps // tiling.PAGED_CHUNK)
+    parts = p["warps"] * p["split"]
+    per_part = -(-chunks // parts)
+    assert p["route"] == "mma" and p["rows"] == Q * H // HK
+    assert p["warps"] in tiling.PAGED_WARPS and p["split"] in tiling.SPLITS
+    assert p["grid"] == (B * HK * p["split"],)
+    assert 2 <= p["ring"] <= 4 and p["ring"] >= min(per_part, 4)
+    assert B * HK * parts <= tiling.PAGED_MAX_WARPS or p["split"] == 1
+    if B * HK * parts < tiling.PAGED_MAX_WARPS // 2:   # not capped
+        assert per_part <= tiling.PAGED_CHUNKS_PER_PART or \
+            p["split"] == tiling.MAX_SPLIT
+
+
+def test_paged_plan_fp32_and_other_head_dims_take_fma():
+    for dtypes in ((FP32, FP32), (FP32, BF16)):
+        assert tiling.paged_plan(8, H, HK, 1, 32, D, dtypes)["route"] == "fma"
+    for hd in (32, 256):
+        assert tiling.paged_plan(8, H, HK, 1, 32, hd, (BF16, BF16))[
+            "route"] == "fma"
+
+
+def test_paged_plan_refuses_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError):          # Q * G = 32 > 16 rows
+        tiling.paged_plan(8, H, HK, 16, 32, D, (BF16, BF16))
+    with pytest.raises(ValueError):          # the fma route takes Q = 1
+        tiling.paged_plan(8, H, HK, 2, 32, D, (FP32, BF16))
+    with pytest.raises(ValueError):          # no kernel for D = 96
+        tiling.paged_plan(8, H, HK, 1, 32, 96, (BF16, BF16))
+    with pytest.raises(TypeError):           # bf16 q over fp32 pools
+        tiling.paged_plan(8, H, HK, 1, 32, D, (BF16, FP32))
+    with pytest.raises(TypeError):
+        tiling.paged_plan(8, H, HK, 1, 32, D, (torch.float16, BF16))
+
+
+def test_paged_split_never_depends_on_lens():
+    """The plan takes the view's page count, not the lengths (read on the
+    card inside the kernel), so the host never reads them: the wrapper
+    passes ``ptab.shape[1]`` and nothing derived from ``lens``."""
+    import inspect
+
+    from repro_torch.kernels import paged_attention as paged_mod
+    assert "lens" not in inspect.signature(tiling.paged_plan).parameters
+    src = inspect.getsource(paged_mod.paged_attention)
+    call = src[src.index("p = plan("):]
+    call = call[:call.index(")\n") + 1]
+    assert "lens" not in call and "ptab.shape[1]" in call
