@@ -47,6 +47,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the card against the port's CPU path; a token may differ only where
      the CPU logits' top-2 gap is under 1e-2 (the gaps are printed).
 
+  6. the paper layer: (a) the four TinyML CNNs of
+     ``repro_torch.models.cnn`` at width 1.0 on the paper's inputs
+     (VGG16 and ResNet-56 32×32×3, MobileNetV2 96×96×3, DS-CNN 49×10×1),
+     batch 32, float32 with TF32 off, weights from a seed combined-pruned
+     at (x_ss, x_us) = (0.6, 0.6) and INT7 fake-quantized: logits on the
+     card against the port's CPU path within ``CNN_RTOL`` of the largest
+     logit, argmax equal wherever the CPU top-2 gap exceeds that
+     tolerance, ms per batch from CUDA events as issued eagerly and as
+     device time from CUDA-graph replay; (b)
+     ``repro_torch.benchmarks.bench_kernels`` on the card at (256, 2048,
+     2048) in float32 and bfloat16 (every row held against its plain
+     version; the four matmul kernels must launch, counts set to 0 just
+     before); (c) Figs. 8 and 9, Table III (``smem_bytes`` read from the
+     built libraries) and Fig. 10 at (0.6, 0.6) for all four models:
+     every PASS/FAIL line must read PASS.  These are simulated CFU cycles
+     and byte counts on the host, not card measurements.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,6 +89,11 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 RTOL, ATOL = 2e-2, 1e-2            # bf16 tolerance of tests/test_kernels.py
 GAP_TOL = 1e-2                     # phase 5: a CPU/GPU token split needs a
 #                                    CPU top-2 logit gap below this
+CNN_RTOL = 1e-3                    # phase 6: float32 logits, cuDNN against
+#                                    the CPU convolutions (other algorithms
+#                                    and summation orders through up to 57
+#                                    layers), relative to the largest logit
+CNN_BATCH = 32
 SEED = 0
 
 
@@ -786,6 +808,99 @@ def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
                                  f"{want}")
 
 
+# --- phase 6: the paper layer -------------------------------------------------
+
+def check_cnns(dev) -> None:
+    """Each TinyML CNN at width 1.0: init on the CPU from the seed,
+    combined-pruned at the largest Fig. 10 point, INT7 fake-quantized,
+    then one batch on the card against the port's CPU path."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.tinyml import FIG10_CONFIGS, PAPER_MODELS
+    from repro_torch.models import cnn
+    x_us, x_ss = max(FIG10_CONFIGS)
+    for i, (name, spec) in enumerate(PAPER_MODELS.items()):
+        init, apply = cnn.CNN_ZOO[name]
+        params = init(seed=SEED + i, num_classes=spec["classes"],
+                      device="cpu")
+        params = cnn.quantize_dequantize(
+            cnn.prune_combined(params, x_ss=x_ss, x_us=x_us), bits7=True)
+        x = torch.from_numpy(np.random.default_rng(SEED + i).normal(
+            size=(CNN_BATCH, *spec["input"])).astype(np.float32))
+        want = apply(params, x)
+        with FlopCounterMode(display=False) as flops:
+            apply(params, x[:1])
+        gpu = _to(params, dev)
+        xg = x.to(dev)
+        got = apply(gpu, xg).cpu()
+        ms = cuda_ms(lambda: apply(gpu, xg), reps=10)
+        graph_ms = device_ms(lambda: apply(gpu, xg), reps=3)
+        err = (got - want).abs().max().item()
+        tol = CNN_RTOL * want.abs().max().item()
+        top = want.topk(2, dim=1).values
+        sure = (top[:, 0] - top[:, 1]) > tol
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[cnn] {name} {spec['input']} batch {CNN_BATCH}: "
+            f"{n_params} params, {flops.get_total_flops() // 2} MACs per "
+            f"sample, {ms:.3f} ms per batch (CUDA events; {graph_ms:.3f} "
+            f"from CUDA-graph replay), max abs err "
+            f"{err:.3e} (tolerance {tol:.3e}), argmax checked on "
+            f"{int(sure.sum())}/{CNN_BATCH}")
+        if not torch.isfinite(got).all() or err > tol or \
+                (got.argmax(1) != want.argmax(1))[sure].any():
+            raise AssertionError(f"{name}: the card's logits disagree with "
+                                 "the CPU path")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def paper_section(mod, data) -> None:
+    """Print a benchmark's table; every PASS/FAIL line must read PASS."""
+    from repro_torch.benchmarks.run import print_table
+    verdicts = print_table(mod, data)
+    if not verdicts or any("PASS" not in ln for ln in verdicts):
+        raise AssertionError(f"{mod.__name__}: {verdicts}")
+
+
+def paper_layer(dev, counters) -> dict:
+    """Phase 6: the CNNs, the kernel bench on the card (launch counts set
+    to 0 just before, read just after) and the simulated figures."""
+    from repro_torch.benchmarks import (bench_csa_models, bench_kernels,
+                                        bench_resources, bench_sssa,
+                                        bench_ussa)
+    from repro_torch.configs.tinyml import FIG10_CONFIGS
+    check_cnns(dev)
+    for mod in counters:
+        mod.launches = 0
+    torch.cuda.synchronize()
+    out = bench_kernels.run(device=dev)
+    torch.cuda.synchronize()
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+                for mod in counters}
+    bench_kernels.main(out)
+    log(f"[paper] bench_kernels launches {json.dumps(launches)}")
+    matmul = ("nm_spmm", "bsr_matmul", "csa_matmul", "lookahead_decode")
+    if any(launches[k] == 0 for k in matmul):
+        raise AssertionError(f"a matmul kernel did not launch: {launches}")
+    log("[paper] Figs. 8-10 and Table III below are simulated CFU cycles "
+        "and byte counts on the host, not card measurements")
+    paper_section(bench_ussa, bench_ussa.run())
+    paper_section(bench_sssa, bench_sssa.run())
+    res = bench_resources.run()
+    if any(r["smem_bytes"] is None for r in res["rows"]
+           if r["format"] != "dense"):
+        raise AssertionError("smem_bytes missing from the libraries")
+    paper_section(bench_resources, res)
+    paper_section(bench_csa_models, bench_csa_models.run(
+        configs=[max(FIG10_CONFIGS)]))
+    return launches
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -866,6 +981,10 @@ def main() -> int:
     for fmt in serves:
         card_vs_cpu(with_format(small, fmt), dev, zero_tiles=True)
     timed("5 fidelity", t0)
+
+    t0 = time.perf_counter()
+    paper_layer(dev, counters)
+    timed("6 paper layer", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

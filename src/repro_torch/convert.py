@@ -12,6 +12,10 @@ packs become the port's pack classes, arrays become tensors on
 ``device`` in their own dtype — so both sides compute the same thing.
 A layer of a stacked block or combined pack keeps the padding slots the
 JAX packer added up to the largest layer's ``max_nnz``.
+
+:func:`cnn_params_from_numpy` does the same for the TinyML CNNs of
+``models/cnn.py``: conv kernels go from HWIO to the port's OIHW, every
+other array (fc ``(K, N)``, norms, biases) keeps its shape.
 """
 
 from __future__ import annotations
@@ -77,3 +81,21 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         else:
             out[k] = _convert(v, device)
     return out
+
+
+def cnn_params_from_numpy(tree: Any, device="cuda") -> Any:
+    """The port's CNN params from a JAX CNN param tree of numpy arrays
+    (nested dicts and lists as ``repro/models/cnn.py`` builds them)."""
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.models.cnn import hwio_to_oihw
+    device = resolve_device(device)
+
+    def visit(node):
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [visit(v) for v in node]
+        t = _tensor(np.asarray(node), device)
+        return hwio_to_oihw(t) if t.dim() == 4 else t
+
+    return visit(tree)

@@ -50,6 +50,18 @@ def quantize_int7(w: torch.Tensor, axis: int = 0
     return q, scale
 
 
+def quantize_int8(w: torch.Tensor, axis: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel INT8 quantization (the paper's baseline):
+    ``scale = absmax / 127`` and ``q = round(w / scale)`` in ``w``'s dtype,
+    the JAX package's order of operations.  Returns ``(q int8 in
+    [-127, 127], scale)``."""
+    absmax = w.abs().amax(dim=axis, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
 def block_is_zero(w: torch.Tensor) -> torch.Tensor:
     """int8 ``[..., n]`` (``n % 4 == 0``) → bool ``[..., n // 4]``: True
     where a block of 4 consecutive weights is all zero."""
@@ -151,6 +163,24 @@ def simulate_walk(enc_stream, cap: int = SKIP_CAP) -> list[int]:
         bits = enc[b].astype(np.int32) & 0x1
         b += int((bits * (1 << np.arange(BLOCK))).sum()) + 1
     return visited
+
+
+def tile_zero_map(w: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """Bool ``(K // bk, N // bn)``: True where the ``(bk, bn)`` tile of
+    ``w (K, N)`` is all zero — Algorithm 1's block scan at tile
+    granularity."""
+    K, N = w.shape
+    if K % bk or N % bn:
+        raise ValueError(f"weight {tuple(w.shape)} not divisible by tile "
+                         f"({bk},{bn})")
+    return (w.reshape(K // bk, bk, N // bn, bn) == 0).all(dim=3).all(dim=1)
+
+
+def tile_skip_counts(w: torch.Tensor, bk: int, bn: int,
+                     cap: int = SKIP_CAP) -> torch.Tensor:
+    """Lookahead counts over K-tiles, per N-strip: uint8
+    ``(N // bn, K // bk)``."""
+    return skip_counts(tile_zero_map(w, bk, bn).T, cap=cap)
 
 
 def _to_int8(x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,13 @@ imposed along K, as in the JAX package:
     K-segments, ranked by L1 mass against one global threshold
     (``bsr_matmul``; the int7 ``lookahead`` path at block 4);
   * :func:`combined_nm` — the block mask times an n:m mask
-    (``csa_matmul``).
+    (``csa_matmul``);
+  * :func:`unstructured` — arbitrary zeros (the paper's USSA target);
+  * :func:`combined` — block sparsity ``x_ss`` outside, unstructured
+    ``x_us`` inside the surviving blocks (the paper's CSA target, Fig. 10).
+
+Convolution kernels ``(H, W, Cin, Cout)`` are pruned as their
+``(H·W·Cin, Cout)`` view, as Algorithm 1 walks ``kernel[h][w][c]``.
 
 Scores are computed on the host in float32 numpy (exact for bf16 and f32
 weights); each result lands on ``w``'s device in ``w``'s dtype.
@@ -17,7 +23,7 @@ weights); each result lands on ``w``'s device in ``w``'s dtype.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,3 +111,81 @@ def combined_nm(w: torch.Tensor, x_ss: float, n: int, m: int,
     _, nmask = n_m_numpy(h, n, m, group)
     mask = bmask * nmask
     return _back(w, h * mask, mask)
+
+
+def unstructured_numpy(w: np.ndarray, sparsity: float
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero the ``sparsity`` fraction of smallest-|w| entries, anywhere
+    (ties at the threshold are kept).  ``keep`` is Python's ``round``, as
+    in the JAX package."""
+    if not 0.0 <= sparsity < 1.0:
+        raise ValueError(f"sparsity {sparsity} must be in [0, 1)")
+    keep = round(w.size * (1.0 - sparsity))
+    mask = _threshold_topk(np.abs(w), keep).astype(w.dtype)
+    return w * mask, mask
+
+
+def unstructured(w: torch.Tensor, sparsity: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`unstructured_numpy` on a tensor."""
+    return _back(w, *unstructured_numpy(_host(w), sparsity))
+
+
+def combined_numpy(w: np.ndarray, x_ss: float, x_us: float,
+                   block: int = BLOCK) -> Tuple[np.ndarray, np.ndarray]:
+    """CSA pruning (paper Section III-D, Fig. 10): remove ``x_ss`` of the
+    ``(block × 1)`` K-segments, then ``x_us`` of the surviving weights by
+    magnitude.  Total sparsity is ``x_ss + (1 - x_ss) · x_us``.
+
+    As the JAX package: ``keep = round(surviving · (1 - x_us))`` in
+    float32 (half to even), and the threshold is the ``keep``-th largest
+    surviving score, ties kept."""
+    _, bmask = block_semi_structured_numpy(w, x_ss, block)
+    surviving = np.float32(bmask.sum(dtype=np.float64))
+    keep = int(np.round(surviving * np.float32(1.0 - x_us)))
+    s = np.where(bmask > 0, np.abs(w * bmask), -np.inf).astype(np.float32)
+    flat = s.reshape(-1)
+    rank = max(keep - 1, 0)                  # in the descending order
+    kth_val = np.partition(flat, flat.size - 1 - rank)[flat.size - 1 - rank]
+    umask = ((s >= kth_val) & (bmask > 0)).astype(w.dtype)
+    return w * umask, umask
+
+
+def combined(w: torch.Tensor, x_ss: float, x_us: float, block: int = BLOCK
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`combined_numpy` on a tensor."""
+    return _back(w, *combined_numpy(_host(w), x_ss, x_us, block))
+
+
+def iterative_schedule(target: float, steps: int,
+                       power: float = 3.0) -> List[float]:
+    """Zhu-Gupta cubic sparsity schedule ``s_t = target·(1-(1-t/T)^power)``:
+    per-step sparsities ending exactly at ``target``."""
+    if steps < 1:
+        raise ValueError("steps >= 1")
+    return [target * (1.0 - (1.0 - (t + 1) / steps) ** power)
+            for t in range(steps)]
+
+
+def sparsity_of(mask_or_w: torch.Tensor) -> float:
+    """Fraction of zeros (the paper's sparsity ratio x) as the JAX
+    package's float32 mean computes it on the CPU: the zero count times
+    the float32 reciprocal of the size."""
+    zeros = int((mask_or_w == 0).sum())
+    inv = np.float32(1.0) / np.float32(mask_or_w.numel())
+    return float(np.float32(zeros) * inv)
+
+
+PRUNERS = {"unstructured": unstructured, "block": block_semi_structured,
+           "nm": n_m, "combined": combined, "combined_nm": combined_nm}
+
+
+def prune(w: torch.Tensor, method: str, **kw
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """String-dispatched entry point: ``unstructured(sparsity=)``,
+    ``block(sparsity=, block=)``, ``nm(n=, m=, group=)``,
+    ``combined(x_ss=, x_us=)``, ``combined_nm(x_ss=, n=, m=, group=)``."""
+    if method not in PRUNERS:
+        raise ValueError(f"unknown pruning method {method!r}; one of "
+                         f"{list(PRUNERS)}")
+    return PRUNERS[method](w, **kw)

@@ -98,6 +98,12 @@ def pack_weight(w: torch.Tensor, cfg: SparsityConfig,
     raise ValueError(cfg.format)
 
 
+def sparsify_weight(w: torch.Tensor, cfg: SparsityConfig):
+    """Prune + pack in one offline call."""
+    pruned, _ = prune_weight(w, cfg)
+    return pack_weight(pruned, cfg)
+
+
 def _family_sparsity(names: Sequence[str], cfg: Any
                      ) -> Optional[SparsityConfig]:
     """Name-based rule: which per-family SparsityConfig governs a weight

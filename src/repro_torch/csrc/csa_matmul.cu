@@ -51,3 +51,10 @@ extern "C" int csa_matmul_fma_launch(const void* x, const void* values,
                                          out, M, K, N, bk, bn, bkc, max_nnz,
                                          stream);
 }
+
+// The dynamic shared memory per block that csa_matmul_mma_launch passes for
+// these arguments, or -1 for a tile it does not list.
+extern "C" int csa_matmul_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt,
+                                         int steps) {
+  return repro::strip_mma_smem_bytes<true>(bk, max_nnz, bm, bnt, steps);
+}

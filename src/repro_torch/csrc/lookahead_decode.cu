@@ -170,14 +170,23 @@ lookahead_mma(const bf16* __restrict__ x, const int8_t* __restrict__ enc,
                            scale, M, N, m0, n0);
 }
 
+int mma_steps(int K, int split) { return K / KS / split; }  // per block
+
+// The shared-memory layout of a block of `steps` stages.
+template <int BN, int BM>
+repro::tc::Layout<repro::tc::Tile<BN, BM>> mma_layout(int steps) {
+  return repro::tc::Layout<repro::tc::Tile<BN, BM>>(steps,
+                                                   LaStage<BN, BM>::BYTES);
+}
+
 template <int BN, int BM>
 cudaError_t launch_mma(const void* x, const void* enc, const void* scale,
                        void* out, int M, int K, int N, int split,
                        cudaStream_t s) {
   using TL = repro::tc::Tile<BN, BM>;
   static size_t opted = 0;
-  const int steps = K / KS / split;               // stages per block
-  const repro::tc::Layout<TL> lay(steps, LaStage<BN, BM>::BYTES);
+  const int steps = mma_steps(K, split);
+  const auto lay = mma_layout<BN, BM>(steps);
   const dim3 grid(N / BN * split, (M + BM - 1) / BM);
   return repro::tc::launch_cluster(
       lookahead_mma<BN, BM>, opted, grid, TL::THREADS, lay.bytes, split, s,
@@ -298,6 +307,19 @@ extern "C" int lookahead_mma_launch(const void* x, const void* enc,
   LA_MMA(32, 64) LA_MMA(64, 64) LA_MMA(128, 64)
 #undef LA_MMA
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory per block that lookahead_mma_launch passes for
+// these arguments, or -1 for a tile it does not list.
+extern "C" int lookahead_mma_smem_bytes(int K, int bm, int bn, int split) {
+#define LA_SMEM(BN, BM)  \
+  if (bn == BN && bm == BM) \
+    return (int)mma_layout<BN, BM>(mma_steps(K, split)).bytes;
+  LA_SMEM(32, 8) LA_SMEM(64, 8) LA_SMEM(128, 8)
+  LA_SMEM(32, 32) LA_SMEM(64, 32) LA_SMEM(128, 32)
+  LA_SMEM(32, 64) LA_SMEM(64, 64) LA_SMEM(128, 64)
+#undef LA_SMEM
+  return -1;
 }
 
 // fp32 x: (mt, bn) in {(1|2|4|8, 8), (8, 32)}, bn dividing N; enc 8-byte

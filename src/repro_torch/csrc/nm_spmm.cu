@@ -160,14 +160,26 @@ nm_spmm_mma(const bf16* __restrict__ x, const bf16* __restrict__ values,
                            nullptr, M, N, m0, n0);
 }
 
+int mma_steps(int K, int n, int m, int split) {  // stages per block
+  return K / m * n / KS / split;
+}
+
+// The shared-memory layout of a block of `steps` stages.
+template <int BN, int BM>
+repro::tc::Layout<repro::tc::Tile<BN, BM>> mma_layout(int steps, int n,
+                                                     int m) {
+  return repro::tc::Layout<repro::tc::Tile<BN, BM>>(
+      steps, NmStage<BN>::bytes(KS * m / n, BM));
+}
+
 template <int BN, int BM>
 cudaError_t launch_mma(const void* x, const void* values, const void* idx,
                        void* out, int M, int K, int N, int n, int m, int g,
                        int split, cudaStream_t s) {
   using TL = repro::tc::Tile<BN, BM>;
   static size_t opted = 0;
-  const int steps = K / m * n / KS / split;       // stages per block
-  const repro::tc::Layout<TL> lay(steps, NmStage<BN>::bytes(KS * m / n, BM));
+  const int steps = mma_steps(K, n, m, split);
+  const auto lay = mma_layout<BN, BM>(steps, n, m);
   const dim3 grid(N / BN * split, (M + BM - 1) / BM);
   return repro::tc::launch_cluster(
       nm_spmm_mma<BN, BM>, opted, grid, TL::THREADS, lay.bytes, split, s,
@@ -295,6 +307,20 @@ extern "C" int nm_spmm_mma_launch(const void* x, const void* values,
   NM_MMA(32, 64) NM_MMA(64, 64) NM_MMA(128, 64)
 #undef NM_MMA
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory per block that nm_spmm_mma_launch passes for
+// these arguments, or -1 for a tile it does not list.
+extern "C" int nm_spmm_mma_smem_bytes(int K, int n, int m, int bm, int bn,
+                                      int split) {
+#define NM_SMEM(BN, BM)  \
+  if (bn == BN && bm == BM) \
+    return (int)mma_layout<BN, BM>(mma_steps(K, n, m, split), n, m).bytes;
+  NM_SMEM(32, 8) NM_SMEM(64, 8) NM_SMEM(128, 8)
+  NM_SMEM(32, 32) NM_SMEM(64, 32) NM_SMEM(128, 32)
+  NM_SMEM(32, 64) NM_SMEM(64, 64) NM_SMEM(128, 64)
+#undef NM_SMEM
+  return -1;
 }
 
 // fp32 x and values: (mt, bn) in {(1|2|4|8, 4), (8, 32)}, bn dividing g;

@@ -221,6 +221,15 @@ strip_spmm_mma(const tc::bf16* __restrict__ x,
                            nullptr, M, N, m0, n0);
 }
 
+// The shared-memory layout of a block: the stage ring, then the strip's
+// tile list (`max_nnz` ints, 16-byte aligned).
+template <int BN, int BM, bool GATHER>
+tc::Layout<tc::Tile<BN, BM>> strip_layout(int bk, int max_nnz, int steps) {
+  const size_t list = (sizeof(int) * max_nnz + 15) / 16 * 16;
+  return tc::Layout<tc::Tile<BN, BM>>(
+      steps, StripStage<BN, GATHER>::bytes(GATHER ? bk : kStripKS, BM), list);
+}
+
 template <int BN, int BM, bool GATHER>
 cudaError_t strip_launch_mma(const void* x, const void* values,
                              const void* indices, const void* counts,
@@ -229,9 +238,7 @@ cudaError_t strip_launch_mma(const void* x, const void* values,
                              int steps, cudaStream_t s) {
   using TL = tc::Tile<BN, BM>;
   static size_t opted = 0;
-  const size_t list = (sizeof(int) * max_nnz + 15) / 16 * 16;
-  const tc::Layout<TL> lay(
-      steps, StripStage<BN, GATHER>::bytes(GATHER ? bk : kStripKS, BM), list);
+  const auto lay = strip_layout<BN, BM, GATHER>(bk, max_nnz, steps);
   const dim3 grid(N / BN * split, (M + BM - 1) / BM);
   return tc::launch_cluster(
       strip_spmm_mma<BN, BM, GATHER>, opted, grid, TL::THREADS, lay.bytes,
@@ -268,6 +275,20 @@ int strip_mma_dispatch(const void* x, const void* values, const void* indices,
   STRIP_MMA(32, 64) STRIP_MMA(64, 64) STRIP_MMA(128, 64)
 #undef STRIP_MMA
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory per block that strip_mma_dispatch passes for
+// these arguments, or -1 for a tile it does not list.
+template <bool GATHER>
+int strip_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt, int steps) {
+#define STRIP_SMEM(BN, BM)                                                  \
+  if (bnt == BN && bm == BM)                                                \
+    return (int)strip_layout<BN, BM, GATHER>(bk, max_nnz, steps).bytes;
+  STRIP_SMEM(32, 8) STRIP_SMEM(64, 8) STRIP_SMEM(128, 8)
+  STRIP_SMEM(32, 32) STRIP_SMEM(64, 32) STRIP_SMEM(128, 32)
+  STRIP_SMEM(32, 64) STRIP_SMEM(64, 64) STRIP_SMEM(128, 64)
+#undef STRIP_SMEM
+  return -1;
 }
 
 // ---- fp32: CUDA-core FMAs ---------------------------------------------------

@@ -95,3 +95,16 @@ def check(err: int, what: str) -> None:
     """Raise when a launcher returned a non-zero ``cudaGetLastError``."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def smem_bytes(name: str, symbol: str, *args: int) -> int:
+    """Call the ``extern "C" int <symbol>(int...)`` of ``csrc/<name>.cu``
+    that reports the dynamic shared memory per block its launcher passes
+    for these arguments; raise if it lists no such tile."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    got = fn(*args)
+    if got < 0:
+        raise ValueError(f"{symbol}{args}: the launcher lists no such tile")
+    return got

@@ -39,6 +39,16 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
                       gather=True)
 
 
+def smem_bytes(M: int, K: int, N: int, max_nnz: int, bk: int = 128,
+               bn: int = 128, n: int = 2, m: int = 4) -> int:
+    """The dynamic shared memory per block that the bfloat16 launcher
+    passes for ``x (M, K) @ pack (K, N)`` under :func:`plan`, as the
+    compiled library computes it."""
+    p = plan(M, K, N, torch.bfloat16, max_nnz, bk, bn, n, m)
+    return _build.smem_bytes("csa_matmul", "csa_matmul_mma_smem_bytes", bk,
+                             max_nnz, p["bm"], p["bn"], p["steps_per_block"])
+
+
 @functools.cache
 def _fns():
     lib = _build.load("csa_matmul")

@@ -49,6 +49,15 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype) -> dict:
     return tiling.mma_tiles(M, K, N, K // KS, widths)
 
 
+def smem_bytes(M: int, K: int, N: int) -> int:
+    """The dynamic shared memory per block that the bfloat16 launcher
+    passes for ``x (M, K) @ decode(pack) (K, N)`` under :func:`plan`, as
+    the compiled library computes it."""
+    p = plan(M, K, N, torch.bfloat16)
+    return _build.smem_bytes("lookahead_decode", "lookahead_mma_smem_bytes",
+                             K, p["bm"], p["bn"], p["split"])
+
+
 @functools.cache
 def _fns():
     lib = _build.load("lookahead_decode")

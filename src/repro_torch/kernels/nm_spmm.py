@@ -52,6 +52,16 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2, m: int = 4,
     return tiling.mma_tiles(M, K, N, Kc // KS, widths)
 
 
+def smem_bytes(M: int, K: int, N: int, n: int = 2, m: int = 4,
+               g: int = 128) -> int:
+    """The dynamic shared memory per block that the bfloat16 launcher
+    passes for ``x (M, K) @ pack (K, N)`` under :func:`plan`, as the
+    compiled library computes it."""
+    p = plan(M, K, N, torch.bfloat16, n, m, g)
+    return _build.smem_bytes("nm_spmm", "nm_spmm_mma_smem_bytes", K, n, m,
+                             p["bm"], p["bn"], p["split"])
+
+
 @functools.cache
 def _fns():
     lib = _build.load("nm_spmm")

@@ -473,3 +473,60 @@ def test_paged_engine_runs_the_kernels(cuda, fmt):
     assert [len(o) for o in outs] == [6, 6]
     assert all(m.launches > c for m, c in zip(mods, counts))
     assert eng.sync_count == len(eng.stats().chunk_s)
+
+
+# --- the paper layer's shapes and routes -------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 8, 130, 256])
+def test_nm_spmm_one_of_four(cuda, M, dtype):
+    """1:4 packs (a quarter of K kept) on both routes."""
+    K = N = 2048
+    w, _ = pruning.n_m((randn(2, (K, N), cuda) / K ** 0.5).to(dtype), 1, 4,
+                       group=128)
+    pack = sparsity.pack_nm(w, 1, 4, g=128)
+    x = randn(3, (M, K), cuda).to(dtype)
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    assert nm_mod.plan(M, K, N, dtype, 1, 4, 128)["route"] == route
+    before = nm_mod.launches
+    got = nm_mod.nm_spmm(x, pack)
+    torch.cuda.synchronize()
+    assert nm_mod.launches == before + 1
+    close(got, ref.nm_spmm_ref(x, pack))
+    close(got, x.float() @ w.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bench_kernels_shape(cuda, dtype):
+    """Every pack of ``benchmarks/bench_kernels`` at its (256, 2048, 2048)
+    shape through ``dispatch.sparse_matmul``: one launch of its kernel,
+    equal to the plain version."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels import dispatch
+    M, K, N = bench_kernels.SHAPE
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        cuda, dtype)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    mods = {sparsity.NMPack: nm_mod, sparsity.BlockSparsePack: bsr_mod,
+            sparsity.CombinedPack: csa_mod,
+            sparsity.LookaheadPack: lookahead_mod}
+    for label, weight, _ in bench_kernels.packs(w, dtype, cuda):
+        if isinstance(weight, torch.Tensor):
+            continue
+        mod = mods[type(weight)]
+        before = mod.launches
+        got = dispatch.sparse_matmul(x, weight)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1, label
+        close(got, bench_kernels.entry(weight).run(x, weight, "ref"))
+
+
+def test_smem_bytes_from_the_libraries(cuda):
+    """Table III's ``smem_bytes`` column comes from the built libraries:
+    one positive size per format, within an SM's 227 KB."""
+    from repro_torch.benchmarks import bench_resources
+    rows = bench_resources.run()["rows"]
+    sizes = {r["format"]: r["smem_bytes"] for r in rows}
+    assert sizes.pop("dense") is None
+    assert all(0 < v <= 232448 for v in sizes.values()), sizes
