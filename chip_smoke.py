@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      two calls bitwise equal; flash attention also with a suffix, a
      window with softcap and in fp32, paged attention also as a Q = 4
      verify block and with fp32 q, its dead slot exactly zero and two
-     calls bitwise equal, each attention call's plan printed), and time
+     calls bitwise equal, each attention call's plan printed; flash also
+     at phase 7's suffix shapes, timed against SDPA under a lower-right
+     causal mask), and time
      the kernel, the plain version and one library call computing the
      same function (a yardstick only — the port never calls it) as device
      time from CUDA-graph replay, beside the least time the card could
@@ -62,7 +64,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      before); (c) Figs. 8 and 9, Table III (``smem_bytes`` read from the
      built libraries) and Fig. 10 at (0.6, 0.6) for all four models:
      every PASS/FAIL line must read PASS.  These are simulated CFU cycles
-     and byte counts on the host, not card measurements.
+     and byte counts on the host, not card measurements;
+  7. prefix sharing: ``sparse()`` qwen3-0.6b at full width, bf16, with
+     ``prefix_cache=True`` and 16-row prompt buckets: one
+     ``register_prefix`` of a 64-token head, then 16 requests of 32
+     tokens (8 with ``prefix=handle`` and suffixes of 16-48 tokens, 4
+     repeating one of those prompts token for token, 4 keeping the
+     head's first 40 rows and diverging inside its third page), and the
+     same stream on an engine with ``prefix_cache=False``.  Gates: every
+     request reaches its budget; ``sync_count`` equals the chunks;
+     ``prefix_hits``, ``shared_pages`` and ``cow_copies`` equal what the
+     script works out from its own prompts; fewer peak pages than the
+     unshared run; the head's pages byte-equal after the serve; the flash
+     kernel launched with fewer queries than keys in every layer of every
+     hit; tokens equal the unshared run's unless the first split is at a
+     near tie (``near_tie``: a top-2 gap under ``GAP_TOL`` or within two
+     steps of the bf16 logits' resolution, read by replaying the
+     unshared tokens one sequence at a time); and the same stream at 2
+     layers in fp32 gives the CPU path's tokens (phase 5's rule).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -73,6 +92,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -87,8 +107,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 RTOL, ATOL = 2e-2, 1e-2            # bf16 tolerance of tests/test_kernels.py
-GAP_TOL = 1e-2                     # phase 5: a CPU/GPU token split needs a
-#                                    CPU top-2 logit gap below this
+GAP_TOL = 1e-2                     # phases 5 and 7: a token split needs a
+#                                    top-2 logit gap below this, or (bf16
+#                                    logits) within two steps of their own
+#                                    resolution: see ``near_tie``
 CNN_RTOL = 1e-3                    # phase 6: float32 logits, cuDNN against
 #                                    the CPU convolutions (other algorithms
 #                                    and summation orders through up to 57
@@ -358,8 +380,10 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
 
 def check_flash_attention(cfg, dev) -> dict:
     """Prefill attention of one prompt, timed at L = 128 and a ragged 200;
-    checked, not timed: a suffix (37 queries over 200 keys), a window
-    with softcap, and fp32."""
+    phase 7's suffixes of a shared prefix (``SUFFIX_SHAPES``), checked and
+    timed against SDPA under a lower-right causal mask; checked, not
+    timed: a suffix (37 queries over 200 keys), a window with softcap,
+    and fp32."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -388,6 +412,27 @@ def check_flash_attention(cfg, dev) -> dict:
             bound_ms=b, bound_by=by)
         log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} L={L}: "
             f"{json.dumps(rows[L])}")
+    from torch.nn.attention.bias import causal_lower_right
+    for Lq, Lk in SUFFIX_SHAPES:
+        q, k, v = qkv(Lq, Lk)
+        log_attn_plan("flash_attention", f"bf16 suffix Lq={Lq} Lk={Lk}",
+                      K.plan(1, H, Hk, Lq, Lk, D, q.dtype))
+        err = max(err, check_close(
+            f"flash_attention suffix Lq={Lq} Lk={Lk}",
+            K.flash_attention(q, k, v),
+            ref.mha_ref(q.float(), k.float(), v.float())))
+        kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+        mask = causal_lower_right(Lq, Lk)
+        pairs = Lq * (Lk - Lq) + Lq * (Lq + 1) / 2
+        b, by = bound_ms((2 * H * Lq + 2 * Hk * Lk) * D * 2,
+                         4.0 * H * D * pairs)
+        row = dict(**timings(lambda: K.flash_attention(q, k, v),
+                             lambda: ref.mha_ref(q, k, v),
+                             lambda: sdpa(q, kr, vr, attn_mask=mask), 1),
+                   bound_ms=b, bound_by=by)
+        log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} suffix Lq={Lq} "
+            f"Lk={Lk} (SDPA with a lower-right causal mask): "
+            f"{json.dumps(row)}")
     for what, (Lq, Lk, kw) in {
             "suffix Lq=37 Lk=200": (37, 200, {}),
             "window 64 softcap 30 L=200": (200, 200,
@@ -403,13 +448,18 @@ def check_flash_attention(cfg, dev) -> dict:
     err32 = check_close("flash_attention fp32", K.flash_attention(q, k, v),
                         ref.mha_ref(q, k, v))
     log(f"[kernels] flash_attention max abs err {err:.3e} (bf16: L = 128, "
-        f"200, suffix, window + softcap), {err32:.3e} (fp32) against the "
-        "plain version")
+        f"200, phase 7's suffixes, window + softcap), {err32:.3e} (fp32) "
+        "against the plain version")
     return dict(name="flash_attention",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:97",
                 max_abs_err=err, **rows[128])
 
+
+#: (queries, keys) of phase 7's suffix prefills: a 48-token suffix after
+#: the 64-row head, a full-match repeat recomputing its last row, and a
+#: prompt diverging at row 40 of 96
+SUFFIX_SHAPES = ((48, 112), (1, 96), (56, 96))
 
 FORMATS = {   # the other pack formats, as the JAX tests declare them
     "combined": dict(format="combined", sparsity=0.5, n=2, m=4,
@@ -759,28 +809,47 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def cpu_greedy(params, cfg, prompt, max_new, prompt_pad, max_len):
-    """1-token-at-a-time greedy decode on the port's CPU path; returns the
-    tokens and each step's top-2 logit gap."""
+def near_tie(gap: float, top: float, dtype: torch.dtype) -> bool:
+    """Whether a top-2 logit gap is a near tie: under ``GAP_TOL``, or at
+    most two steps of the logits' own resolution at the top logit.  The
+    unembedding returns logits in the model's dtype; in bf16 they move in
+    steps of 2**-5 between 4 and 8, so the smallest gap short of a tie is
+    three times ``GAP_TOL`` there.  Two steps: the split is read in a
+    one-sequence replay, itself a step off the batched run it stands
+    for, and the two runs compared may each round a step apart.  In fp32
+    the step is ~5e-7 and only ``GAP_TOL`` counts (phase 5's rule)."""
+    step = torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(abs(top)))
+    return gap < GAP_TOL or gap <= 2 * step
+
+
+def greedy(params, cfg, prompt, max_new, prompt_pad, max_len,
+           device="cpu", forced=None):
+    """1-token-at-a-time greedy decode of one sequence on ``device``;
+    returns each step's argmax, top-2 logit gap and top logit.
+    ``forced`` feeds those tokens back instead of the argmax (the gaps
+    along another run's tokens)."""
     from repro_torch import models
     tokens = np.zeros((1, prompt_pad), np.int32)
     tokens[0, prompt_pad - len(prompt):] = prompt
-    cache = models.init_cache(cfg, 1, max_len, device="cpu")
+    cache = models.init_cache(cfg, 1, max_len, device=device)
     logits, cache = models.prefill(
-        params, cfg, {"tokens": torch.from_numpy(tokens)}, cache)
-    out, gaps, pos = [], [], prompt_pad
+        params, cfg, {"tokens": torch.from_numpy(tokens).to(device)}, cache)
+    out, gaps, tops, pos = [], [], [], prompt_pad
     for t in range(max_new):
-        lg = logits[0, :cfg.vocab_size]
+        lg = logits[0, :cfg.vocab_size].float().cpu()
         top = lg.topk(2).values
         gaps.append(float(top[0] - top[1]))
+        tops.append(float(top[0]))
         out.append(int(lg.argmax()))
         if t == max_new - 1:
             break
+        fed = out[-1] if forced is None else int(forced[t])
         logits, cache = models.decode_step(
-            params, cfg, torch.tensor([out[-1]], dtype=torch.int32), cache,
-            torch.tensor([pos], dtype=torch.int32))
+            params, cfg, torch.tensor([fed], dtype=torch.int32,
+                                      device=device), cache,
+            torch.tensor([pos], dtype=torch.int32, device=device))
         pos += 1
-    return out, gaps
+    return out, gaps, tops
 
 
 def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
@@ -795,8 +864,8 @@ def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
     gpu = Engine(cfg, scfg, params, device=dev).generate(prompts)
     cpu_params = _to(params, "cpu")
     for i, (p, got) in enumerate(zip(prompts, gpu)):
-        want, gaps = cpu_greedy(cpu_params, cfg, p, scfg.max_new_tokens,
-                                scfg.prompt_pad, scfg.max_len)
+        want, gaps, _ = greedy(cpu_params, cfg, p, scfg.max_new_tokens,
+                               scfg.prompt_pad, scfg.max_len)
         split = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
                      None)
         log(f"[fidelity {fmt}] request {i}: {len(got)} tokens, first "
@@ -901,6 +970,214 @@ def paper_layer(dev, counters) -> dict:
     return launches
 
 
+# --- phase 7: prefix sharing ---------------------------------------------------
+
+PAGE = 16                          # phase 7's page and prompt bucket
+HEAD_ROWS = 64                     # the registered head: 4 pages
+DIVERGE_ROW = 40                   # inside the head's third page
+
+
+def prefix_stream(vocab: int, seed: int):
+    """Phase 7's head and requests ``[(prompt, suffix or None)]``: 8
+    requests led by the head with suffixes of 16, 32 or 48 tokens
+    (``suffix`` set: submitted with ``prefix=handle``), 4 repeating the
+    first four of those prompts token for token, and 4 keeping the head's
+    first ``DIVERGE_ROW`` rows.  Every prompt fills its 16-row bucket, and
+    each suffix and divergence starts with a token of its own."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1, vocab, HEAD_ROWS).astype(np.int32)
+    leads = iter(rng.choice(np.setdiff1d(np.arange(1, vocab),
+                                         head[DIVERGE_ROW]), 12,
+                            replace=False).astype(np.int32))
+
+    def fresh(n):
+        return np.concatenate([[next(leads)],
+                               rng.integers(1, vocab, n - 1)]).astype(np.int32)
+
+    suffixes = [fresh(n) for n in (16, 32, 48, 16, 32, 48, 16, 32)]
+    requests = [(np.concatenate([head, t]), t) for t in suffixes]
+    requests += [(p, None) for p, _ in requests[:4]]
+    requests += [(np.concatenate([head[:DIVERGE_ROW],
+                                  fresh(n - DIVERGE_ROW)]), None)
+                 for n in (80, 96, 112, 96)]
+    return head, requests
+
+
+def expected_sharing(head, prompts) -> tuple:
+    """(prefix_hits, shared_pages, cow_copies) for ``prompts`` (each
+    filling its bucket) admitted in order after ``head`` was registered,
+    worked out without the index: a prompt maps the full pages of its
+    longest common row prefix with the head or an earlier prompt (full
+    pages only are published), keeps at least its last row to recompute,
+    and copies the page that prefix ends inside."""
+    published = [head]
+    hits = shared = copies = 0
+    for p in prompts:
+        rows = len(p)
+        common = 0
+        for q in published:
+            n = min(len(p), len(q))
+            neq = np.flatnonzero(p[:n] != q[:n])
+            common = max(common, int(neq[0]) if len(neq) else n)
+        m = min(common // PAGE, (rows - 1) // PAGE)
+        r = min(common, rows - 1) - m * PAGE
+        hits += bool(m or r)
+        shared += m
+        copies += r > 0
+        published.append(p[:rows // PAGE * PAGE])
+    return hits, shared, copies
+
+
+def prefix_engine(cfg, params, dev, max_new: int, prefix_cache: bool):
+    from repro_torch.serving import Engine, ServeConfig
+    scfg = ServeConfig(slots=8, max_len=512, page_size=PAGE,
+                       decode_chunk=16, prompt_buckets=PAGE,
+                       max_new_tokens=max_new, eos_token=-1,
+                       prefix_cache=prefix_cache)
+    return Engine(cfg, scfg, params, device=dev)
+
+
+def serve_stream(eng, requests, handle=None) -> tuple:
+    """Submit phase 7's requests (the head-led ones as their suffix with
+    ``prefix=handle`` when there is a handle) and serve them; returns
+    (tokens per request, report).  Every request must reach its budget
+    and ``sync_count`` must equal the chunks."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(t, prefix=handle)
+               if handle is not None and t is not None else eng.submit(p)
+               for p, t in requests]
+    ticks = 0
+    while eng.num_queued or eng.num_live:
+        if ticks > 8 * len(requests):
+            raise AssertionError("the prefix serve does not drain")
+        eng.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    outs = [h.tokens for h in handles]
+    budget = eng.scfg.max_new_tokens
+    if not all(h.status.value == "done" and len(o) == budget
+               for h, o in zip(handles, outs)):
+        raise AssertionError("a request did not finish with its budget: "
+                             f"{[len(o) for o in outs]}")
+    if st.sync_count != len(st.chunk_s):
+        raise AssertionError(f"sync_count {st.sync_count} != "
+                             f"{len(st.chunk_s)} chunks")
+    ntok = sum(len(o) for o in outs)
+    return outs, {
+        "tokens": ntok, "tok_per_s": ntok / wall, "wall_s": wall,
+        "decode_ms_per_step": 1e3 * sum(st.chunk_s)
+        / (len(st.chunk_s) * eng.scfg.decode_chunk),
+        "chunks": len(st.chunk_s), "sync_count": st.sync_count,
+        "prefills": st.prefills, "peak_pages": st.peak_pages,
+        "prefix_hits": st.prefix_hits, "shared_pages": st.shared_pages,
+        "cow_copies": st.cow_copies}
+
+
+def first_split(got, want):
+    return next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+
+
+def prefix_sharing(cfg, dev, counters) -> dict:
+    """Phase 7 at full width: the shared serve (launch counts set to 0
+    just before, read just after) and the unshared one, both printed
+    before the gates."""
+    from repro_torch.kernels import flash_attention
+    head, requests = prefix_stream(cfg.vocab_size, SEED + 7)
+    want = expected_sharing(head, [p for p, _ in requests])
+    params = sparse_model(cfg, dev, SEED)
+    shared = prefix_engine(cfg, params, dev, 32, prefix_cache=True)
+    handle = shared.register_prefix(head)
+    pages = torch.tensor([nd.page for nd in handle._nodes], device=dev)
+    pinned = [shared._cache[k][:, pages].clone() for k in ("kp", "vp")]
+    for mod in counters:
+        mod.launches = 0
+    flash_attention.suffix_launches = 0
+    torch.cuda.synchronize()
+    outs, report = serve_stream(shared, requests, handle)
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+                for mod in counters}
+    suffix = flash_attention.suffix_launches
+    kept = all(torch.equal(shared._cache[k][:, pages], t)
+               for k, t in zip(("kp", "vp"), pinned))
+    handle.release()
+    plain, plain_report = serve_stream(
+        prefix_engine(cfg, params, dev, 32, prefix_cache=False), requests)
+    got = (report["prefix_hits"], report["shared_pages"],
+           report["cow_copies"])
+    log(f"[prefix] shared: {json.dumps(report)}")
+    log(f"[prefix] unshared: {json.dumps(plain_report)}")
+    log(f"[prefix] launches {json.dumps(launches)}, flash_attention with "
+        f"Lq < Lk: {suffix}")
+    log(f"[prefix] (prefix_hits, shared_pages, cow_copies) {got}, worked "
+        f"out from the prompts {want}; peak pages {report['peak_pages']} "
+        f"shared, {plain_report['peak_pages']} unshared; the head's "
+        f"{len(pages)} pages {'byte-equal' if kept else 'CHANGED'} after "
+        "the serve")
+    path = {"nm_spmm", "paged_attention", "flash_attention"}
+    if any((launches[name] > 0) != (name in path) for name in launches):
+        raise AssertionError(f"the kernels of {sorted(path)} must launch "
+                             f"and no other: {launches}")
+    if got != want:
+        raise AssertionError(f"prefix counts {got} != expected {want}")
+    if suffix != cfg.n_layers * want[0]:
+        raise AssertionError(f"{suffix} suffix flash launches for "
+                             f"{want[0]} hits of {cfg.n_layers} layers")
+    if not kept:
+        raise AssertionError("the registered head's pages changed")
+    if report["peak_pages"] >= plain_report["peak_pages"]:
+        raise AssertionError("sharing did not lower the peak pages")
+    dtype = params["embed"].dtype
+    far = []
+    for i, ((p, _), a, b) in enumerate(zip(requests, outs, plain)):
+        split = first_split(a, b)
+        if split is None:
+            continue
+        replay, gaps, tops = greedy(params, cfg, p, len(b), len(p), 512,
+                                    device=dev, forced=b)
+        tie = near_tie(gaps[split], tops[split], dtype)
+        log(f"[prefix] request {i}: first split at {split}, unshared top-2 "
+            f"gap there {gaps[split]:.3e} at top logit {tops[split]:.4f} "
+            f"(one-sequence replay): {'a near tie' if tie else 'NOT a tie'}; "
+            f"the replay's own argmax first leaves the unshared tokens at "
+            f"{first_split(replay, b)}")
+        if not tie:
+            far.append(i)
+    log(f"[prefix] {sum(first_split(a, b) is None for a, b in zip(outs, plain))}"
+        f"/{len(outs)} requests token-equal to the unshared run")
+    if far:
+        raise AssertionError(f"requests {far} split from the unshared run "
+                             "away from a near tie")
+    return launches
+
+
+def prefix_vs_cpu(cfg, dev) -> None:
+    """Phase 7's stream at 2 layers in fp32: the card's prefix serve
+    against one-sequence greedy decoding on the CPU (phase 5's rule)."""
+    params = sparse_model(cfg, dev, SEED + 1)
+    head, requests = prefix_stream(cfg.vocab_size, SEED + 7)
+    eng = prefix_engine(cfg, params, dev, 16, prefix_cache=True)
+    outs, report = serve_stream(eng, requests, eng.register_prefix(head))
+    want = expected_sharing(head, [p for p, _ in requests])
+    got = (report["prefix_hits"], report["shared_pages"],
+           report["cow_copies"])
+    if got != want:
+        raise AssertionError(f"fp32 prefix counts {got} != {want}")
+    cpu_params = _to(params, "cpu")
+    splits = []
+    for i, ((p, _), a) in enumerate(zip(requests, outs)):
+        b, gaps, _ = greedy(cpu_params, cfg, p, len(a), len(p), 512)
+        split = first_split(a, b)
+        splits.append(split)
+        if split is not None and gaps[split] >= GAP_TOL:
+            raise AssertionError(f"fp32 request {i}: card {a} vs CPU {b}")
+    log(f"[prefix fidelity] 2 layers fp32: counts {got}; first splits "
+        f"against the CPU {splits}")
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -985,6 +1262,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paper_layer(dev, counters)
     timed("6 paper layer", t0)
+
+    t0 = time.perf_counter()
+    got = prefix_sharing(cfg, dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    prefix_vs_cpu(small, dev)
+    timed("7 prefix sharing", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

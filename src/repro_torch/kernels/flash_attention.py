@@ -25,6 +25,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Those of them with fewer queries than keys (a prompt's suffix over a
+#: shared prefix).
+suffix_launches = 0
 
 
 #: ``plan(B, H, Hk, Lq, Lk, D, dtype)``: route, tile and grid of a call.
@@ -51,7 +54,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q (B, H, Lq, D), k/v (B, Hk, Lk, D) -> (B, H, Lq, D)``; queries
     are the last ``Lq`` positions of the keys.  Rows with no key in
     reach give zeros on the card."""
-    global launches
+    global launches, suffix_launches
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
@@ -89,4 +92,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fma(*args, DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention")
     launches += 1
+    if Lq < Lk:
+        suffix_launches += 1
     return out

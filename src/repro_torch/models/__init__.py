@@ -1,12 +1,13 @@
 """Model API of the port — the JAX package's serving surface for the
 decoder-only ("lm") family.
 
-``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step``, plus the
-cache helpers the serving loops use (``blank_slot_cache``,
-``merge_cache_slot``, ``set_page_table``, ``page_view``,
-``unpage_view``).  Caches are updated in place; the helpers return the
-cache for call-site parity with the JAX API.  The hybrid (mamba) and
-encoder-decoder families are ROADMAP queue 1 item 11.
+``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
+``decode_block``, plus the cache helpers the serving loops use
+(``blank_slot_cache``, ``merge_cache_slot``, ``copy_page``,
+``set_page_table``, ``page_view``, ``unpage_view``).  Caches are updated
+in place; the helpers return the cache for call-site parity with the JAX
+API.  The hybrid (mamba) and encoder-decoder families are ROADMAP queue 1
+item 11.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from repro_torch.models.config import LayerKind, ModelConfig
 Params = Dict[str, Any]
 
 __all__ = ["LayerKind", "ModelConfig", "family", "init_model", "init_cache",
-           "prefill", "decode_step", "blank_slot_cache", "merge_cache_slot",
-           "set_page_table", "page_view", "unpage_view", "paged_max_pages"]
+           "prefill", "decode_step", "decode_block", "blank_slot_cache",
+           "merge_cache_slot", "copy_page", "set_page_table", "page_view",
+           "unpage_view", "paged_max_pages"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -86,6 +88,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return TR.lm_decode_step(params, cfg, token, cache, pos)
 
 
+def decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: Params, start: int) -> Tuple[torch.Tensor, Params]:
+    """Multi-token decode-shaped forward of the ``lm`` family: ``tokens
+    (B, T)`` written at rows ``[start, start + T)`` (a host int; the
+    paged cache) and scored in one forward — logits for every block
+    position ``(B, T, vocab_padded)``.  The prefix-sharing prefill runs
+    the suffix of a prompt through it; the per-slot vector offsets of
+    the speculative verify are ROADMAP queue 1 item 9."""
+    return TR.lm_decode_block(params, cfg, tokens, cache, start)
+
+
 def _is_paged(cache: Params) -> bool:
     return "ptab" in cache
 
@@ -112,6 +125,17 @@ def merge_cache_slot(cache: Params, slot_cache: Params, slot: int) -> Params:
     else:
         for k in cache:
             cache[k][:, slot] = slot_cache[k][:, 0]
+    return cache
+
+
+def copy_page(cache: Params, src: int, dst: int) -> Params:
+    """Copy physical page ``src`` onto ``dst`` in every layer's pools, in
+    place: the copy-on-write half of prefix sharing.  Rows past the
+    divergence are overwritten by the suffix prefill or masked by the
+    slot's length."""
+    if _is_paged(cache):
+        cache["kp"][:, dst] = cache["kp"][:, src]
+        cache["vp"][:, dst] = cache["vp"][:, src]
     return cache
 
 

@@ -16,6 +16,11 @@ Which kernel runs where:
     kernel on the freshly projected k/v, rounded to the cache dtype as
     the cache read would round them — equal to the JAX masked view of
     the cache because every row past the prompt is masked;
+  * a suffix prefill at a host offset ``cache_pos = start > 0`` (prefix
+    sharing, paged cache only) calls the flash kernel with the ``L``
+    new queries over the ``start + L`` keys gathered back from the
+    slot's pages in the cache dtype — the rows the JAX ``_sdpa`` reads
+    at ``kv_len = start + L``;
   * paged decode calls the paged-attention kernel with
     ``lens = pos + 1`` over the page-table view, instead of JAX's
     gathered view;
@@ -138,6 +143,24 @@ def _flash_prefill(cfg: ModelConfig, q, k, v, cache_dtype, window):
     return out.transpose(1, 2)
 
 
+def _flash_suffix(cfg: ModelConfig, q, kp, vp, pt, kv_len: int, window):
+    """Causal attention of the last ``Lq`` positions over the first
+    ``kv_len`` rows of each slot's pages, read back in the cache dtype
+    (the shared head and the suffix just written), as the JAX ``_sdpa``
+    reads its gathered view."""
+    B, ps = q.shape[0], kp.shape[1]
+    table = pt[:, :-(-kv_len // ps)].long()
+
+    def view(pool):
+        rows = pool[table].reshape(B, -1, *pool.shape[2:])[:, :kv_len]
+        return rows.to(q.dtype).transpose(1, 2).contiguous()
+
+    out = dispatch.attention(q.transpose(1, 2).contiguous(), view(kp),
+                             view(vp), causal=True, window=window,
+                             softcap=cfg.attn_softcap)
+    return out.transpose(1, 2)
+
+
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: Params, cache_pos, *,
               is_local: bool = False,
@@ -145,8 +168,9 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, Params]:
     """Project → rope → cache write → attention → out projection.
 
-    ``cache_pos`` is the int ``0`` for prefill (the prompt fills rows
-    ``[0, L)``) or a ``(B,)`` tensor of per-slot positions for one-token
+    ``cache_pos`` is a host int for prefill (the prompt fills rows
+    ``[cache_pos, cache_pos + L)``; a nonzero offset needs the paged
+    cache) or a ``(B,)`` tensor of per-slot positions for one-token
     decode.  ``cache`` is this layer's monolithic or paged cache (the
     paged one detected by its ``ptab``); it is written in place and
     returned.
@@ -157,10 +181,11 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     k = L.apply_rope(k, positions, cfg.rope_theta)
     B, Lq = x.shape[0], x.shape[1]
     prefill = isinstance(cache_pos, int)
-    if prefill and cache_pos != 0:
+    if prefill and cache_pos and "ptab" not in cache:
         raise NotImplementedError(
-            "prefill at a nonzero offset (prefix sharing, speculation) is "
-            "not ported yet (ROADMAP queue 1 items 8-9)")
+            "prefill at a nonzero offset needs the paged cache (prefix "
+            "sharing shares pages); the monolithic verify block is ROADMAP "
+            "queue 1 item 9")
     if not prefill and Lq != 1:
         raise NotImplementedError(
             "multi-token decode blocks are not ported yet (ROADMAP queue 1 "
@@ -169,13 +194,15 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if "ptab" in cache:
         kp, vp, pt = cache["kp"], cache["vp"], cache["ptab"]
         ps, n_view = kp.shape[1], pt.shape[1]
-        posn = (torch.arange(Lq, device=x.device)[None].expand(B, Lq)
-                if prefill else cache_pos[:, None].long())
+        posn = (cache_pos + torch.arange(Lq, device=x.device)[None]
+                .expand(B, Lq) if prefill else cache_pos[:, None].long())
         pages = pt.gather(1, (posn // ps).clamp(0, n_view - 1)).long()
         offs = posn % ps
         kp[pages, offs] = k.to(kp.dtype)
         vp[pages, offs] = v.to(vp.dtype)
-        if prefill:
+        if prefill and cache_pos:
+            out = _flash_suffix(cfg, q, kp, vp, pt, cache_pos + Lq, window)
+        elif prefill:
             out = _flash_prefill(cfg, q, k, v, kp.dtype, window)
         else:
             if cfg.attn_softcap is not None or window is not None:

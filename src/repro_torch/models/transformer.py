@@ -79,6 +79,19 @@ def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return L.unembed(params["embed"], x[:, -1], cfg.final_softcap), cache
 
 
+def lm_decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                    cache: Params, start: int) -> Tuple[torch.Tensor, Params]:
+    """``tokens (B, T)`` written at rows ``[start, start + T)`` of every
+    slot, causal within the block over the rows already cached; fp32
+    logits for every block position ``(B, T, vocab_padded)``.  ``start``
+    is a host int (one offset for every slot, paged cache)."""
+    B, T = tokens.shape
+    positions = (start + torch.arange(T, device=tokens.device))[None] \
+        .expand(B, T)
+    x = _forward(params, cfg, tokens, positions, cache, start)
+    return L.unembed(params["embed"], x, cfg.final_softcap), cache
+
+
 def lm_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                    cache: Params, pos: torch.Tensor
                    ) -> Tuple[torch.Tensor, Params]:

@@ -9,12 +9,17 @@
     card and make the single device→host fetch.
   * ``cancel(handle)`` — takes effect at the next chunk boundary.
   * ``run()`` / ``generate()`` — drain-the-queue wrappers over ``step()``.
+  * ``register_prefix(tokens)`` → :class:`PrefixHandle` — pin a shared
+    prompt head in the paged backend's prefix index;
+    ``submit(..., prefix=handle)`` prepends it.  Sharing itself is
+    automatic (by content, at admission) whenever
+    ``ServeConfig.prefix_cache`` is on.
 
 Sync contract (as in the JAX engine): ``step()`` performs exactly one
 device→host transfer when any slot is live and zero otherwise;
 ``sync_count`` counts them.  Priorities, deadlines, preemption, fault
-containment, the journal, prefix sharing, speculation and sharding are
-ROADMAP queue 1 items 8, 9, 12 and 13.
+containment, the journal, speculation and sharding are ROADMAP queue 1
+items 9, 12 and 13.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.prefix import PrefixHandle
 from repro_torch.serving.state import (TERMINAL_STATUSES, EngineStats,
                                        Request, RequestHandle, RequestStatus,
                                        TokenEvent, fresh_stats,
@@ -38,7 +44,6 @@ from repro_torch.serving.state import (TERMINAL_STATUSES, EngineStats,
 __all__ = ["Engine", "RequestHandle"]
 
 _NOT_PORTED = {
-    "prefix_cache": "ROADMAP queue 1 item 8",
     "spec_k": "ROADMAP queue 1 item 9",
     "max_queue": "ROADMAP queue 1 item 12",
     "journal_path": "ROADMAP queue 1 item 12",
@@ -64,6 +69,12 @@ class Engine:
                 raise NotImplementedError(
                     f"ServeConfig.{field} is not served by the port yet "
                     f"({item})")
+        if scfg.prefix_cache and MZ.family(cfg) != "lm":
+            raise ValueError(
+                "prefix_cache shares KV pages by position; the "
+                f"'{MZ.family(cfg)}' family carries per-request state "
+                "outside the page pool — only decoder-only ('lm') models "
+                "can share prefixes")
         self.device = dispatch.resolve_device(device)
         self.cfg, self.scfg, self.params = cfg, scfg, params
         self.queue: List[Request] = []
@@ -109,6 +120,9 @@ class Engine:
                            chunk_tokens=list(d["chunk_tokens"]),
                            prefills=d["prefills"], peak_pages=d["peak_pages"],
                            admission_waits=d["admission_waits"],
+                           prefix_hits=d["prefix_hits"],
+                           shared_pages=d["shared_pages"],
+                           cow_copies=d["cow_copies"],
                            sync_count=self.sync_count,
                            cache_bytes=self._cache_nbytes())
 
@@ -136,15 +150,62 @@ class Engine:
                              f"[0, {self.cfg.vocab_size})")
         return arr.astype(np.int32)
 
+    def register_prefix(self, tokens: Union[Sequence[int], np.ndarray]
+                        ) -> PrefixHandle:
+        """Pin a shared prompt head; returns its :class:`PrefixHandle`.
+
+        ``tokens`` must be a whole number of pages: they are computed once
+        into index-owned pages (reusing pages already resident) and every
+        page takes a refcount the handle holds, so the head stays warm
+        until :meth:`PrefixHandle.release`.
+
+        Contract: the registered tokens occupy prompt rows ``[0, len)``.
+        Prompts are left-padded to their bucket, so a submission shares
+        these pages exactly when its *padded* head equals them — the full
+        prompt (prefix + suffix) fills its bucket, or the caller
+        registers the padded head it will submit.
+        """
+        scfg = self.scfg
+        if not scfg.prefix_cache:
+            raise ValueError(
+                "register_prefix needs ServeConfig.prefix_cache=True "
+                "(and the paged layout, page_size > 0)")
+        arr = self._coerce_prompt(tokens)
+        if len(arr) % scfg.page_size:
+            raise ValueError(
+                f"a registered prefix must be a whole number of pages: "
+                f"got {len(arr)} tokens with page_size={scfg.page_size}")
+        self._ensure_device_state()
+        nodes, page_row = self._backend.register_prefix(arr)
+        if page_row is not None:
+            fill = self._backend.prefix_fill_step(len(arr))
+            self._cache = fill(
+                self.params, torch.from_numpy(arr[None]).to(self.device),
+                self._cache, torch.from_numpy(page_row).to(self.device))
+        return PrefixHandle(self, arr.copy(), nodes)
+
+    def _release_prefix(self, handle: PrefixHandle) -> None:
+        self._backend.release_prefix(handle._nodes)
+
     def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
                max_new: Optional[int] = None,
                temperature: Optional[float] = None,
-               stream: bool = False) -> RequestHandle:
+               stream: bool = False,
+               prefix: Optional[PrefixHandle] = None) -> RequestHandle:
         """Queue one request.  Prompts longer than the prefill window are
         left-truncated to their last ``prompt_rows`` tokens; shorter ones
         are left-padded with token 0 (the pads are attended, as in the
-        JAX engine)."""
+        JAX engine).  ``prefix`` prepends a :meth:`register_prefix`
+        handle's tokens to ``prompt``."""
         scfg = self.scfg
+        if prefix is not None:
+            if prefix._engine is not self:
+                raise ValueError("prefix handle belongs to a different "
+                                 "engine")
+            if prefix.released:
+                raise ValueError("prefix handle was released")
+            prompt = np.concatenate(
+                [prefix.tokens, np.asarray(prompt, np.int32).ravel()])
         arr = self._coerce_prompt(prompt)
         if max_new is None:
             max_new = scfg.max_new_tokens
@@ -252,16 +313,23 @@ class Engine:
             if not free:
                 break
             r = self.queue[0]
-            if not self._backend.can_admit(len(r.prompt), r.max_new):
+            # the padded rows are what the prefix index keys on: matching
+            # and the copy-on-write plan happen in the backend
+            rows = self._backend.prompt_rows(len(r.prompt))
+            padded = self._pad_prompt(r, rows)
+            if not self._backend.can_admit(len(r.prompt), r.max_new,
+                                           tokens=padded[0], rows=rows):
                 self._stats["admission_waits"] += 1
                 break
             self.queue.pop(0)
             i = free[0]
-            rows = r.rows0 = self._backend.admit(i, len(r.prompt), r.max_new)
+            r.rows0 = self._backend.admit(i, len(r.prompt), r.max_new,
+                                          tokens=padded[0], rows=rows)
+            start, cow = self._backend.prefill_plan(i)
             temp = self._temp(r)
-            tokens = torch.from_numpy(self._pad_prompt(r, rows)).to(
-                self.device)
-            self._cache, self._state = self._backend.prefill_step(rows)(
+            tokens = torch.from_numpy(padded[:, start:]).to(self.device)
+            self._cache, self._state = self._backend.prefill_step(
+                rows, start, cow)(
                 self.params, tokens, self._cache, self._state, i, r.max_new,
                 temp, self._generator([temp]),
                 *self._backend.prefill_args(i))

@@ -6,6 +6,12 @@
     emitted by the next decode chunk, so refill costs zero host syncs.
     With ``paged=True`` the scratch cache shares the page pool and the
     slot's host-assigned pages ride in as an argument.
+  * :func:`build_prefix_prefill_slot_step` — its prefix-sharing twin:
+    the prompt's head already lies in shared pages mapped into the
+    slot's table, so only the suffix is computed (after a copy-on-write
+    page copy when the divergence falls inside a page).
+  * :func:`build_prefix_fill_step` — prefill a registered prefix into
+    the pages the index gave it, touching no slot.
   * :func:`build_prefill_wave_step` — the whole batch in one prefill when
     every slot is free (monolithic layout).
   * :func:`build_decode_loop` — ``decode_chunk`` decode+sample steps in a
@@ -52,13 +58,71 @@ def build_prefill_slot_step(cfg: ModelConfig, scfg: ServeConfig,
             scratch = MZ.set_page_table(scratch, page_row[None])
         logits, scratch = MZ.prefill(params, cfg, {"tokens": tokens}, scratch)
         cache = MZ.merge_cache_slot(cache, scratch, slot)
-        temps = torch.full((1,), temp, device=logits.device)
-        state["tok"][slot] = sample_token_slots(logits[:, :V], temps,
-                                                generator)[0]
-        state["pos"][slot] = rows
-        state["done"][slot] = False
-        state["left"][slot] = budget
+        _start_slot(state, slot, logits[:, :V], temp, generator, rows, budget)
         return cache, state
+
+    return step
+
+
+def _start_slot(state: State, slot: int, logits: torch.Tensor, temp: float,
+                generator: Optional[torch.Generator], rows: int,
+                budget: int) -> None:
+    """Stamp a freshly prefilled slot's decode state on the card: the
+    first token sampled from ``logits (1, V)``, its position and budget."""
+    temps = torch.full((1,), temp, device=logits.device)
+    state["tok"][slot] = sample_token_slots(logits, temps, generator)[0]
+    state["pos"][slot] = rows
+    state["done"][slot] = False
+    state["left"][slot] = budget
+
+
+def build_prefix_prefill_slot_step(cfg: ModelConfig, scfg: ServeConfig,
+                                   prompt_rows: int, start: int,
+                                   cow: bool = False) -> Callable:
+    """(params, tokens (1, rows - start), cache, state, slot, budget,
+    temp, generator, page_row[, copy_src, copy_dst]) → (cache, state).
+
+    Rows ``[0, start)`` of the prompt already lie in shared pages mapped
+    read-only into ``page_row``, so only the suffix is computed: a
+    :func:`models.decode_block` forward at the host offset ``start``
+    whose scatter lands in the slot's private pages (positions ≥
+    ``start``).  ``cow=True`` first copies page ``copy_src`` onto
+    ``copy_dst``: the divergent page's common rows ride in with the copy,
+    the rows past them are overwritten by the suffix or masked."""
+    rows = prompt_rows
+    V = cfg.vocab_size
+
+    def step(params, tokens, cache, state: State, slot: int, budget: int,
+             temp: float, generator: Optional[torch.Generator],
+             page_row: torch.Tensor, copy_src: Optional[int] = None,
+             copy_dst: Optional[int] = None):
+        if cow:
+            cache = MZ.copy_page(cache, copy_src, copy_dst)
+        scratch = MZ.set_page_table(MZ.blank_slot_cache(cache),
+                                    page_row[None])
+        logits, scratch = MZ.decode_block(params, cfg, tokens, scratch, start)
+        cache = MZ.merge_cache_slot(cache, scratch, slot)
+        _start_slot(state, slot, logits[:, -1, :V], temp, generator, rows,
+                    budget)
+        return cache, state
+
+    return step
+
+
+def build_prefix_fill_step(cfg: ModelConfig, scfg: ServeConfig,
+                           prompt_rows: int) -> Callable:
+    """(params, tokens (1, rows), cache, page_row) → cache.
+
+    ``Engine.register_prefix``'s fill: prefill the registered head into
+    the pages ``page_row`` names, touching no slot's page table or decode
+    state (the scratch shares the pools; the logits are dropped).  Pages
+    the head already had resident are rewritten with the same values."""
+
+    def step(params, tokens, cache, page_row: torch.Tensor):
+        scratch = MZ.set_page_table(MZ.blank_slot_cache(cache),
+                                    page_row[None])
+        MZ.prefill(params, cfg, {"tokens": tokens}, scratch)
+        return MZ.unpage_view(scratch, cache)
 
     return step
 

@@ -65,7 +65,8 @@ class TokenEvent:
 
 def fresh_stats() -> Dict[str, Any]:
     return {"chunk_s": [], "chunk_tokens": [], "prefills": 0,
-            "peak_pages": 0, "admission_waits": 0}
+            "peak_pages": 0, "admission_waits": 0,
+            "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,9 @@ class EngineStats:
     prefills: int                   # prompt prefills dispatched
     peak_pages: int                 # paged: pool high-water mark
     admission_waits: int            # paged: admissions deferred for pages
+    prefix_hits: int                # admissions that mapped shared pages
+    shared_pages: int               # pages mapped read-only at admission
+    cow_copies: int                 # copy-on-write page copies
     sync_count: int                 # device→host transfers
     cache_bytes: int                # allocated KV cache footprint
 

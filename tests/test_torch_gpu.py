@@ -475,6 +475,55 @@ def test_paged_engine_runs_the_kernels(cuda, fmt):
     assert eng.sync_count == len(eng.stats().chunk_s)
 
 
+def test_prefix_serve_equals_the_cpu(cuda):
+    """A prefix-sharing serve on the card (2-layer qwen3-0.6b, nm, fp32):
+    a pinned head, two requests led by it, a repeat (full match) and a
+    divergence inside a page give the CPU port's tokens and counts, with
+    the flash kernel run on the suffixes."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.core.sparse_linear import pack_params
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(qwen3_0_6b.sparse(), n_layers=2,
+                              layer_kinds=(), dtype="float32")
+    params = pack_params(models.init_model(cfg, seed=0, device=cuda), cfg)
+    scfg = ServeConfig(slots=2, max_len=96, prompt_pad=64, page_size=16,
+                       prompt_buckets=16, decode_chunk=4, max_new_tokens=6,
+                       eos_token=-1, prefix_cache=True)
+    rng = np.random.default_rng(0)
+    head = rng.integers(1, cfg.vocab_size, 32).astype(np.int32)
+    tails = [rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+             for _ in range(3)]
+
+    def serve(dev, p):
+        eng = Engine(cfg, scfg, p, device=dev)
+        h = eng.register_prefix(head)
+        hs = [eng.submit(t, prefix=h) for t in tails[:2]]
+        hs.append(eng.submit(np.concatenate([head, tails[0]])))
+        hs.append(eng.submit(np.concatenate([head[:20], tails[2][:12]])))
+        eng.run()
+        st = eng.stats()
+        return ([x.tokens for x in hs],
+                (st.prefix_hits, st.shared_pages, st.cow_copies))
+
+    before = flash_mod.suffix_launches
+    card = serve(cuda, params)
+    assert flash_mod.suffix_launches - before == 4 * cfg.n_layers
+    cpu = serve("cpu", {k: _to_cpu(v) for k, v in params.items()})
+    assert card == cpu
+    assert card[1] == (4, 7, 2)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.to("cpu")
+
+
 # --- the paper layer's shapes and routes -------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
