@@ -42,9 +42,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      path must launch (counts set to 0 just before each serve, read just
      after) and no other format's matmul kernel may; each scheduler
      tick (admission, prefill and chunk) and each decode chunk is timed
-     on the host clock.  After the 2:4 and the combined serve, one more
-     decode chunk under ``torch.profiler``: the card's busy share of the
-     wall time and the kernels that fill it;
+     on the host clock.  Decode chunks run as captured CUDA graphs, one
+     per view bucket (a key's first chunk eagerly, its second captured,
+     every later one replayed).  After the 2:4 and the combined serve,
+     the ``[graph]`` turns: the same engine serves the stream again warm,
+     then with graphs off, in turns (warm, eager, warm, eager); tokens,
+     ``sync_count`` and each kernel's launches must equal the eager
+     serves' exactly and no key may be captured twice; each key's capture
+     and instantiate seconds and graph nodes, and each serve's decode ms
+     per step, tok/s and peak memory are printed.  Then one more decode
+     chunk, a replay of a captured key, under ``torch.profiler``: the
+     card's busy share of the wall time and the operations that fill it;
   5. each format's model cut to 2 layers at float32: greedy tokens on
      the card against the port's CPU path; a token may differ only where
      the CPU logits' top-2 gap is under 1e-2 (the gaps are printed).
@@ -695,12 +703,69 @@ def pack_summary(params) -> str:
     return "no tile skipping"
 
 
+def serve_prompts(eng, prompts, counters) -> tuple:
+    """Serve ``prompts`` on ``eng`` (launch counts and stats set to 0 just
+    before, read just after): (tokens per request, report, launches).
+    Every request must reach its budget within the vocabulary and
+    ``sync_count`` must equal the number of decode chunks."""
+    eng.reset_stats()
+    for mod in counters:
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p) for p in prompts]
+    step_s = []                  # whole ticks: admission + prefill + chunk
+    while eng.num_queued or eng.num_live:
+        if len(step_s) > 4 * len(prompts):
+            raise AssertionError("the serve does not drain")
+        t1 = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+                for mod in counters}
+    st = eng.stats()
+    outs = [h.tokens for h in handles]
+    budget = eng.scfg.max_new_tokens
+    if not all(h.status.value == "done" and len(o) == budget
+               for h, o in zip(handles, outs)):
+        raise AssertionError("a request did not finish with its budget: "
+                             f"{[len(o) for o in outs]}")
+    if not all(0 <= t < eng.cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("a token outside the vocabulary")
+    if st.sync_count != len(st.chunk_s):
+        raise AssertionError(f"sync_count {st.sync_count} != "
+                             f"{len(st.chunk_s)} chunks")
+    ntok = sum(len(o) for o in outs)
+    ttft = sorted(h.ttft_s for h in handles)
+    return outs, {
+        "requests": len(handles), "tokens": ntok,
+        "tok_per_s": ntok / wall, "wall_s": wall,
+        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+        "decode_ms_per_step": 1e3 * sum(st.chunk_s)
+        / (len(st.chunk_s) * eng.scfg.decode_chunk),
+        "step_ms": [round(1e3 * t, 1) for t in step_s],
+        "chunk_ms": [round(1e3 * t, 1) for t in st.chunk_s],
+        "chunks": len(st.chunk_s), "sync_count": st.sync_count,
+        "prefills": st.prefills, "peak_pages": st.peak_pages,
+        "launches": launches,
+        "chunk_runs": {how: sum(h == how for _, h in st.chunk_runs)
+                       for how in ("eager", "capture", "replay")},
+        "captures": st.graph_captures,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }, launches
+
+
 def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
                      max_new: int = 64, zero_tiles: bool = False,
                      profile: bool = True) -> dict:
     """Serve ``requests`` random prompts of 16–128 tokens through the
-    paged Engine; ``path`` names the kernels that must launch, every
-    other module of ``counters`` must not."""
+    paged Engine, its decode chunks as CUDA graphs; ``path`` names the
+    kernels that must launch, every other module of ``counters`` must
+    not.  With ``profile``, the ``[graph]`` turns against the eager body
+    and one profiled replayed chunk follow."""
     from repro_torch.serving import Engine, ServeConfig
     fmt = cfg.mlp_sparsity.format
     t0 = time.perf_counter()
@@ -715,61 +780,131 @@ def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(16, 129, size=requests)]
     eng = Engine(cfg, scfg, params, device=dev)
-    for mod in counters:
-        mod.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handles = [eng.submit(p) for p in prompts]
-    step_s = []                  # whole ticks: admission + prefill + chunk
-    while eng.num_queued or eng.num_live:
-        if len(step_s) > 4 * requests:
-            raise AssertionError("the serve does not drain")
-        t1 = time.perf_counter()
-        eng.step()
-        step_s.append(time.perf_counter() - t1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-                for mod in counters}
-    st = eng.stats()
-    outs = [h.tokens for h in handles]
-    if not all(h.status.value == "done" and len(o) == scfg.max_new_tokens
-               for h, o in zip(handles, outs)):
-        raise AssertionError("a request did not finish with its budget: "
-                             f"{[len(o) for o in outs]}")
-    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
-        raise AssertionError("a token outside the vocabulary")
-    if st.sync_count != len(st.chunk_s):
-        raise AssertionError(f"sync_count {st.sync_count} != "
-                             f"{len(st.chunk_s)} chunks")
+    cold = serve_prompts(eng, prompts, counters)
+    outs, report, launches = cold
     if any((launches[name] > 0) != (name in path) for name in launches):
         raise AssertionError(f"{fmt}: the kernels of {sorted(path)} must "
                              f"launch and no other: {launches}")
-    ntok = sum(len(o) for o in outs)
-    ttft = sorted(eng.ttfts_s())
-    report = {
-        "requests": len(handles), "tokens": ntok,
-        "tok_per_s": ntok / wall, "wall_s": wall,
-        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
-        "decode_ms_per_step": 1e3 * sum(st.chunk_s)
-        / (len(st.chunk_s) * scfg.decode_chunk),
-        "step_ms": [round(1e3 * t, 1) for t in step_s],
-        "chunk_ms": [round(1e3 * t, 1) for t in st.chunk_s],
-        "chunks": len(st.chunk_s), "sync_count": st.sync_count,
-        "prefills": st.prefills, "peak_pages": st.peak_pages,
-        "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
     log(f"[serve {fmt}] {json.dumps(report)}")
     log(f"[serve {fmt}] first request's tokens: {outs[0][:16]}")
     if profile:
-        profile_decode_chunk(eng, prompts)
+        profile_decode_chunk(eng, prompts,
+                             graph_turns(eng, prompts, counters, cold))
     return launches
 
 
-def profile_decode_chunk(eng, prompts) -> None:
-    """torch.profiler over one decode chunk with every slot live: the
-    card's busy share of the chunk's wall time and the kernels that fill
+def graph_nodes(graph) -> int:
+    """Nodes of a captured CUDA graph (``cuGraphGetNodes`` of ``libcuda``
+    on the graph its runner kept)."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    fn = cuda.cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = fn(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
+
+
+def check_graph_runs(st, seen: dict, captured: set, graphs: bool) -> None:
+    """Each chunk of one serve ran as the rule says: with graphs off
+    eagerly; with graphs on a key's first chunk ever eagerly, its next
+    one as the key's capture, every later one as a replay — so every key
+    served past its first chunk with graphs on is in ``captured``.  The
+    captures the engine recorded are exactly those chunks' keys."""
+    caps = []
+    for key, how in st.chunk_runs:
+        n = seen.get(key, 0)
+        want = ("eager" if not graphs or n == 0 else
+                "replay" if key in captured else "capture")
+        if how != want:
+            raise AssertionError(f"chunk of key {key} ran as {how!r}, "
+                                 f"the rule says {want!r}")
+        if how == "capture":
+            captured.add(key)
+            caps.append(key)
+        seen[key] = n + 1
+    if [tuple(c["key"]) for c in st.graph_captures] != caps:
+        raise AssertionError(f"captures recorded {st.graph_captures} are "
+                             f"not the capturing chunks' keys {caps}")
+
+
+def graph_turns(eng, prompts, counters, cold) -> float:
+    """Phase 4's ``[graph]`` sub-phase on the engine that just served
+    ``prompts`` cold (captures included): the same stream again warm, then
+    with graphs off (the backend's private switch), in turns — warm,
+    eager, warm, eager.  Tokens, ``sync_count`` and each kernel's
+    launches must equal the eager serves' exactly, and every key that ran
+    twice has exactly one capture.  Returns the warm serves' mean chunk
+    wall in ms."""
+    fmt = eng.cfg.mlp_sparsity.format
+    seen, captured = {}, set()
+    check_graph_runs(eng.stats(), seen, captured, True)
+    turns = [("graph cold", True, cold)]
+    for name, graphs in (("graph warm", True), ("eager", False),
+                         ("graph warm", True), ("eager", False)):
+        eng._backend._graphs = graphs
+        got = serve_prompts(eng, prompts, counters)
+        check_graph_runs(eng.stats(), seen, captured, graphs)
+        turns.append((name, graphs, got))
+    eng._backend._graphs = True
+    for name, graphs, (outs, rep, launches) in turns:
+        log(f"[graph {fmt}] {name}: decode {rep['decode_ms_per_step']:.3f} "
+            f"ms/step, {rep['tok_per_s']:.2f} tok/s, wall "
+            f"{rep['wall_s']:.3f} s, TTFT p50 {rep['ttft_p50_ms']:.1f} ms, "
+            f"sync_count {rep['sync_count']}, chunks {rep['chunk_runs']}, "
+            f"peak_mem_gb {rep['peak_mem_gb']:.3f}")
+    runners = eng._backend._chunks
+    caps = [c for _, _, (_, rep, _) in turns for c in rep["captures"]]
+    for c in caps:
+        log(f"[graph {fmt}] key (view_pages, sampled) {tuple(c['key'])}: "
+            f"capture {c['capture_s']:.3f} s, instantiate "
+            f"{c['instantiate_s']:.3f} s, "
+            f"{graph_nodes(runners[tuple(c['key'])].graph)} graph nodes")
+    eager = [t for t in turns if not t[1]]
+    base_outs, base_rep, base_launches = eager[0][2]
+    for name, _, (outs, rep, launches) in turns:
+        if outs != base_outs:
+            bad = [i for i, (a, b) in enumerate(zip(outs, base_outs))
+                   if a != b]
+            raise AssertionError(f"{fmt} {name}: requests {bad} differ "
+                                 "from the eager serve's tokens")
+        if rep["sync_count"] != base_rep["sync_count"]:
+            raise AssertionError(f"{fmt} {name}: sync_count "
+                                 f"{rep['sync_count']} != eager "
+                                 f"{base_rep['sync_count']}")
+        if launches != base_launches:
+            raise AssertionError(f"{fmt} {name}: launches {launches} != "
+                                 f"eager {base_launches}")
+    if len(caps) != len(captured):
+        raise AssertionError(f"{fmt}: a key was captured twice: {caps}")
+
+    def mean(what, graphs):
+        vals = [rep[what] for name, g, (_, rep, _) in turns
+                if g == graphs and name != "graph cold"]
+        return sum(vals) / len(vals)
+
+    log(f"[graph {fmt}] tokens, sync_count and launches equal in all "
+        f"{len(turns)} serves; {len(caps)} captures = the "
+        f"{len(captured)} keys served past their first chunk with graphs "
+        f"on, of {len(seen)} keys; warm graph "
+        f"{mean('decode_ms_per_step', True):.3f} ms/step, "
+        f"{mean('tok_per_s', True):.2f} tok/s vs eager "
+        f"{mean('decode_ms_per_step', False):.3f} ms/step, "
+        f"{mean('tok_per_s', False):.2f} tok/s (means of 2 turns each)")
+    warm = [ms for name, _, (_, rep, _) in turns if name == "graph warm"
+            for ms in rep["chunk_ms"]]
+    return sum(warm) / len(warm)
+
+
+def profile_decode_chunk(eng, prompts, warm_chunk_ms: float) -> None:
+    """torch.profiler over one decode chunk with every slot live, a
+    replay of a key captured earlier: the card's busy share of the
+    chunk's wall time (and of ``warm_chunk_ms``, the warm graph serves'
+    mean chunk wall without the profiler) and the operations that fill
     it.  Runs after the launch counts were read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -783,7 +918,11 @@ def profile_decode_chunk(eng, prompts) -> None:
         eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    key, how = eng.stats().chunk_runs[-1]
     eng.run()
+    if how != "replay":
+        raise AssertionError(f"the profiled chunk ran as {how!r}, not as a "
+                             "replay of a captured key")
     by_name: dict = {}
     n_ops = 0
     for e in prof.events():
@@ -793,10 +932,13 @@ def profile_decode_chunk(eng, prompts) -> None:
             name = name.removeprefix("void ")[:100]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[profile] one decode chunk of {eng.scfg.decode_chunk} steps: wall "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[profile] one decode chunk of {eng.scfg.decode_chunk} steps, a "
+        f"replay of the graph of key (view_pages, sampled) {key}: wall "
         f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-        f"({busy / wall_us:.3f} of the wall), {n_ops} device operations")
+        f"({busy / wall_us:.3f} of the wall; {busy / 1e3 / warm_chunk_ms:.3f}"
+        f" of the warm serves' mean chunk of {warm_chunk_ms:.3f} ms without "
+        f"the profiler), {n_ops} device operations")
     for name, us in top:
         log(f"[profile]   {us / 1e3:9.3f} ms  {name}")
 

@@ -140,13 +140,18 @@ def copy_page(cache: Params, src: int, dst: int) -> Params:
 
 
 def set_page_table(cache: Params, table) -> Params:
-    """Copy ``table (B, max_pages)`` (the host allocator's view) into the
-    page table of every layer."""
+    """Broadcast ``table (B, max_pages)`` into the page table of every
+    layer.
+
+    A tensor on the cache's device is copied device to device — what a
+    captured decode chunk does with the table the engine staged into a
+    device buffer before it.  A host array (the allocator's view) is
+    copied to the device first."""
     if _is_paged(cache):
         pt = cache["ptab"]
-        pt.copy_(torch.as_tensor(table, dtype=torch.int32)
-                 .to(pt.device, non_blocking=True)
-                 .reshape(1, *pt.shape[1:]).expand_as(pt))
+        if not (isinstance(table, torch.Tensor) and table.device == pt.device):
+            table = torch.as_tensor(table, dtype=torch.int32).to(pt.device)
+        pt.copy_(table.reshape(1, *pt.shape[1:]).expand_as(pt))
     return cache
 
 

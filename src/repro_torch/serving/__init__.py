@@ -4,21 +4,24 @@ monolithic or paged KV cache, with prefix sharing on the paged one."""
 from repro_torch.serving.api import Engine, RequestHandle
 from repro_torch.serving.backends import MonoBackend, PagedBackend
 from repro_torch.serving.config import ServeConfig
-from repro_torch.serving.loops import (build_decode_loop,
+from repro_torch.serving.loops import (DecodeChunk, build_decode_chunk,
+                                       build_decode_loop,
                                        build_prefill_slot_step,
                                        build_prefill_wave_step,
                                        build_prefix_fill_step,
                                        build_prefix_prefill_slot_step)
 from repro_torch.serving.prefix import PrefixHandle, PrefixIndex
-from repro_torch.serving.state import (TERMINAL_STATUSES, EngineStats,
-                                       Request, RequestStatus, TokenEvent,
-                                       init_decode_state, sample_token_slots)
+from repro_torch.serving.state import (TERMINAL_STATUSES, ChunkBuffers,
+                                       EngineStats, Request, RequestStatus,
+                                       TokenEvent, init_decode_state,
+                                       sample_token_slots)
 
 __all__ = [
     "Engine", "RequestHandle", "ServeConfig", "MonoBackend", "PagedBackend",
     "PrefixHandle", "PrefixIndex",
-    "EngineStats", "Request", "RequestStatus", "TokenEvent",
-    "TERMINAL_STATUSES", "init_decode_state", "sample_token_slots",
-    "build_decode_loop", "build_prefill_slot_step", "build_prefill_wave_step",
+    "ChunkBuffers", "DecodeChunk", "EngineStats", "Request",
+    "RequestStatus", "TokenEvent", "TERMINAL_STATUSES", "init_decode_state",
+    "sample_token_slots", "build_decode_chunk", "build_decode_loop",
+    "build_prefill_slot_step", "build_prefill_wave_step",
     "build_prefix_prefill_slot_step", "build_prefix_fill_step",
 ]

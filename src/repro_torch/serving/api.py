@@ -6,7 +6,9 @@
     cancellations, admit queued requests into free slots (per-slot
     prefill, zero host syncs; a whole-batch wave prefill when every slot
     is free and the layout allows it), then run ONE decode chunk on the
-    card and make the single device→host fetch.
+    card and make the single device→host fetch.  On the card every chunk
+    after its key's first is the replay of one captured CUDA graph
+    (``serving.loops.DecodeChunk``).
   * ``cancel(handle)`` — takes effect at the next chunk boundary.
   * ``run()`` / ``generate()`` — drain-the-queue wrappers over ``step()``.
   * ``register_prefix(tokens)`` → :class:`PrefixHandle` — pin a shared
@@ -36,10 +38,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.prefix import PrefixHandle
-from repro_torch.serving.state import (TERMINAL_STATUSES, EngineStats,
-                                       Request, RequestHandle, RequestStatus,
-                                       TokenEvent, fresh_stats,
-                                       init_decode_state)
+from repro_torch.serving.state import (TERMINAL_STATUSES, ChunkBuffers,
+                                       EngineStats, Request, RequestHandle,
+                                       RequestStatus, TokenEvent, fresh_stats)
 
 __all__ = ["Engine", "RequestHandle"]
 
@@ -57,7 +58,8 @@ class Engine:
     temperature, all on the device between host fetches.  Finished or
     cancelled slots are refilled at the next chunk boundary by a
     per-slot prefill; in-flight slots never stall.  ``params`` must lie
-    on ``device``.
+    on ``device``; the engine keeps its cache and decode buffers at fixed
+    addresses for its whole life (its chunk graphs hold them).
     """
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Any, *,
@@ -92,7 +94,7 @@ class Engine:
         self._slot_req: List[Optional[Request]] = [None] * scfg.slots
         self._temps = np.full((scfg.slots,), scfg.temperature, np.float32)
         self._cache = None
-        self._state = None
+        self._bufs: Optional[ChunkBuffers] = None
 
     # --- introspection ------------------------------------------------
 
@@ -124,7 +126,9 @@ class Engine:
                            shared_pages=d["shared_pages"],
                            cow_copies=d["cow_copies"],
                            sync_count=self.sync_count,
-                           cache_bytes=self._cache_nbytes())
+                           cache_bytes=self._cache_nbytes(),
+                           chunk_runs=list(d["chunk_runs"]),
+                           graph_captures=list(d["graph_captures"]))
 
     def ttfts_s(self) -> List[float]:
         return [r.ttft_s for r in self.finished if r.ttft_s is not None]
@@ -251,7 +255,9 @@ class Engine:
             self._cache = MZ.init_cache(
                 self.cfg, scfg.slots, scfg.max_len, page_size=scfg.page_size,
                 num_pages=scfg.pool_pages, device=self.device)
-            self._state = init_decode_state(scfg.slots, self.device)
+            self._bufs = ChunkBuffers(scfg.slots, scfg.decode_chunk,
+                                      scfg.max_pages if scfg.paged else 0,
+                                      self.device)
 
     def _finish(self, req: Request, slot: Optional[int],
                 status: RequestStatus, now: float) -> None:
@@ -267,8 +273,8 @@ class Engine:
         now = time.perf_counter()
         for i, r in enumerate(self._slot_req):
             if r is not None and r.cancel_requested:
-                self._state["done"][i] = True
-                self._state["left"][i] = 0
+                self._bufs.state["done"][i] = True
+                self._bufs.state["left"][i] = 0
                 self._finish(r, i, RequestStatus.CANCELLED, now)
         for r in [r for r in self.queue if r.cancel_requested]:
             self.queue.remove(r)
@@ -301,11 +307,11 @@ class Engine:
                 self._temps[i] = self._temp(r)
                 r.rows0 = self._backend.admit(i, len(r.prompt), r.max_new)
                 self._start(r, i)
-            self._cache, self._state = wave(
+            self._bufs.stage(self._temps)
+            self._cache, _ = wave(
                 self.params, torch.from_numpy(prompts).to(self.device),
-                self._cache, valid, budgets,
-                torch.from_numpy(self._temps).to(self.device),
-                self._generator(self._temps[valid]))
+                self._cache, self._bufs.state, valid, budgets,
+                self._bufs.temps, self._generator(self._temps[valid]))
             self._stats["prefills"] += len(head)
             return
         while self.queue:
@@ -328,10 +334,9 @@ class Engine:
             start, cow = self._backend.prefill_plan(i)
             temp = self._temp(r)
             tokens = torch.from_numpy(padded[:, start:]).to(self.device)
-            self._cache, self._state = self._backend.prefill_step(
-                rows, start, cow)(
-                self.params, tokens, self._cache, self._state, i, r.max_new,
-                temp, self._generator([temp]),
+            self._cache, _ = self._backend.prefill_step(rows, start, cow)(
+                self.params, tokens, self._cache, self._bufs.state, i,
+                r.max_new, temp, self._generator([temp]),
                 *self._backend.prefill_args(i))
             self._temps[i] = temp
             self._start(r, i)
@@ -375,15 +380,14 @@ class Engine:
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not live:
             return []
-        loop, extra = self._backend.begin_chunk(live)
+        generator = self._generator(self._temps[live])
+        chunk = self._backend.begin_chunk(live, sampled=generator is not None)
         t0 = time.perf_counter()
-        temps = torch.from_numpy(self._temps).to(self.device)
-        self._cache, self._state, tokens, emitted = loop(
-            self.params, self._cache, self._state, temps,
-            self._generator(self._temps[live]), *extra)
+        b = self._bufs
+        chunk(self.params, self._cache, b, self._temps, generator)
         # the one device→host transfer of the chunk
-        packed = torch.cat([tokens, emitted.to(torch.int32),
-                            self._state["done"].to(torch.int32)[None]])
+        packed = torch.cat([b.tokens, b.emitted.to(torch.int32),
+                            b.state["done"].to(torch.int32)[None]])
         host = packed.cpu().numpy()
         self.sync_count += 1
         n = self.scfg.decode_chunk

@@ -16,13 +16,17 @@
 Everything here is host arithmetic over already-fetched state plus
 host→device argument passing (the page table): backends never add a
 device→host sync.  Each backend hands the scheduler the serving
-programs of ``serving.loops`` for its layout.  ``tokens`` in the
+programs of ``serving.loops`` for its layout, and owns the decode chunk
+programs: one :class:`~repro_torch.serving.loops.DecodeChunk` per key
+``(view_pages, sampled)``, whose CUDA graphs share one memory pool and
+one capture stream.  ``tokens`` in the
 admission calls is the request's *padded* prompt (sharing keys on the
 padded layout); layouts without an index ignore it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,7 +45,15 @@ class _BackendBase:
                  stats: Dict[str, Any], device: torch.device):
         self.cfg, self.scfg, self.stats, self.device = cfg, scfg, stats, device
         self._prefill_steps: Dict[Tuple[int, int, bool], Callable] = {}
-        self._decode_loops: Dict[Optional[int], Callable] = {}
+        self._chunks: Dict[Tuple[Optional[int], bool],
+                           loops.DecodeChunk] = {}
+        # decode chunks run as captured CUDA graphs on the card; turned
+        # off only to compare against the eager body (the chip smoke run
+        # and the GPU tests)
+        self._graphs = device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if self._graphs \
+            else None
+        self._stream = torch.cuda.Stream(device) if self._graphs else None
 
     def prefill_plan(self, slot: int) -> Tuple[int, bool]:
         """(start row, needs a copy-on-write copy) of the slot's pending
@@ -64,12 +76,18 @@ class _BackendBase:
             self._prefill_steps[key] = fn
         return fn
 
-    def _decode_loop(self, view: Optional[int]) -> Callable:
-        fn = self._decode_loops.get(view)
-        if fn is None:
-            fn = self._decode_loops[view] = loops.build_decode_loop(
-                self.cfg, self.scfg, paged=self.paged, view_pages=view)
-        return fn
+    def _chunk(self, view: Optional[int], sampled: bool,
+               ptab: Optional[np.ndarray] = None) -> Callable:
+        """The key's chunk program, bound to this chunk's page table:
+        ``(params, cache, bufs, temps, generator) → None``."""
+        key = (view, sampled)
+        run = self._chunks.get(key)
+        if run is None:
+            run = self._chunks[key] = loops.DecodeChunk(
+                loops.build_decode_chunk(self.cfg, self.scfg,
+                                         paged=self.paged, view_pages=view),
+                key, self.stats, self._pool, self._stream)
+        return functools.partial(run, ptab=ptab, graphs=self._graphs)
 
 
 class MonoBackend(_BackendBase):
@@ -97,8 +115,8 @@ class MonoBackend(_BackendBase):
     def wave_step(self) -> Optional[Callable]:
         return loops.build_prefill_wave_step(self.cfg, self.scfg)
 
-    def begin_chunk(self, live_slots: List[int]) -> Tuple[Callable, Tuple]:
-        return self._decode_loop(None), ()
+    def begin_chunk(self, live_slots: List[int], sampled: bool) -> Callable:
+        return self._chunk(None, sampled)
 
     def note_commit(self, slot: int) -> None:
         pass
@@ -360,15 +378,14 @@ class PagedBackend(_BackendBase):
         pages = -(-live_rows // scfg.page_size)
         return min(-(-pages // vc) * vc, scfg.max_pages)
 
-    def begin_chunk(self, live_slots: List[int]) -> Tuple[Callable, Tuple]:
+    def begin_chunk(self, live_slots: List[int], sampled: bool) -> Callable:
         scfg = self.scfg
         live_rows = 0
         for i in live_slots:
             self._ensure(i)
             live_rows = max(live_rows, min(self.slot_rows[i]
                                            + scfg.chunk_tokens, scfg.max_len))
-        loop = self._decode_loop(self._view_pages(live_rows))
-        return loop, (self.ptab,)
+        return self._chunk(self._view_pages(live_rows), sampled, self.ptab)
 
     def note_commit(self, slot: int) -> None:
         self.slot_rows[slot] += 1   # pos advances once per emitted token

@@ -18,24 +18,35 @@
     Python loop of device operations, with no ``.item()`` or ``.cpu()``
     inside; EOS, budget exhaustion and cache capacity are detected on the
     card.  The loop returns ``(decode_chunk, slots)`` token and emit
-    blocks that the engine fetches once per chunk.
+    blocks that the engine fetches once per chunk.  This functional form
+    is the reference the tests hold the served chunk against.
+  * :func:`build_decode_chunk` — the same steps as a body over the fixed
+    :class:`~repro_torch.serving.state.ChunkBuffers`, writing its tokens,
+    emits and final state in place: what the engine serves.
+  * :class:`DecodeChunk` — runs one key's body: eagerly on the CPU, and
+    on the card as the replay of one captured ``torch.cuda.CUDAGraph``
+    (the counterpart of the JAX package's one compiled program per
+    ``view_pages`` bucket).
 
-The JAX package compiles these with ``jax.jit``; here they are plain
-functions run eagerly (the builders return closures so call sites read
-the same).
+The JAX package compiles these with ``jax.jit``; here the prefill steps
+are plain functions run eagerly (the ``build_*`` functions return
+closures so call sites read the same).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import models as MZ
+from repro_torch.kernels import (bsr_matmul, csa_matmul, flash_attention,
+                                 lookahead_decode, nm_spmm, paged_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.config import ServeConfig
-from repro_torch.serving.state import sample_token_slots
+from repro_torch.serving.state import ChunkBuffers, sample_token_slots
 
 State = Dict[str, torch.Tensor]
 
@@ -128,30 +139,48 @@ def build_prefix_fill_step(cfg: ModelConfig, scfg: ServeConfig,
 
 
 def build_prefill_wave_step(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
-    """(params, tokens (slots, prompt_pad), cache, valid (slots,) bool,
-    budgets (slots,), temps (slots,), generator) → (cache, state).
+    """(params, tokens (slots, prompt_pad), cache, state, valid (slots,)
+    bool, budgets (slots,), temps (slots,), generator) → (cache, state).
 
-    Rebuilds the whole decode state; ``valid`` marks the slots that got a
-    request.  Only used while no slot is live (it rewrites every slot's
-    cache rows)."""
+    Rewrites the whole decode state in place; ``valid`` marks the slots
+    that got a request.  Only used while no slot is live (it rewrites
+    every slot's cache rows)."""
     V = cfg.vocab_size
 
-    def step(params, tokens, cache, valid: np.ndarray, budgets: np.ndarray,
-             temps: torch.Tensor, generator: Optional[torch.Generator]):
+    def step(params, tokens, cache, state: State, valid: np.ndarray,
+             budgets: np.ndarray, temps: torch.Tensor,
+             generator: Optional[torch.Generator]):
         logits, cache = MZ.prefill(params, cfg, {"tokens": tokens}, cache)
         dev = logits.device
         first = sample_token_slots(logits[:, :V], temps, generator)
         ok = torch.from_numpy(valid).to(dev)
-        state = {
-            "tok": torch.where(ok, first, 0).to(torch.int32),
-            "pos": torch.where(ok, scfg.prompt_pad, 0).to(torch.int32),
-            "done": ~ok,
-            "left": torch.from_numpy(
-                np.where(valid, budgets, 0).astype(np.int32)).to(dev),
-        }
+        state["tok"].copy_(torch.where(ok, first, 0))
+        state["pos"].copy_(torch.where(ok, scfg.prompt_pad, 0))
+        state["done"].copy_(~ok)
+        state["left"].copy_(torch.from_numpy(
+            np.where(valid, budgets, 0).astype(np.int32)))
         return cache, state
 
     return step
+
+
+def _decode_step(params, cfg: ModelConfig, scfg: ServeConfig, vcache,
+                 tok, pos, done, left, temps: torch.Tensor,
+                 generator: Optional[torch.Generator]):
+    """One step of a chunk: *emit* the carry token, decide whether the
+    slot is finished (EOS, budget, or cache capacity) and, if not, decode
+    and sample the next token at the slot's own position and temperature.
+    Returns the next ``(tok, pos, done, left)`` and this step's emit
+    mask."""
+    emit = ~done & (left > 0)
+    left = left - emit.to(left.dtype)
+    done = done | (emit & ((tok == scfg.eos_token) | (left == 0)
+                           | (pos + 1 >= scfg.max_len)))
+    logits, _ = MZ.decode_step(params, cfg, tok, vcache, pos)
+    nxt = sample_token_slots(logits[:, :cfg.vocab_size], temps, generator)
+    alive = ~done
+    return (torch.where(alive, nxt, tok), torch.where(alive, pos + 1, pos),
+            done, left, emit)
 
 
 def build_decode_loop(cfg: ModelConfig, scfg: ServeConfig,
@@ -160,17 +189,15 @@ def build_decode_loop(cfg: ModelConfig, scfg: ServeConfig,
     """(params, cache, state, temps, generator[, ptab]) → (cache, state,
     tokens, emitted).
 
-    Each step first *emits* the carry token (sampled by the previous step
-    or by the slot's prefill), then decides whether the slot is finished
-    (EOS, budget, or cache capacity) and, if not, decodes and samples the
-    next token at the slot's own position and temperature.  Finished and
-    free slots ride along frozen; their cache writes land on rows nothing
+    ``decode_chunk`` steps of :func:`_decode_step`.  Finished and free
+    slots ride along frozen; their cache writes land on rows nothing
     attends to.  ``paged=True`` stamps the host page table into the cache
     first and narrows attention to the first ``view_pages`` pages.
     ``tokens``/``emitted`` are ``(decode_chunk, slots)`` device tensors —
-    the engine's one fetch per chunk.
+    the engine's one fetch per chunk.  This functional form returns new
+    tensors; the engine serves :func:`build_decode_chunk`, and the tests
+    hold the two equal.
     """
-    V = cfg.vocab_size
 
     def loop(params, cache, state: State, temps: torch.Tensor,
              generator: Optional[torch.Generator], ptab: Any = None):
@@ -181,18 +208,149 @@ def build_decode_loop(cfg: ModelConfig, scfg: ServeConfig,
         done, left = state["done"], state["left"]
         toks, emits = [], []
         for _ in range(scfg.decode_chunk):
-            emit = ~done & (left > 0)
-            left = left - emit.to(left.dtype)
-            done = done | (emit & ((tok == scfg.eos_token) | (left == 0)
-                                   | (pos + 1 >= scfg.max_len)))
-            logits, vcache = MZ.decode_step(params, cfg, tok, vcache, pos)
-            nxt = sample_token_slots(logits[:, :V], temps, generator)
             toks.append(tok)
+            tok, pos, done, left, emit = _decode_step(
+                params, cfg, scfg, vcache, tok, pos, done, left, temps,
+                generator)
             emits.append(emit)
-            alive = ~done
-            tok = torch.where(alive, nxt, tok)
-            pos = torch.where(alive, pos + 1, pos)
         state = {"tok": tok, "pos": pos, "done": done, "left": left}
         return cache, state, torch.stack(toks), torch.stack(emits)
 
     return loop
+
+
+def build_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
+                       paged: bool = False,
+                       view_pages: Optional[int] = None) -> Callable:
+    """(params, cache, bufs: ChunkBuffers, generator) → None.
+
+    :func:`build_decode_loop`'s steps over fixed buffers: the page table
+    is broadcast from ``bufs.ptab`` (already on the device), each step's
+    carry token and emit mask land in row ``t`` of ``bufs.tokens`` /
+    ``bufs.emitted``, and the final state is copied back into
+    ``bufs.state``.  Nothing in it moves data between host and device,
+    so a CUDA graph can hold it."""
+
+    def body(params, cache, bufs: ChunkBuffers,
+             generator: Optional[torch.Generator]) -> None:
+        if paged:
+            MZ.set_page_table(cache, bufs.ptab)
+        vcache = MZ.page_view(cache, view_pages) if paged else cache
+        st = bufs.state
+        tok, pos, done, left = st["tok"], st["pos"], st["done"], st["left"]
+        for t in range(scfg.decode_chunk):
+            bufs.tokens[t].copy_(tok)
+            tok, pos, done, left, emit = _decode_step(
+                params, cfg, scfg, vcache, tok, pos, done, left, bufs.temps,
+                generator)
+            bufs.emitted[t].copy_(emit)
+        for name, t in (("tok", tok), ("pos", pos), ("done", done),
+                        ("left", left)):
+            st[name].copy_(t)
+
+    return body
+
+
+#: The kernel wrappers whose ``launches`` counters a replay advances by
+#: what its capture recorded (a replay makes no Python call).
+COUNTED = (bsr_matmul, csa_matmul, flash_attention, lookahead_decode,
+           nm_spmm, paged_attention)
+
+
+def _cache_ptrs(cache) -> Tuple[int, ...]:
+    return tuple(t.data_ptr() for t in cache.values())
+
+
+class DecodeChunk:
+    """One key's decode chunk program: the :func:`build_decode_chunk`
+    body, keyed by ``(view_pages, sampled)``.
+
+    Called with ``graphs=False`` (the CPU, or the card with graphs off)
+    it runs the body eagerly.  On the card with graphs on:
+
+      * the key's first chunk runs the body eagerly, on the capture
+        stream: it is the real chunk and the warm-up (kernel libraries
+        loaded, shared-memory attributes set, the stream's cuBLAS
+        workspace made), so no capture sees a first call;
+      * its next chunk captures the body into a ``torch.cuda.CUDAGraph``
+        on that stream, in the backend's shared memory pool, with the
+        sampling generator registered (each replay then advances it),
+        and replays it;
+      * every later chunk only replays.
+
+    A failed capture raises; nothing falls back to the eager body.  The
+    graph holds the addresses of ``params``, ``cache`` and the
+    :class:`ChunkBuffers`, which the engine never rebinds.
+    """
+
+    def __init__(self, body: Callable, key: Tuple[Optional[int], bool],
+                 stats: Dict[str, Any], pool=None,
+                 stream: Optional["torch.cuda.Stream"] = None):
+        self.body, self.key, self.stats = body, key, stats
+        self.pool, self.stream = pool, stream
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.runs = 0
+        self._launches: Dict[Any, int] = {}
+        self._bound: Tuple[int, ...] = ()
+
+    def __call__(self, params, cache, bufs: ChunkBuffers, temps: np.ndarray,
+                 generator: Optional[torch.Generator],
+                 ptab: Optional[np.ndarray] = None, *,
+                 graphs: bool = False) -> None:
+        bufs.stage(temps, ptab)
+        if not graphs:
+            how = "eager"
+            self.body(params, cache, bufs, generator)
+        elif self.graph is not None:
+            how = "replay"
+            self._replay(cache)
+        elif self.runs == 0:
+            how = "eager"
+            self._warm_up(params, cache, bufs, generator)
+        else:
+            how = "capture"
+            self._capture(params, cache, bufs, generator)
+            self._replay(cache)
+        self.runs += 1
+        self.stats["chunk_runs"].append((self.key, how))
+
+    def _warm_up(self, params, cache, bufs, generator) -> None:
+        here = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            self.body(params, cache, bufs, generator)
+        here.wait_stream(self.stream)
+
+    def _capture(self, params, cache, bufs, generator) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = [mod.launches for mod in COUNTED]
+        t0 = time.perf_counter()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                self.body(params, cache, bufs, generator)
+            finally:
+                graph.capture_end()
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        # the capture's wrapper calls launched nothing: count per replay
+        for mod, n in zip(COUNTED, before):
+            if mod.launches != n:
+                self._launches[mod] = mod.launches - n
+            mod.launches = n
+        self.graph, self._bound = graph, _cache_ptrs(cache)
+        self.stats["graph_captures"].append(
+            {"key": list(self.key), "capture_s": t1 - t0,
+             "instantiate_s": t2 - t1})
+
+    def _replay(self, cache) -> None:
+        if _cache_ptrs(cache) != self._bound:
+            raise RuntimeError(
+                f"decode chunk {self.key}: the cache's storage moved since "
+                "its graph was captured")
+        self.graph.replay()
+        for mod, n in self._launches.items():
+            mod.launches += n

@@ -3,7 +3,9 @@
 ``Request`` is the host-side record of one submission; the device-side
 decode state is the 4-tensor dict of :func:`init_decode_state` that the
 prefill steps and the decode loop update on the card between host
-fetches.
+fetches.  :class:`ChunkBuffers` holds it with the chunk's other inputs
+and outputs at fixed addresses, so a decode chunk captured as a CUDA
+graph finds them where it was captured.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +68,8 @@ class TokenEvent:
 def fresh_stats() -> Dict[str, Any]:
     return {"chunk_s": [], "chunk_tokens": [], "prefills": 0,
             "peak_pages": 0, "admission_waits": 0,
-            "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0}
+            "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0,
+            "chunk_runs": [], "graph_captures": []}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +85,10 @@ class EngineStats:
     cow_copies: int                 # copy-on-write page copies
     sync_count: int                 # device→host transfers
     cache_bytes: int                # allocated KV cache footprint
+    chunk_runs: List[Tuple[Any, str]]   # per chunk: (program key, "eager"
+    #                                     | "capture" | "replay")
+    graph_captures: List[Dict[str, Any]]  # per capture: key, capture_s,
+    #                                       instantiate_s
 
 
 def init_decode_state(slots: int, device) -> Dict[str, torch.Tensor]:
@@ -90,6 +97,59 @@ def init_decode_state(slots: int, device) -> Dict[str, torch.Tensor]:
             "pos": torch.zeros(slots, dtype=torch.int32, device=device),
             "done": torch.ones(slots, dtype=torch.bool, device=device),
             "left": torch.zeros(slots, dtype=torch.int32, device=device)}
+
+
+class ChunkBuffers:
+    """The fixed set of device tensors a decode chunk reads and writes.
+
+    ``state`` (the decode state ``tok/pos/done/left``), ``temps (slots,)``,
+    the paged layout's ``ptab (slots, max_pages)`` and the output blocks
+    ``tokens``/``emitted (decode_chunk, slots)``.  An engine allocates them
+    once; the prefill steps, cancellations and chunks write into them in
+    place, never rebinding a tensor.  :meth:`stage` copies the host's
+    temperatures and page table in before a chunk — on the card through
+    pinned host buffers, outside any captured region."""
+
+    def __init__(self, slots: int, decode_chunk: int, max_pages: int,
+                 device):
+        dev = torch.device(device)
+        self.state = init_decode_state(slots, dev)
+        self.temps = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self.tokens = torch.zeros((decode_chunk, slots), dtype=torch.int32,
+                                  device=dev)
+        self.emitted = torch.zeros((decode_chunk, slots), dtype=torch.bool,
+                                   device=dev)
+        self.ptab = (torch.zeros((slots, max_pages), dtype=torch.int32,
+                                 device=dev) if max_pages else None)
+        pin = dev.type == "cuda"
+        self._host = {name: torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                      for name, t in (("temps", self.temps),
+                                      ("ptab", self.ptab))
+                      if pin and t is not None}
+        self._staged: Optional[torch.cuda.Event] = None
+
+    def stage(self, temps: np.ndarray,
+              ptab: Optional[np.ndarray] = None) -> None:
+        """Copy ``temps (slots,)`` and ``ptab (slots, max_pages)`` (when
+        given) from the host into their buffers, in stream order.  On the
+        card the rows go through pinned memory without a wait; the next
+        call first waits for this one's copies to have read them."""
+        pairs = [("temps", self.temps, temps)]
+        if ptab is not None:
+            pairs.append(("ptab", self.ptab, ptab))
+        if not self._host:
+            for _, dst, src in pairs:
+                dst.copy_(torch.from_numpy(src))
+            return
+        if self._staged is not None:
+            self._staged.synchronize()
+        for name, dst, src in pairs:
+            host = self._host[name]
+            host.numpy()[...] = src
+            dst.copy_(host, non_blocking=True)
+        self._staged = torch.cuda.Event()
+        self._staged.record()
 
 
 def sample_token_slots(logits: torch.Tensor, temps: torch.Tensor,

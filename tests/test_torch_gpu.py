@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, in
 bfloat16 at rtol 2e-2 / atol 1e-2 (the bf16 tolerance of
-``tests/test_kernels.py``), plus a short paged Engine run per format.
+``tests/test_kernels.py``), plus a short paged Engine run per format and
+the decode chunk as captured CUDA graphs against the eager body.
 
 Marked ``gpu``; without a CUDA device each test skips.  This file
 imports neither ``jax`` nor ``repro``, so it also runs on a machine with
@@ -516,6 +517,116 @@ def test_prefix_serve_equals_the_cpu(cuda):
     assert card[1] == (4, 7, 2)
 
 
+# --- the decode chunk as captured CUDA graphs --------------------------------
+
+#: views of 2, 4, ... pages of 8 rows: a 24-token serve crosses two view
+#: buckets, each seen by several chunks (the first eager, then a capture
+#: and replays)
+GRAPH_SERVE = dict(slots=4, max_len=96, prompt_pad=32, page_size=8,
+                   page_view_chunk=2, decode_chunk=4, max_new_tokens=24,
+                   eos_token=-1)
+GRAPH_PROMPTS = [[3, 1, 4, 1, 5], list(range(7, 40)), [2, 7, 1, 8, 2, 8],
+                 list(range(50, 70)), [9] * 11, list(range(100, 131))]
+COUNTERS = (nm_mod, csa_mod, bsr_mod, lookahead_mod, paged_mod, flash_mod)
+
+
+def _graph_engine(cuda, fmt="nm", dtype="float32", **kw):
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.core.sparse_linear import SparsityConfig, pack_params
+    from repro_torch.serving import Engine, ServeConfig
+    sp = SparsityConfig(**FORMATS[fmt][0])
+    cfg = dataclasses.replace(qwen3_0_6b.config(), n_layers=2,
+                              layer_kinds=(), dtype=dtype, mlp_sparsity=sp,
+                              attn_sparsity=sp)
+    params = pack_params(models.init_model(cfg, seed=0, device=cuda), cfg)
+    scfg = ServeConfig(**dict(GRAPH_SERVE, **kw))
+    return lambda: Engine(cfg, scfg, params, device=cuda)
+
+
+def _serve(eng, prompts=GRAPH_PROMPTS):
+    """Serve ``prompts``: (tokens per request, sync_count, launches per
+    kernel module, stats), the counts of this serve only."""
+    eng.reset_stats()
+    before = [m.launches for m in COUNTERS]
+    handles = [eng.submit(p) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    launches = {m.__name__: m.launches - n for m, n in zip(COUNTERS, before)}
+    st = eng.stats()
+    return [h.tokens for h in handles], st.sync_count, launches, st
+
+
+def _check_graph_runs(st, seen):
+    """Each chunk of ``st.chunk_runs`` ran as the rule says — a key's
+    first chunk ever eagerly, its second as a capture, every later one as
+    a replay — and the captures recorded are those chunks' keys.
+    ``seen`` counts chunks per key across serves (updated)."""
+    captured = []
+    for key, how in st.chunk_runs:
+        n = seen.get(key, 0)
+        assert how == ("eager", "capture", "replay")[min(n, 2)], (key, n)
+        seen[key] = n + 1
+        if how == "capture":
+            captured.append(key)
+    assert [tuple(c["key"]) for c in st.graph_captures] == captured
+    return captured
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["nm", "combined"])
+def test_graph_serve_equals_eager(cuda, fmt, dtype):
+    """A serve through the captured chunk graphs gives the eager serve's
+    tokens, ``sync_count`` and launches per kernel exactly; each key is
+    captured once (at its second chunk) and replayed after, also in a
+    second serve on the warm engine."""
+    make = _graph_engine(cuda, fmt, dtype)
+    eager = make()
+    eager._backend._graphs = False
+    want = _serve(eager)
+    assert {how for _, how in want[3].chunk_runs} == {"eager"}
+    graph, seen = make(), {}
+    cold = _serve(graph)
+    assert cold[:3] == want[:3]
+    assert len(_check_graph_runs(cold[3], seen)) >= 2
+    warm = _serve(graph)
+    assert warm[:3] == want[:3]
+    _check_graph_runs(warm[3], seen)
+    chunks = graph._backend._chunks.values()
+    assert sum(c.graph is not None for c in chunks) == \
+        sum(n > 1 for n in seen.values())
+
+
+def test_sampled_graph_chunks_advance_the_generator(cuda):
+    """Sampled chunks run as graphs with the engine's generator
+    registered: successive replays draw different noise (the generator's
+    state moves at every replay), and an engine built with the same seed
+    repeats its tokens."""
+    make = _graph_engine(cuda, temperature=0.9, seed=5)
+    eng = make()
+    handles = [eng.submit(p) for p in GRAPH_PROMPTS]
+    states, hows = [], []
+    while eng.num_queued or eng.num_live:
+        eng.step()
+        states.append(eng._gen.get_state().clone())
+        hows.append(eng.stats().chunk_runs[-1])
+    assert all(key[1] for key, _ in hows)        # every chunk sampled
+    replays = [i for i, (_, how) in enumerate(hows) if how == "replay"]
+    assert len(replays) >= 2
+    for i in replays:
+        assert not torch.equal(states[i], states[i - 1]), i
+    first = [h.tokens for h in handles]
+    again = make()
+    assert again.generate(GRAPH_PROMPTS) == first
+    eager = make()
+    eager._backend._graphs = False
+    assert eager.generate(GRAPH_PROMPTS) == first
+    other = _graph_engine(cuda, temperature=0.9, seed=6)()
+    assert other.generate(GRAPH_PROMPTS) != first
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -579,3 +690,25 @@ def test_smem_bytes_from_the_libraries(cuda):
     sizes = {r["format"]: r["smem_bytes"] for r in rows}
     assert sizes.pop("dense") is None
     assert all(0 < v <= 232448 for v in sizes.values()), sizes
+
+
+def test_capture_that_syncs_raises(cuda, monkeypatch):
+    """A chunk whose capture meets a host sync (a matmul wrapper patched
+    to call ``.item()``) raises; the failed chunk is not run eagerly
+    instead."""
+    from repro_torch.kernels import dispatch
+    real = dispatch.nm_spmm
+
+    def syncing(x, pack):
+        x.sum().item()
+        return real(x, pack)
+
+    eng = _graph_engine(cuda)()
+    monkeypatch.setattr(dispatch, "nm_spmm", syncing)
+    eng.submit(GRAPH_PROMPTS[0])
+    with pytest.raises(RuntimeError):
+        eng.run()
+    st = eng.stats()
+    assert [how for _, how in st.chunk_runs] == ["eager"]
+    assert st.graph_captures == [] and st.sync_count == 1
+    assert all(c.graph is None for c in eng._backend._chunks.values())
