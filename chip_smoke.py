@@ -16,11 +16,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      at M = 1, 5, 8, 17, 128 and 200 rows, each call's launch plan
      printed; the strip kernels' empty strip must come back zero and
      two calls bitwise equal; flash attention also with a suffix, a
-     window with softcap and in fp32, paged attention also as a Q = 4
-     verify block and with fp32 q, its dead slot exactly zero and two
-     calls bitwise equal, each attention call's plan printed; flash also
-     at phase 7's suffix shapes, timed against SDPA under a lower-right
-     causal mask), and time
+     window with softcap and in fp32, paged attention also as verify
+     blocks of Q = 4 (bf16 and fp32 q) and Q = 16 (Q * G = 32 rows) and
+     with fp32 q, its dead slot exactly zero and two calls bitwise equal,
+     each attention call's plan printed; flash also at phase 7's suffix
+     shapes, timed against SDPA under a lower-right causal mask; the
+     paged verify blocks timed against SDPA under the block's causal
+     mask), and time
      the kernel, the plain version and one library call computing the
      same function (a yardstick only — the port never calls it) as device
      time from CUDA-graph replay, beside the least time the card could
@@ -89,7 +91,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      near tie (``near_tie``: a top-2 gap under ``GAP_TOL`` or within two
      steps of the bf16 logits' resolution, read by replaying the
      unshared tokens one sequence at a time); and the same stream at 2
-     layers in fp32 gives the CPU path's tokens (phase 5's rule).
+     layers in fp32 gives the CPU path's tokens (phase 5's rule);
+  8. speculative decoding: phase 4's qwen3-0.6b (28 layers, bf16,
+     ``sparse()``'s config over dense random weights) and stream through
+     (a) the plain loop, a cold and a warm graph serve, then with
+     ``spec_k=3`` (b) the self draft and (c) the config's 2:4 packs as
+     the draft (``spec_draft="pack"``: nm_spmm drafts, the dense weights
+     verify), each on one engine in phase 4's ``[graph]`` turns (cold,
+     warm, eager, warm, eager).  Gates: every request reaches its budget;
+     ``sync_count`` equals the chunks; tokens, ``sync_count``, drafted,
+     accepted and launches per kernel equal the eager turns'; one
+     paged-attention verify block (Q = 4) per layer and step, and in (c)
+     7 nm_spmm launches per layer and draft step; tokens equal (a)'s or
+     split first at a near tie (``near_tie``).  Printed: each turn's
+     decode ms per step, tok/s, tokens per chunk, drafted, accepted and
+     acceptance rate, peak memory; capture and instantiate seconds per
+     key; the warm means against (a).  Then the model at 2 layers in
+     fp32 with a ``pack`` draft in each format against the CPU path's
+     greedy tokens (phase 5's rule): the FMA route's verify block.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -114,6 +133,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-2, 1e-2            # bf16 tolerance of tests/test_kernels.py
 GAP_TOL = 1e-2                     # phases 5 and 7: a token split needs a
 #                                    top-2 logit gap below this, or (bf16
@@ -190,8 +210,9 @@ def timings(kernel, plain, library, copies: int) -> dict:
                 eager_ms=cuda_ms(kernel) / copies)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -308,14 +329,24 @@ def log_attn_plan(name: str, what: str, plan: dict) -> None:
         f"{k}={v}" for k, v in plan.items()))
 
 
+#: phase 3's paged-attention calls: (lens case, Q, q dtype); the first is
+#: the kernel's row of the ``kernels`` line; Q > 1 are verify blocks (Q =
+#: 4 is phase 8's, Q = 16 gives Q * G = 32 rows, two row tiles)
+PAGED_CASES = (("mixed", 1, torch.bfloat16), ("serve", 1, torch.bfloat16),
+               ("mixed", 4, torch.bfloat16), ("mixed", 4, torch.float32),
+               ("mixed", 16, torch.bfloat16))
+
+
 def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
     """Decode attention at B = 8 slots over a 256-page pool of 16-row
-    pages, a 32-page (512-row) view, held against the plain version: mixed
-    lens with one dead slot (its row must be exactly zero, two calls
-    bitwise equal), a Q = 4 verify block and fp32 q.  Timed over
+    pages, a 32-page (512-row) view, held against the plain version at
+    each of ``PAGED_CASES``: mixed lens with one dead slot (its rows must
+    be exactly zero, two calls bitwise equal) and the serve's own lens,
+    129..192, one query per slot; verify blocks of Q = 4 (bf16 and fp32
+    q, the tensor-core and the FMA route) and Q = 16.  Each is timed over
     ``copies`` pools, so the live rows (5.7 MB a pool) stream from HBM
-    rather than the 50 MB L2, as one layer's do in a decode step: at the
-    mixed lens (the kernel's row) and at the serve's own lens, 129..192."""
+    rather than the 50 MB L2, as one layer's do in a decode step, beside
+    SDPA over the gathered view under the same causal mask."""
     from repro_torch.kernels import paged_attention as K
     from repro_torch.kernels import ref
     B, H, Hk, D, ps, P, mp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
@@ -329,61 +360,72 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
                    .to(torch.bfloat16) for _ in range(2))
              for _ in range(copies)]
     kp, vp = pools[0]
-    cases = {"mixed": [0, 1, 17, 64, 130, 256, 400, 512],
-             "serve": sorted(rng.integers(129, 193, size=B).tolist())}
+    lens_of = {"mixed": [0, 1, 17, 64, 130, 256, 400, 512],
+               "serve": sorted(rng.integers(129, 193, size=B).tolist())}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    err, rows = 0.0, {}
-    for what, lens_l in cases.items():
+    views = {}                       # the gathered (B, H, L, D) view
+    err, rows = {}, {}
+    for what, Q, dtype in PAGED_CASES:
+        lens_l = lens_of[what]
         lens_np = np.asarray(lens_l, np.int32)
         lens = torch.from_numpy(lens_np).to(dev)
-        for Q in ((4, 1) if what == "mixed" else (1,)):   # time Q = 1
-            shape = (B, H, D) if Q == 1 else (B, Q, H, D)
-            q = torch.randn(shape, generator=gen, device=dev) \
-                .to(torch.bfloat16)
-            log_attn_plan("paged_attention", f"bf16 B={B} Q={Q} lens={what}",
-                          K.plan(B, H, Hk, Q, mp, D, (q.dtype, kp.dtype), ps))
-            got = K.paged_attention(q, kp, vp, ptab, lens)
-            err = max(err, check_close(
-                f"paged_attention Q={Q} lens={lens_l}", got,
-                ref.paged_attention_ref(q, kp, vp, ptab, lens)))
-            if not torch.equal(got, K.paged_attention(q, kp, vp, ptab, lens)):
-                raise AssertionError("paged_attention: two calls differ")
-            if lens_l[0] == 0 and (got[0] != 0).any():
-                raise AssertionError("paged_attention: the lens == 0 row "
-                                     "is not zero")
-        # the library yardstick: SDPA over the gathered (B, H, L, D) view
-        views = [[t[ptab.long()].reshape(B, mp * ps, Hk, D).transpose(1, 2)
-                  .repeat_interleave(H // Hk, dim=1).contiguous()
-                  for t in kv] for kv in pools]
-        mask = (torch.arange(mp * ps, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        live = int(lens_np.sum())
-        pages = int(sum(-(-int(n) // ps) for n in lens_np))
-        nbytes = 2 * B * H * D * 2 + live * Hk * D * 2 * 2 + pages * 4 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * H * D * live)
-        rows[what] = dict(
+        shape = (B, H, D) if Q == 1 else (B, Q, H, D)
+        q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        name = f"{str(dtype)[6:]} B={B} Q={Q} lens={what}"
+        log_attn_plan("paged_attention", name,
+                      K.plan(B, H, Hk, Q, mp, D, (q.dtype, kp.dtype), ps))
+        got = K.paged_attention(q, kp, vp, ptab, lens)
+        err[name] = check_close(
+            f"paged_attention {name}", got,
+            ref.paged_attention_ref(q, kp, vp, ptab, lens))
+        if not torch.equal(got, K.paged_attention(q, kp, vp, ptab, lens)):
+            raise AssertionError(f"paged_attention {name}: two calls differ")
+        if lens_l[0] == 0 and (got[0] != 0).any():
+            raise AssertionError(f"paged_attention {name}: the lens == 0 "
+                                 "row is not zero")
+        if dtype not in views:
+            views[dtype] = [[t[ptab.long()].reshape(B, mp * ps, Hk, D)
+                             .transpose(1, 2).repeat_interleave(H // Hk, 1)
+                             .to(dtype).contiguous() for t in kv]
+                            for kv in pools]
+        # query i sees the keys before lens - (Q - 1 - i)
+        reach = np.clip(lens_np[:, None] - (Q - 1 - np.arange(Q)), 0,
+                        mp * ps)                             # (B, Q)
+        mask = (torch.arange(mp * ps, device=dev)[None, None, :]
+                < torch.from_numpy(reach).to(dev)[:, :, None])[:, None]
+        qs = (q[:, None] if Q == 1 else q).transpose(1, 2)  # (B, H, Q, D)
+        live = int(np.minimum(lens_np, mp * ps).sum())
+        pages = int(sum(-(-int(n) // ps) for n in np.minimum(lens_np,
+                                                                mp * ps)))
+        nbytes = 2 * q.numel() * q.element_size() + live * Hk * D * 2 * 2 \
+            + pages * 4 + B * 4
+        b, by = bound_ms(nbytes, 4.0 * H * D * int(reach.sum()),
+                         BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                         else FP32_FLOPS_PER_S)
+        rows[what, Q, dtype] = dict(
             **timings(lambda: [K.paged_attention(q, k, v, ptab, lens)
                                for k, v in pools],
                       lambda: [ref.paged_attention_ref(q, k, v, ptab, lens)
                                for k, v in pools],
-                      lambda: [sdpa(q[:, :, None], k, v, attn_mask=mask)
-                               for k, v in views], copies),
+                      lambda: [sdpa(qs, k, v, attn_mask=mask)
+                               for k, v in views[dtype]], copies),
             bound_ms=b, bound_by=by)
-        log(f"[kernels] paged_attention B={B} lens={lens_l}: "
-            f"{json.dumps(rows[what])}")
+        log(f"[kernels] paged_attention {name} lens={lens_l}: "
+            f"{json.dumps(rows[what, Q, dtype])}")
     q32 = torch.randn((B, H, D), generator=gen, device=dev)
     log_attn_plan("paged_attention", f"fp32 q, bf16 pools, B={B} Q=1",
                   K.plan(B, H, Hk, 1, mp, D, (q32.dtype, kp.dtype), ps))
-    err32 = check_close("paged_attention fp32 q",
-                        K.paged_attention(q32, kp, vp, ptab, lens),
-                        ref.paged_attention_ref(q32, kp, vp, ptab, lens))
-    log(f"[kernels] paged_attention max abs err {err:.3e} (bf16, Q = 1 and "
-        f"4), {err32:.3e} (fp32 q) against the plain version; the lens == 0 "
-        "row zero; two calls bitwise equal")
+    err["fp32 Q=1"] = check_close(
+        "paged_attention fp32 q", K.paged_attention(q32, kp, vp, ptab, lens),
+        ref.paged_attention_ref(q32, kp, vp, ptab, lens))
+    log("[kernels] paged_attention max abs err against the plain version: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + "; the lens == 0 rows zero; two calls bitwise equal")
     return dict(name="paged_attention",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:107",
-                max_abs_err=err, **rows["mixed"])
+                max_abs_err=max(err.values()),
+                **rows[PAGED_CASES[0]])
 
 
 def check_flash_attention(cfg, dev) -> dict:
@@ -666,11 +708,10 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
 
 # --- phases 4 and 5 --------------------------------------------------------
 
-def sparse_model(cfg, dev, seed, zero_tiles: bool = False):
-    """Random params from ``seed``, packed per ``cfg``; ``zero_tiles``
-    first zeroes exactly half of each projection's tiles."""
+def dense_model(cfg, dev, seed, zero_tiles: bool = False):
+    """Random dense params from ``seed``; ``zero_tiles`` zeroes exactly
+    half of each projection's tiles."""
     from repro_torch import models
-    from repro_torch.core.sparse_linear import pack_params
     params = models.init_model(cfg, seed=seed, device=dev)
     if zero_tiles:
         rng = np.random.default_rng(seed)
@@ -679,7 +720,13 @@ def sparse_model(cfg, dev, seed, zero_tiles: bool = False):
                                ("mlp", ("w_in", "w_gate", "w_out"))):
                 for name in names:
                     layer[fam][name] = zero_half_tiles(layer[fam][name], rng)
-    return pack_params(params, cfg)
+    return params
+
+
+def sparse_model(cfg, dev, seed, zero_tiles: bool = False):
+    """:func:`dense_model`'s params packed per ``cfg``."""
+    from repro_torch.core.sparse_linear import pack_params
+    return pack_params(dense_model(cfg, dev, seed, zero_tiles), cfg)
 
 
 def pack_summary(params) -> str:
@@ -703,14 +750,43 @@ def pack_summary(params) -> str:
     return "no tile skipping"
 
 
+def zero_counts(counters) -> None:
+    """Set every wrapper's launch counts to 0."""
+    for mod in counters:
+        mod.launches = 0
+        if hasattr(mod, "block_launches"):
+            mod.block_launches = 0
+
+
+def counted(launches: dict) -> list:
+    """The kernel names of a :func:`launch_counts` dict."""
+    return [name for name in launches if not name.endswith(" Q>1")]
+
+
+def launch_counts(counters) -> dict:
+    """Each wrapper's launches by kernel module name, and ``paged_attention
+    Q>1``, the paged launches of a verify block."""
+    got = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in counters}
+    for mod in counters:
+        if hasattr(mod, "block_launches"):
+            got[f"{mod.__name__.rsplit('.', 1)[1]} Q>1"] = mod.block_launches
+    return got
+
+
+def phase4_prompts(vocab: int, requests: int = 16) -> list:
+    """Phase 4's stream: ``requests`` random prompts of 16-128 tokens."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+            for n in rng.integers(16, 129, size=requests)]
+
+
 def serve_prompts(eng, prompts, counters) -> tuple:
     """Serve ``prompts`` on ``eng`` (launch counts and stats set to 0 just
     before, read just after): (tokens per request, report, launches).
     Every request must reach its budget within the vocabulary and
     ``sync_count`` must equal the number of decode chunks."""
     eng.reset_stats()
-    for mod in counters:
-        mod.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -724,8 +800,7 @@ def serve_prompts(eng, prompts, counters) -> tuple:
         step_s.append(time.perf_counter() - t1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-                for mod in counters}
+    launches = launch_counts(counters)
     st = eng.stats()
     outs = [h.tokens for h in handles]
     budget = eng.scfg.max_new_tokens
@@ -740,15 +815,22 @@ def serve_prompts(eng, prompts, counters) -> tuple:
                              f"{len(st.chunk_s)} chunks")
     ntok = sum(len(o) for o in outs)
     ttft = sorted(h.ttft_s for h in handles)
+    replays = [t for t, (_, how) in zip(st.chunk_s, st.chunk_runs)
+               if how == "replay"]
     return outs, {
         "requests": len(handles), "tokens": ntok,
         "tok_per_s": ntok / wall, "wall_s": wall,
         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
         "decode_ms_per_step": 1e3 * sum(st.chunk_s)
         / (len(st.chunk_s) * eng.scfg.decode_chunk),
+        "replay_ms_per_step": 1e3 * sum(replays)
+        / (len(replays) * eng.scfg.decode_chunk) if replays else None,
         "step_ms": [round(1e3 * t, 1) for t in step_s],
         "chunk_ms": [round(1e3 * t, 1) for t in st.chunk_s],
         "chunks": len(st.chunk_s), "sync_count": st.sync_count,
+        "tokens_per_chunk": ntok / len(st.chunk_s),
+        "drafted": st.drafted, "accepted": st.accepted,
+        "acceptance_rate": st.acceptance_rate,
         "prefills": st.prefills, "peak_pages": st.peak_pages,
         "launches": launches,
         "chunk_runs": {how: sum(h == how for _, h in st.chunk_runs)
@@ -776,20 +858,21 @@ def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
         f"{time.perf_counter() - t0:.1f} s, {pack_summary(params)}")
     scfg = ServeConfig(slots=8, max_len=512, prompt_pad=128, page_size=16,
                        decode_chunk=16, max_new_tokens=max_new, eos_token=-1)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in rng.integers(16, 129, size=requests)]
+    prompts = phase4_prompts(cfg.vocab_size, requests)
     eng = Engine(cfg, scfg, params, device=dev)
     cold = serve_prompts(eng, prompts, counters)
     outs, report, launches = cold
-    if any((launches[name] > 0) != (name in path) for name in launches):
+    if any((launches[name] > 0) != (name in path) for name in counted(
+            launches)):
         raise AssertionError(f"{fmt}: the kernels of {sorted(path)} must "
                              f"launch and no other: {launches}")
     log(f"[serve {fmt}] {json.dumps(report)}")
     log(f"[serve {fmt}] first request's tokens: {outs[0][:16]}")
     if profile:
-        profile_decode_chunk(eng, prompts,
-                             graph_turns(eng, prompts, counters, cold))
+        turns = graph_turns(eng, prompts, counters, cold, f"graph {fmt}")
+        warm = [ms for name, _, (_, rep, _) in turns if name == "graph warm"
+                for ms in rep["chunk_ms"]]
+        profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
     return launches
 
 
@@ -832,15 +915,35 @@ def check_graph_runs(st, seen: dict, captured: set, graphs: bool) -> None:
                              f"not the capturing chunks' keys {caps}")
 
 
-def graph_turns(eng, prompts, counters, cold) -> float:
-    """Phase 4's ``[graph]`` sub-phase on the engine that just served
-    ``prompts`` cold (captures included): the same stream again warm, then
-    with graphs off (the backend's private switch), in turns — warm,
-    eager, warm, eager.  Tokens, ``sync_count`` and each kernel's
-    launches must equal the eager serves' exactly, and every key that ran
-    twice has exactly one capture.  Returns the warm serves' mean chunk
-    wall in ms."""
-    fmt = eng.cfg.mlp_sparsity.format
+def log_turn(tag: str, name: str, rep: dict) -> None:
+    replay = rep["replay_ms_per_step"]
+    log(f"[{tag}] {name}: decode {rep['decode_ms_per_step']:.3f} ms/step ("
+        + ("no replay" if replay is None else f"replayed chunks {replay:.3f}")
+        + f"), {rep['tok_per_s']:.2f} tok/s, wall {rep['wall_s']:.3f} s, "
+        f"TTFT p50 {rep['ttft_p50_ms']:.1f} ms, "
+        f"{rep['tokens_per_chunk']:.1f} tokens/chunk, drafted "
+        f"{rep['drafted']}, accepted {rep['accepted']} (acceptance "
+        f"{rep['acceptance_rate']:.4f}), sync_count {rep['sync_count']}, "
+        f"chunks {rep['chunk_runs']}, peak_mem_gb {rep['peak_mem_gb']:.3f}")
+
+
+def mean_of(turns, what: str, graphs: bool) -> float:
+    """Mean of report key ``what`` over the warm graph (or the eager)
+    turns of :func:`graph_turns`."""
+    vals = [rep[what] for name, g, (_, rep, _) in turns
+            if g == graphs and name != "graph cold" and rep[what] is not None]
+    return sum(vals) / len(vals) if vals else float("nan")
+
+
+def graph_turns(eng, prompts, counters, cold, tag: str) -> list:
+    """The ``[graph]`` turns (phases 4 and 8) on the engine that just
+    served ``prompts`` cold (captures included): the same stream again
+    warm, then with graphs off (the backend's private switch), in turns —
+    warm, eager, warm, eager.  Tokens, ``sync_count``, drafted and
+    accepted tokens and each kernel's launches (verify blocks included)
+    must equal the eager serves' exactly, and every key that ran twice
+    has exactly one capture.  Returns the turns, ``(name, graphs, (tokens,
+    report, launches))``, the cold serve first."""
     seen, captured = {}, set()
     check_graph_runs(eng.stats(), seen, captured, True)
     turns = [("graph cold", True, cold)]
@@ -852,52 +955,43 @@ def graph_turns(eng, prompts, counters, cold) -> float:
         turns.append((name, graphs, got))
     eng._backend._graphs = True
     for name, graphs, (outs, rep, launches) in turns:
-        log(f"[graph {fmt}] {name}: decode {rep['decode_ms_per_step']:.3f} "
-            f"ms/step, {rep['tok_per_s']:.2f} tok/s, wall "
-            f"{rep['wall_s']:.3f} s, TTFT p50 {rep['ttft_p50_ms']:.1f} ms, "
-            f"sync_count {rep['sync_count']}, chunks {rep['chunk_runs']}, "
-            f"peak_mem_gb {rep['peak_mem_gb']:.3f}")
+        log_turn(tag, name, rep)
     runners = eng._backend._chunks
     caps = [c for _, _, (_, rep, _) in turns for c in rep["captures"]]
     for c in caps:
-        log(f"[graph {fmt}] key (view_pages, sampled) {tuple(c['key'])}: "
-            f"capture {c['capture_s']:.3f} s, instantiate "
-            f"{c['instantiate_s']:.3f} s, "
-            f"{graph_nodes(runners[tuple(c['key'])].graph)} graph nodes")
+        key = tuple(c["key"])
+        log(f"[{tag}] key (view_pages, sampled) {key}: capture "
+            f"{c['capture_s']:.3f} s, instantiate {c['instantiate_s']:.3f} "
+            f"s, {graph_nodes(runners[key].graph)} graph nodes")
     eager = [t for t in turns if not t[1]]
     base_outs, base_rep, base_launches = eager[0][2]
+    same = ("sync_count", "drafted", "accepted")
     for name, _, (outs, rep, launches) in turns:
         if outs != base_outs:
             bad = [i for i, (a, b) in enumerate(zip(outs, base_outs))
                    if a != b]
-            raise AssertionError(f"{fmt} {name}: requests {bad} differ "
+            raise AssertionError(f"{tag} {name}: requests {bad} differ "
                                  "from the eager serve's tokens")
-        if rep["sync_count"] != base_rep["sync_count"]:
-            raise AssertionError(f"{fmt} {name}: sync_count "
-                                 f"{rep['sync_count']} != eager "
-                                 f"{base_rep['sync_count']}")
+        if any(rep[k] != base_rep[k] for k in same):
+            raise AssertionError(f"{tag} {name}: {[rep[k] for k in same]} "
+                                 f"!= eager {[base_rep[k] for k in same]} "
+                                 f"({', '.join(same)})")
         if launches != base_launches:
-            raise AssertionError(f"{fmt} {name}: launches {launches} != "
+            raise AssertionError(f"{tag} {name}: launches {launches} != "
                                  f"eager {base_launches}")
     if len(caps) != len(captured):
-        raise AssertionError(f"{fmt}: a key was captured twice: {caps}")
-
-    def mean(what, graphs):
-        vals = [rep[what] for name, g, (_, rep, _) in turns
-                if g == graphs and name != "graph cold"]
-        return sum(vals) / len(vals)
-
-    log(f"[graph {fmt}] tokens, sync_count and launches equal in all "
-        f"{len(turns)} serves; {len(caps)} captures = the "
+        raise AssertionError(f"{tag}: a key was captured twice: {caps}")
+    log(f"[{tag}] tokens, sync_count, drafted, accepted and launches equal "
+        f"in all {len(turns)} serves; {len(caps)} captures = the "
         f"{len(captured)} keys served past their first chunk with graphs "
         f"on, of {len(seen)} keys; warm graph "
-        f"{mean('decode_ms_per_step', True):.3f} ms/step, "
-        f"{mean('tok_per_s', True):.2f} tok/s vs eager "
-        f"{mean('decode_ms_per_step', False):.3f} ms/step, "
-        f"{mean('tok_per_s', False):.2f} tok/s (means of 2 turns each)")
-    warm = [ms for name, _, (_, rep, _) in turns if name == "graph warm"
-            for ms in rep["chunk_ms"]]
-    return sum(warm) / len(warm)
+        f"{mean_of(turns, 'decode_ms_per_step', True):.3f} ms/step "
+        f"(replayed chunks {mean_of(turns, 'replay_ms_per_step', True):.3f})"
+        f", {mean_of(turns, 'tok_per_s', True):.2f} tok/s vs eager "
+        f"{mean_of(turns, 'decode_ms_per_step', False):.3f} ms/step, "
+        f"{mean_of(turns, 'tok_per_s', False):.2f} tok/s (means of 2 turns "
+        "each)")
+    return turns
 
 
 def profile_decode_chunk(eng, prompts, warm_chunk_ms: float) -> None:
@@ -1235,13 +1329,11 @@ def prefix_sharing(cfg, dev, counters) -> dict:
     handle = shared.register_prefix(head)
     pages = torch.tensor([nd.page for nd in handle._nodes], device=dev)
     pinned = [shared._cache[k][:, pages].clone() for k in ("kp", "vp")]
-    for mod in counters:
-        mod.launches = 0
+    zero_counts(counters)
     flash_attention.suffix_launches = 0
     torch.cuda.synchronize()
     outs, report = serve_stream(shared, requests, handle)
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-                for mod in counters}
+    launches = launch_counts(counters)
     suffix = flash_attention.suffix_launches
     kept = all(torch.equal(shared._cache[k][:, pages], t)
                for k, t in zip(("kp", "vp"), pinned))
@@ -1260,7 +1352,8 @@ def prefix_sharing(cfg, dev, counters) -> dict:
         f"{len(pages)} pages {'byte-equal' if kept else 'CHANGED'} after "
         "the serve")
     path = {"nm_spmm", "paged_attention", "flash_attention"}
-    if any((launches[name] > 0) != (name in path) for name in launches):
+    if any((launches[name] > 0) != (name in path) for name in counted(
+            launches)):
         raise AssertionError(f"the kernels of {sorted(path)} must launch "
                              f"and no other: {launches}")
     if got != want:
@@ -1318,6 +1411,141 @@ def prefix_vs_cpu(cfg, dev) -> None:
             raise AssertionError(f"fp32 request {i}: card {a} vs CPU {b}")
     log(f"[prefix fidelity] 2 layers fp32: counts {got}; first splits "
         f"against the CPU {splits}")
+
+
+# --- phase 8: speculative decoding ------------------------------------------
+
+SPEC_K = 3                         # drafted tokens per verify block
+
+
+def spec_config(**kw):
+    """Phase 4's serve, optionally speculative."""
+    from repro_torch.serving import ServeConfig
+    return ServeConfig(slots=8, max_len=512, prompt_pad=128, page_size=16,
+                       decode_chunk=16, max_new_tokens=64, eos_token=-1,
+                       **kw)
+
+
+def speculation(cfg, dev, counters) -> dict:
+    """Phase 8 at full width: phase 4's stream through (a) the plain
+    dense loop (a graph serve cold, then warm), (b) a self draft and (c)
+    the config's 2:4 packs as the draft with the dense weights verifying,
+    each speculative engine through :func:`graph_turns`.  Gates: budgets and
+    syncs (``serve_prompts``); one verify block (Q = K + 1) per layer and
+    step, and in (c) nm_spmm's 7 projections per layer and draft step;
+    each speculative serve's tokens equal (a)'s or split first at a near
+    tie (``near_tie``, read by replaying (a)'s tokens one sequence at a
+    time).  Returns the cold turns' launches, summed."""
+    from repro_torch.serving import Engine
+    params = dense_model(cfg, dev, SEED)
+    prompts = phase4_prompts(cfg.vocab_size)
+    plain_eng = Engine(cfg, spec_config(), params, device=dev)
+    plain = [serve_prompts(plain_eng, prompts, counters) for _ in range(2)]
+    for name, (_, rep, _) in zip(("graph cold", "graph warm"), plain):
+        log_turn("spec plain", name, rep)
+    base, base_rep, total = plain[0][0], plain[1][1], dict(plain[0][2])
+    if plain[1][0] != base:
+        raise AssertionError("the two plain serves differ")
+    gaps: dict = {}                  # request -> (gaps, tops) along (a)
+    dtype = params["embed"].dtype
+    for draft in ("self", "pack"):
+        tag = f"spec {draft}"
+        eng = Engine(cfg, spec_config(spec_k=SPEC_K, spec_draft=draft),
+                     params, device=dev)
+        turns = graph_turns(eng, prompts, counters,
+                            serve_prompts(eng, prompts, counters), tag)
+        outs, rep, launches = turns[0][2]
+        steps = rep["chunks"] * eng.scfg.decode_chunk
+        want_nm = 7 * cfg.n_layers * steps * SPEC_K if draft == "pack" else 0
+        path = {"paged_attention", "flash_attention"} | (
+            {"nm_spmm"} if draft == "pack" else set())
+        if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+            raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                                 f"launch and no other: {launches}")
+        if launches["paged_attention Q>1"] != cfg.n_layers * steps or \
+                launches["nm_spmm"] != want_nm:
+            raise AssertionError(
+                f"{tag}: {launches['paged_attention Q>1']} verify blocks and "
+                f"{launches['nm_spmm']} nm_spmm launches for {steps} steps "
+                f"of {cfg.n_layers} layers (want {cfg.n_layers * steps} and "
+                f"{want_nm})")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        far, equal = [], 0
+        for i, (p, a, b) in enumerate(zip(prompts, outs, base)):
+            split = first_split(a, b)
+            if split is None:
+                equal += 1
+                continue
+            if i not in gaps:
+                gaps[i] = greedy(params, cfg, p, len(b), 128, 512,
+                                 device=dev, forced=b)[1:]
+            gap, top = gaps[i][0][split], gaps[i][1][split]
+            tie = near_tie(gap, top, dtype)
+            log(f"[{tag}] request {i}: first split from the plain loop at "
+                f"{split}, plain top-2 gap there {gap:.3e} at top logit "
+                f"{top:.4f} (one-sequence replay): "
+                f"{'a near tie' if tie else 'NOT a tie'}")
+            if not tie:
+                far.append(i)
+        log(f"[{tag}] vs plain: {equal}/{len(outs)} requests token-equal; "
+            f"acceptance {rep['acceptance_rate']:.4f} ({rep['accepted']} of "
+            f"{rep['drafted']} drafted), {rep['tokens_per_chunk']:.1f} "
+            f"tokens/chunk vs {base_rep['tokens_per_chunk']:.1f}; warm graph "
+            f"{mean_of(turns, 'decode_ms_per_step', True):.3f} ms/step "
+            f"(replayed chunks {mean_of(turns, 'replay_ms_per_step', True):.3f}"
+            f"), {mean_of(turns, 'tok_per_s', True):.2f} tok/s vs plain warm "
+            f"{base_rep['decode_ms_per_step']:.3f} ms/step, "
+            f"{base_rep['tok_per_s']:.2f} tok/s; eager "
+            f"{mean_of(turns, 'decode_ms_per_step', False):.3f} ms/step, "
+            f"{mean_of(turns, 'tok_per_s', False):.2f} tok/s")
+        if far:
+            raise AssertionError(f"{tag}: requests {far} split from the "
+                                 "plain loop away from a near tie")
+    return total
+
+
+def spec_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 8 at 2 layers in fp32 (``cfg`` the 2:4 one): a ``pack`` draft
+    in each format (block
+    and combined with half their tiles zeroed) over the dense verify, on
+    the card, against one-sequence greedy decoding on the CPU (phase 5's
+    rule).  The fp32 verify block runs the FMA route's Q-block."""
+    from repro_torch.serving import Engine, ServeConfig
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in (5, 17, 26, 32)]
+    kernel = {"nm": "nm_spmm", "combined": "csa_matmul",
+              "block": "bsr_matmul", "lookahead": "lookahead_decode"}
+    for fmt, mod in kernel.items():
+        fcfg = cfg if fmt == "nm" else with_format(cfg, fmt)
+        params = dense_model(fcfg, dev, SEED + 1,
+                             zero_tiles=fmt in ("block", "combined"))
+        scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32, page_size=16,
+                           decode_chunk=8, max_new_tokens=16, eos_token=-1,
+                           spec_k=SPEC_K, spec_draft="pack")
+        eng = Engine(fcfg, scfg, params, device=dev)
+        zero_counts(counters)
+        outs = eng.generate(prompts)
+        launches = launch_counts(counters)
+        if not launches[mod] or not launches["paged_attention Q>1"]:
+            raise AssertionError(f"fp32 spec {fmt}: no {mod} or verify "
+                                 f"block launch: {launches}")
+        cpu_params = _to(params, "cpu")
+        splits = []
+        for i, (p, got) in enumerate(zip(prompts, outs)):
+            want, gaps, _ = greedy(cpu_params, fcfg, p, len(got),
+                                   scfg.prompt_pad, scfg.max_len)
+            split = first_split(got, want)
+            splits.append(split)
+            if len(got) != scfg.max_new_tokens or (
+                    split is not None and gaps[split] >= GAP_TOL):
+                raise AssertionError(f"fp32 spec {fmt} request {i}: card "
+                                     f"{got} vs CPU {want}")
+        log(f"[spec fidelity {fmt}] 2 layers fp32, pack draft: acceptance "
+            f"{eng.acceptance_rate():.4f}, {launches[mod]} {mod} and "
+            f"{launches['paged_attention Q>1']} verify-block launches; "
+            f"first splits against the CPU {splits}")
 
 
 def with_format(cfg, fmt: str):
@@ -1411,6 +1639,13 @@ def main() -> int:
         launches[name] += got[name]
     prefix_vs_cpu(small, dev)
     timed("7 prefix sharing", t0)
+
+    t0 = time.perf_counter()
+    got = speculation(cfg, dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    spec_vs_cpu(small, dev, counters)
+    timed("8 speculation", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

@@ -150,6 +150,24 @@ def pack_params(params: Any, cfg: Any) -> Any:
     return visit(params, ())
 
 
+def make_draft_params(params: Any, cfg: Any) -> Any:
+    """The sparse drafter of speculative serving (``spec_draft="pack"``):
+    the verify params pruned and packed into the model config's
+    per-family formats, as :func:`pack_params` does.
+
+    Memory contract (the JAX package's): only the weights a
+    :class:`SparsityConfig` governs become packs; every other leaf
+    (embeddings, norms, dense-format families, geometry misfits) is the
+    verify params' own tensor, not a copy, so draft and verify together
+    cost the packed values on top of one model.  A config whose families
+    are all ``dense`` returns ``params`` itself: the pack draft is then
+    the self draft."""
+    families = (cfg.mlp_sparsity, cfg.attn_sparsity, cfg.expert_sparsity)
+    if all(f.format == "dense" for f in families):
+        return params
+    return pack_params(params, cfg)
+
+
 def apply_linear(x: torch.Tensor, weight: Any,
                  cfg: SparsityConfig = DENSE) -> torch.Tensor:
     """``x (..., K) @ weight (K, N) -> (..., N)`` for any ported format.

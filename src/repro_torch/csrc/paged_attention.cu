@@ -36,8 +36,12 @@
 // page-table row into shared memory (the TPU's scalar-prefetched index
 // map), so a row's address costs a shared-memory read.
 //   Layout on the MMA: the query rows of one kv head are the m side, row
-// r = qi * G + gi (Q * G <= 16: the G heads of the group, times Q for a
-// verify block), zero-padded to m16; keys are n (two n8 tiles per chunk)
+// r = qi * G + gi (the G heads of the group, times Q for a verify block),
+// 16 rows per m16 tile, the last one zero-padded; Q * G > 16 rows take
+// ceil(Q * G / 16) row tiles, a grid axis: each tile's cluster walks the
+// keys its rows reach with its own online softmax, so a row tile costs a
+// second read of the live rows (from L2 for the short views of a verify
+// block).  Keys are n (two n8 tiles per chunk)
 // for S = Q K^T and k for P V, so a chunk is exactly one k16 step of P V
 // and P's A fragment is S's C fragments, as in flash_attention.cu.  At
 // Q * G = 2 most of the m16 tile is padding; that costs nothing here,
@@ -58,11 +62,13 @@
 // max -1e30 and denominator 0 and still joins both cluster barriers (the
 // "started" one at entry and the one after the pushes).
 //
-// fp32 q (over fp32 or bf16 pools), and bf16 at D = 32 or 256, Q = 1 ->
+// fp32 q (over fp32 or bf16 pools), and bf16 at D = 32 or 256 ->
 // CUDA-core FMAs (paged_attention_fma), kept for fp32 parity: one block
-// per (sequence, kv head) folds the G query heads onto each K/V row; its
-// 8 warps split the sequence's rows, UNROLL rows' loads in flight per
-// warp, and merge their softmax states in shared memory at the end.
+// per (sequence, kv head, tile of 8 query rows) folds its rows -- row
+// r = qi * G + gi as above, so Q = 1 folds the G query heads of the
+// group -- onto each K/V row, each row masked at its own causal reach;
+// its 8 warps split the sequence's rows, UNROLL rows' loads in flight
+// per warp, and merge their softmax states in shared memory at the end.
 #include "tensor_core.cuh"
 
 namespace {
@@ -115,9 +121,14 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   cg::cluster_group cluster = cg::this_cluster();
   const int split = cluster.num_blocks();
   const int rank = cluster.block_rank();
-  const int grp = blockIdx.x / split;             // (sequence, kv head)
+  const int G = H / Hk;
+  // the grid is tiles x (sequence, kv head) x split: a cluster never
+  // straddles two row tiles
+  const int per_tile = gridDim.x / ((Q * G + kRows - 1) / kRows);
+  const int r0 = blockIdx.x / per_tile * kRows;   // this tile's first row
+  const int grp = blockIdx.x % per_tile / split;  // (sequence, kv head)
   const int b = grp / Hk, hk = grp % Hk;
-  const int G = H / Hk, R = Q * G;
+  const int R = min(kRows, Q * G - r0);           // rows of this tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);      // [16][LD]
   const int RING = ring * 2 * PM::CH;             // a warp's ring, bf16
@@ -128,10 +139,10 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
   // the query rows, the page-table row and lens: three independent loads
   for (int c = threadIdx.x; c < kRows * DQ; c += THREADS) {
-    const int r = c / DQ, col = c % DQ * 8;
+    const int r = c / DQ, col = c % DQ * 8, gr = r0 + (r < R ? r : 0);
     const bool in = r < R;
-    const bf16* src = q + (((size_t)b * Q + (in ? r / G : 0)) * H + hk * G +
-                           (in ? r % G : 0)) * D + col;
+    const bf16* src = q + (((size_t)b * Q + gr / G) * H + hk * G + gr % G) *
+                              D + col;
     cp_async16(q_s + r * LD + col, src, in);
   }
   cp_async_commit();
@@ -139,7 +150,8 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     pt[i] = ptab[(size_t)b * ptab_stride + i];
   const int lb = lens[b];
   const int view = n_pages * ps;
-  const int len = max(0, min(lb, view));
+  // the keys the tile's last row reaches: the furthest of its rows
+  const int len = max(0, min(lb - (Q - 1 - (r0 + R - 1) / G), view));
   const int nch = (len + kChunk - 1) / kChunk;
   __syncthreads();                          // the page-table row is staged
 
@@ -154,7 +166,7 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = gq + 8 * h;
-    limit[h] = r < R ? min(lb - (Q - 1 - r / G), view) : 0;
+    limit[h] = r < R ? min(lb - (Q - 1 - (r0 + r) / G), view) : 0;
   }
 
   auto load = [&](int slot, int j) {        // the warp's j-th chunk
@@ -325,7 +337,7 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   for (int i = threadIdx.x; i < share; i += THREADS) {
     const int u = rank * share + i;
     if (u >= units) break;
-    const int r = u / (D / 4), c = u % (D / 4) * 4;
+    const int r = u / (D / 4), c = u % (D / 4) * 4, gr = r0 + r;
     float mx = kNegInf;
     for (int k = 0; k < split; ++k) mx = fmaxf(mx, recv_ml[k * kRows + r]);
     float l = 0.f;
@@ -343,7 +355,7 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     packed.x = *reinterpret_cast<unsigned*>(&lo);
     packed.y = *reinterpret_cast<unsigned*>(&hi);
     *reinterpret_cast<uint2*>(
-        out + (((size_t)b * Q + r / G) * H + hk * G + r % G) * D + c) = packed;
+        out + (((size_t)b * Q + gr / G) * H + hk * G + gr % G) * D + c) = packed;
   }
 }
 
@@ -354,9 +366,12 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
                        int ptab_stride, float scale, int split, int ring,
                        cudaStream_t s) {
   static size_t opted = 0;
+  const int rows = Q * (H / Hk), tiles = (rows + kRows - 1) / kRows;
   return repro::tc::launch_cluster(
-      paged_attention_mma<D, WARPS>, opted, dim3(B * Hk * split), WARPS * 32,
-      PagedMma<D>::smem_bytes(WARPS, ring, Q * (H / Hk), split, n_pages),
+      paged_attention_mma<D, WARPS>, opted, dim3(tiles * B * Hk * split),
+      WARPS * 32,
+      PagedMma<D>::smem_bytes(WARPS, ring, std::min(rows, kRows), split,
+                               n_pages),
       split, s,
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(vp), ptab, lens, static_cast<bf16*>(out), Q, H,
@@ -366,24 +381,34 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
 // ---- fp32: CUDA-core FMAs ---------------------------------------------------
 
 constexpr int kFmaWarps = 8;
-constexpr int kGMax = 8;      // query heads per kv head
+constexpr int kGMax = 8;      // query rows per block
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kFmaWarps * 32)
 paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                        const TKV* __restrict__ vp, const int* __restrict__ ptab,
-                       const int* __restrict__ lens, TQ* __restrict__ out, int H,
-                       int Hk, int ps, int n_pages, int ptab_stride,
+                       const int* __restrict__ lens, TQ* __restrict__ out, int Q,
+                       int H, int Hk, int ps, int n_pages, int ptab_stride,
                        float scale) {
   using namespace repro;
   constexpr int VPT = D / 32;
   constexpr int UNROLL = D <= 128 ? 8 : 4;   // rows a warp loads before use
-  extern __shared__ float smem_f[];  // [kFmaWarps][G][D + 2], then the page row
+  extern __shared__ float smem_f[];  // [kFmaWarps][NR][D + 2], then the page row
   const int b = blockIdx.x, hk = blockIdx.y;
   const int G = H / Hk;
+  const int r0 = blockIdx.z * kGMax;           // this tile's first query row
+  const int NR = min(kGMax, Q * G - r0);       // its rows
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = max(0, min(lens[b], n_pages * ps));
-  int* pt = reinterpret_cast<int*>(smem_f + (size_t)kFmaWarps * G * (D + 2));
+  const int lb = lens[b], view = n_pages * ps;
+  // row r's key limit: query qi = r / G sits at lens - Q + qi and sees
+  // the keys before lens - (Q - 1 - qi), within the view (recomputed
+  // where used: registers are scarce at D = 256)
+  auto limit = [&](int g) {
+    return min(lb - (Q - 1 - (r0 + g) / G), view);
+  };
+  // the keys the tile's last row reaches: the furthest of its rows
+  const int len = max(0, limit(NR - 1));
+  int* pt = reinterpret_cast<int*>(smem_f + (size_t)kFmaWarps * NR * (D + 2));
   for (int i = threadIdx.x; i < (len + ps - 1) / ps; i += kFmaWarps * 32)
     pt[i] = ptab[(size_t)b * ptab_stride + i];
   __syncthreads();
@@ -393,11 +418,13 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   for (int g = 0; g < kGMax; ++g) {
     m_run[g] = kNegInf;
     l_run[g] = 0.f;
+    const int gr = r0 + g;
 #pragma unroll
     for (int j = 0; j < VPT; ++j) {
       acc[g][j] = 0.f;
-      qv[g][j] = g < G ? to_f(q[((size_t)b * H + hk * G + g) * D + lane + 32 * j])
-                       : 0.f;
+      qv[g][j] = g < NR ? to_f(q[(((size_t)b * Q + gr / G) * H + hk * G +
+                                  gr % G) * D + lane + 32 * j])
+                        : 0.f;
     }
   }
 
@@ -418,7 +445,8 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     // and warp reductions are independent, so their latencies overlap
 #pragma unroll
     for (int g = 0; g < kGMax; ++g) {
-      if (g >= G) break;
+      if (g >= NR) break;
+      const int lim = limit(g);
       float s[UNROLL];
       float mx = m_run[g];
 #pragma unroll
@@ -427,7 +455,7 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 #pragma unroll
         for (int j = 0; j < VPT; ++j) d += qv[g][j] * kv[u][j];
         d = warp_sum(d) * scale;
-        s[u] = row0 + u * kFmaWarps < len ? d : kNegInf;
+        s[u] = row0 + u * kFmaWarps < lim ? d : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
       const float alpha = expf(m_run[g] - mx);
@@ -436,7 +464,7 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
       for (int j = 0; j < VPT; ++j) acc[g][j] *= alpha;
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const float p = row0 + u * kFmaWarps < len ? expf(s[u] - mx) : 0.f;
+        const float p = row0 + u * kFmaWarps < lim ? expf(s[u] - mx) : 0.f;
         l += p;
 #pragma unroll
         for (int j = 0; j < VPT; ++j) acc[g][j] += p * vv[u][j];
@@ -446,10 +474,10 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     }
   }
 
-  float* mine = smem_f + (size_t)warp * G * (D + 2);
+  float* mine = smem_f + (size_t)warp * NR * (D + 2);
 #pragma unroll
   for (int g = 0; g < kGMax; ++g) {
-    if (g >= G) break;
+    if (g >= NR) break;
 #pragma unroll
     for (int j = 0; j < VPT; ++j) mine[g * (D + 2) + lane + 32 * j] = acc[g][j];
     if (lane == 0) {
@@ -458,49 +486,51 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < G * D; e += kFmaWarps * 32) {
-    const int g = e / D, d = e % D;
+  for (int e = threadIdx.x; e < NR * D; e += kFmaWarps * 32) {
+    const int g = e / D, d = e % D, gr = r0 + g;
     float mx = kNegInf;
     for (int w = 0; w < kFmaWarps; ++w)
-      mx = fmaxf(mx, smem_f[((size_t)w * G + g) * (D + 2) + D]);
+      mx = fmaxf(mx, smem_f[((size_t)w * NR + g) * (D + 2) + D]);
     float l = 0.f, a = 0.f;
     for (int w = 0; w < kFmaWarps; ++w) {
-      const float* st = smem_f + ((size_t)w * G + g) * (D + 2);
+      const float* st = smem_f + ((size_t)w * NR + g) * (D + 2);
       const float f = expf(st[D] - mx);
       l += st[D + 1] * f;
       a += st[d] * f;
     }
-    out[((size_t)b * H + hk * G + g) * D + d] = from_f<TQ>(l > 0.f ? a / l : 0.f);
+    out[(((size_t)b * Q + gr / G) * H + hk * G + gr % G) * D + d] =
+        from_f<TQ>(l > 0.f ? a / l : 0.f);
   }
 }
 
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_fma(const void* q, const void* kp, const void* vp,
                        const int* ptab, const int* lens, void* out, int B,
-                       int H, int Hk, int ps, int n_pages, int ptab_stride,
-                       float scale, cudaStream_t s) {
+                       int Q, int H, int Hk, int ps, int n_pages,
+                       int ptab_stride, float scale, cudaStream_t s) {
   auto kernel = paged_attention_fma<TQ, TKV, D>;
-  const size_t smem =
-      sizeof(float) * kFmaWarps * (H / Hk) * (D + 2) + sizeof(int) * n_pages;
+  const int rows = Q * (H / Hk), tiles = (rows + kGMax - 1) / kGMax;
+  const size_t smem = sizeof(float) * kFmaWarps * std::min(rows, kGMax) *
+                          (D + 2) + sizeof(int) * n_pages;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, Hk), kFmaWarps * 32, smem, s>>>(
+  kernel<<<dim3(B, Hk, tiles), kFmaWarps * 32, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), ptab, lens, static_cast<TQ*>(out), H, Hk, ps,
-      n_pages, ptab_stride, scale);
+      static_cast<const TKV*>(vp), ptab, lens, static_cast<TQ*>(out), Q, H, Hk,
+      ps, n_pages, ptab_stride, scale);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
-                     const int* ptab, const int* lens, void* out, int B, int H,
-                     int Hk, int ps, int n_pages, int ptab_stride, float scale,
-                     cudaStream_t s) {
+                     const int* ptab, const int* lens, void* out, int B, int Q,
+                     int H, int Hk, int ps, int n_pages, int ptab_stride,
+                     float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 256: return launch_fma<TQ, TKV, 256>(q, kp, vp, ptab, lens, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 256: return launch_fma<TQ, TKV, 256>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -512,9 +542,9 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
 // out contiguous and 16-byte aligned, H % Hk == 0.  Anything else returns
 // cudaErrorInvalidValue without a launch; otherwise cudaGetLastError().
 
-// bf16 q (B, Q, H, D) and pools, Q * H / Hk <= 16, D in {64, 128}; warps
-// in {1, 2, 4} per block, split in {1, 2, 4, 8} blocks per cluster, a
-// ring of 2 to 4 chunks per warp.
+// bf16 q (B, Q, H, D) and pools, D in {64, 128}, one row tile of 16 query
+// rows per 16 of the Q * H / Hk; warps in {1, 2, 4} per block, split in
+// {1, 2, 4, 8} blocks per cluster, a ring of 2 to 4 chunks per warp.
 extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
                                           const void* vp, const void* ptab,
                                           const void* lens, void* out, int B,
@@ -526,8 +556,8 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
   const int* ln = static_cast<const int*>(lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (Hk <= 0 || H % Hk || Q < 1 || Q * (H / Hk) > kRows || ps < 1 ||
-      n_pages < 1 || ring < 2 || ring > 4 ||
+  if (Hk <= 0 || H % Hk || Q < 1 || ps < 1 || n_pages < 1 || ring < 2 ||
+      ring > 4 ||
       (split != 1 && split != 2 && split != 4 && split != 8))
     return static_cast<int>(err);
 #define PAGED_MMA(DD, W)                                                     \
@@ -540,13 +570,14 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
   return static_cast<int>(err);
 }
 
-// q (B, H, D) and out in q_dtype, Q = 1, H/Hk <= 8, D in {32, 64, 128,
-// 256}: float32 q over float32 or bf16 pools; bf16 q and pools only at D
-// in {32, 256} (64 and 128 take the tensor cores).
+// q (B, Q, H, D) and out in q_dtype, one block per 8 of the Q * H / Hk
+// query rows, D in {32, 64, 128, 256}: float32 q over float32 or bf16
+// pools; bf16 q and pools only at D in {32, 256} (64 and 128 take the
+// tensor cores).
 extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
                                           const void* vp, const void* ptab,
                                           const void* lens, void* out, int B,
-                                          int H, int Hk, int D, int ps,
+                                          int Q, int H, int Hk, int D, int ps,
                                           int n_pages, int ptab_stride,
                                           float scale, int q_dtype,
                                           int kv_dtype, void* stream) {
@@ -554,16 +585,16 @@ extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
   const int* pt = static_cast<const int*>(ptab);
   const int* ln = static_cast<const int*>(lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hk <= 0 || H % Hk || H / Hk > kGMax)
+  if (Hk <= 0 || H % Hk || Q < 1 || ps < 1 || n_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (q_dtype == kFloat32 && kv_dtype == kFloat32)
-    err = launch_d<float, float>(D, q, kp, vp, pt, ln, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_d<float, float>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
   else if (q_dtype == kFloat32 && kv_dtype == kBFloat16)
-    err = launch_d<float, bf16>(D, q, kp, vp, pt, ln, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_d<float, bf16>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 32)
-    err = launch_fma<bf16, bf16, 32>(q, kp, vp, pt, ln, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_fma<bf16, bf16, 32>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 256)
-    err = launch_fma<bf16, bf16, 256>(q, kp, vp, pt, ln, out, B, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_fma<bf16, bf16, 256>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
   return static_cast<int>(err);
 }

@@ -198,7 +198,10 @@ def sparse_matmul(x: torch.Tensor, weight: Any) -> torch.Tensor:
 
 
 def paged_attention(q: torch.Tensor, kv: PagedKV) -> torch.Tensor:
-    """Decode attention against a paged KV cache (``q (B, H, D)``)."""
+    """Decode attention against a paged KV cache: ``q (B, H, D)``, one
+    query per sequence, or ``(B, Q, H, D)``, a verify block whose query
+    ``i`` sits at position ``kv.lens - Q + i`` and sees the keys before
+    it; the output has ``q``'s shape."""
     return _paged_run(q, kv, resolve_mode(q.device))
 
 

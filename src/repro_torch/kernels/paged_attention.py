@@ -10,7 +10,8 @@ and ``lens[b]`` rows are valid.  On a CUDA tensor it launches
 it and how it is laid out), which walks only the pages a sequence owns
 and never materializes the gathered view: bfloat16 q and pools at D = 64
 or 128 run on the tensor cores (split over a thread-block cluster), float32
-q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as :func:`plan` says.
+q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as :func:`plan` says;
+both take a ``(B, Q, H, D)`` verify block of any ``Q``.
 On a CPU tensor it runs the plain version ``ref.paged_attention_ref``.
 There is no fallback between them.
 """
@@ -29,6 +30,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Of those, the launches with a ``(B, Q, H, D)`` block of Q > 1 queries
+#: (the speculative verify).
+block_launches = 0
 
 
 class PagedKV(NamedTuple):
@@ -64,7 +68,7 @@ def _fns():
     mma.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                     + [ctypes.c_float] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])
-    fma.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fma.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
     for f in (mma, fma):
@@ -80,13 +84,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``ptab (B, np)`` → the shape of ``q``.
 
     A ``(B, Q, H, D)`` block's query ``i`` sits at position ``lens - Q +
-    i`` and sees the keys before it.  ``ptab`` may be a column slice of a
-    wider table (rows need not be contiguous, columns must be); ``lens``
-    is clamped to ``np * ps`` rows.  Rows with no key in reach (``lens ==
-    0``) give zeros.  The card takes a block on the tensor-core route,
-    ``Q * H / Hk <= 16`` (:func:`plan`).
+    i`` and sees the keys before it and before the view's end (``np *
+    ps`` rows), as the gathered view of the plain version does.  ``ptab``
+    may be a column slice of a wider table (rows need not be contiguous,
+    columns must be).  Rows with no key in reach (``lens == 0``) give
+    zeros.  Both routes take any ``Q``: the ``Q * H / Hk`` query rows of
+    a kv head run in row tiles of 16 (tensor cores) or 8 (FMA) rows
+    (:func:`plan`).
     """
-    global launches
+    global launches, block_launches
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale)
     if q.device.type != "cuda":
@@ -130,8 +136,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         err = mma(*ptrs, B, Q, H, Hk, D, ps, ptab.shape[1], ptab.stride(0),
                   s, p["warps"], p["split"], p["ring"], stream)
     else:
-        err = fma(*ptrs, B, H, Hk, D, ps, ptab.shape[1], ptab.stride(0), s,
-                  DTYPES[q.dtype], DTYPES[k_pool.dtype], stream)
+        err = fma(*ptrs, B, Q, H, Hk, D, ps, ptab.shape[1], ptab.stride(0),
+                  s, DTYPES[q.dtype], DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention")
     launches += 1
+    if Q > 1:
+        block_launches += 1
     return out

@@ -90,8 +90,10 @@ FLASH_BK = (32, 64)              # keys per tile
 FLASH_FMA_BQ = 16
 FLASH_SHORT_KEYS = 256           # up to here, tiles of 32 keys
 PAGED_CHUNK = 16                 # keys per chunk (one k16 step of P V)
-PAGED_ROWS = 16                  # query rows of the m16 tile: Q * G <= 16
+PAGED_ROWS = 16                  # query rows of a row tile (m16)
+PAGED_FMA_ROWS = 8               # query rows of an fma block
 PAGED_WARPS = (1, 2, 4)
+PAGED_BLOCK_WARPS = 2            # warps per block of a Q > 1 block
 PAGED_CHUNKS_PER_PART = 2        # chunks of the view a part walks, at most
 PAGED_MAX_WARPS = 1024           # warps of a one-wave grid (8 per SM)
 SPLITS = (1, 2, 4, MAX_SPLIT)
@@ -143,20 +145,23 @@ def paged_plan(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
     queries of ``H`` heads per sequence over a view of ``n_pages`` pages
     of ``page_size`` rows; ``dtypes`` is ``(q dtype, pool dtype)``.
 
-    bfloat16 q and pools at D in ``MMA_HEAD_DIMS`` take the tensor cores
-    (``mma``) for ``Q * H / Hk <= 16`` query rows per kv head, and raise
-    beyond.  float32 q (over float32 or bfloat16 pools), and bfloat16 at
-    D = 32 or 256, take the FMA kernel (``fma``), which takes one query
-    per sequence.  The mma route's ``split`` blocks of ``warps`` warps per
-    (sequence, kv head) form a cluster; its ``split * warps`` parts take
-    the view's 16-row chunks round-robin, each into a ring of ``ring``
-    chunks.  The rule, from ``tools/attention_sweep.py``: enough parts
-    that a part walks at most 2 chunks of the view, 4 warps per block
-    where there are that many parts, then the fewest blocks per cluster
-    that give them; the split halves while the grid would hold more than
-    ``PAGED_MAX_WARPS`` warps (one wave).  It depends on ``B * Hk`` and
-    the view only, never on the lengths, so a decode step never reads
-    them on the host."""
+    The ``Q * H / Hk`` query rows of a kv head (``rows``) are cut into
+    row tiles, each a grid axis with its own walk of the keys: 16 rows
+    (one m16 tile) on the tensor cores, 8 on the FMA route.  bfloat16 q
+    and pools at D in ``MMA_HEAD_DIMS`` take the tensor cores (``mma``);
+    float32 q (over float32 or bfloat16 pools), and bfloat16 at D = 32
+    or 256, the FMA kernel (``fma``).  The mma route's ``split`` blocks
+    of ``warps`` warps per (row tile, sequence, kv head) form a cluster;
+    its ``split * warps`` parts take the view's 16-row chunks
+    round-robin, each into a ring of ``ring`` chunks.  The rule, from
+    ``tools/attention_sweep.py``: enough parts that a part walks at most
+    2 chunks of the view, as many warps per block as there are parts up
+    to 4 for one query per sequence and up to 2 for a verify block (Q =
+    4 ran 17% faster as 2 warps x 8 blocks than as 4 x 4, same parts),
+    then the fewest blocks per cluster that give them; the split halves
+    while the grid would hold more than ``PAGED_MAX_WARPS`` warps (one
+    wave).  It depends on ``B * Hk``, ``Q`` and the view only, never on
+    the lengths, so a decode step never reads them on the host."""
     qn, kvn = (_dtype_name(t) for t in dtypes)
     G = _heads(H, Hk, D)
     if Q < 1 or n_pages < 1 or page_size < 1:
@@ -164,25 +169,22 @@ def paged_plan(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
                          f"n_pages={n_pages}, page_size={page_size}")
     if qn == "bfloat16" and kvn == "float32":
         raise TypeError("bfloat16 q over float32 pools is not built")
+    rows = Q * G
     if qn == "float32" or D not in MMA_HEAD_DIMS:
-        if Q != 1:
-            raise ValueError(f"the fma route takes one query per sequence, "
-                             f"got Q={Q} ({qn} q, D={D})")
-        if G > 8:
-            raise ValueError(f"the fma route takes H/Hk <= 8, got {G}")
-        return dict(route="fma", warps=8, split=1, grid=(B, Hk))
-    if Q * G > PAGED_ROWS:
-        raise ValueError(f"the mma route takes Q*H/Hk <= {PAGED_ROWS} query "
-                         f"rows per kv head, got Q={Q}, H/Hk={G}")
+        tiles = -(-rows // PAGED_FMA_ROWS)
+        return dict(route="fma", warps=8, split=1, rows=rows,
+                    grid=(B, Hk, tiles))
+    tiles = -(-rows // PAGED_ROWS)
     chunks = -(-n_pages * page_size // PAGED_CHUNK)
     parts = -(-chunks // PAGED_CHUNKS_PER_PART)
-    warps = next(w for w in reversed(PAGED_WARPS) if w <= parts)
+    most = PAGED_WARPS[-1] if Q == 1 else PAGED_BLOCK_WARPS
+    warps = next(w for w in reversed(PAGED_WARPS) if w <= min(parts, most))
     split = next((s for s in SPLITS if s * warps >= parts), SPLITS[-1])
-    while split > 1 and B * Hk * split * warps > PAGED_MAX_WARPS:
+    while split > 1 and tiles * B * Hk * split * warps > PAGED_MAX_WARPS:
         split //= 2
     return dict(route="mma", warps=warps, split=split,
-                ring=paged_ring(chunks, split * warps), rows=Q * G,
-                grid=(B * Hk * split,))
+                ring=paged_ring(chunks, split * warps), rows=rows,
+                grid=(tiles * B * Hk * split,))
 
 
 def paged_ring(chunks: int, parts: int) -> int:

@@ -89,14 +89,15 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 cache: Params, start: int) -> Tuple[torch.Tensor, Params]:
-    """Multi-token decode-shaped forward of the ``lm`` family: ``tokens
-    (B, T)`` written at rows ``[start, start + T)`` (a host int; the
-    paged cache) and scored in one forward — logits for every block
-    position ``(B, T, vocab_padded)``.  The prefix-sharing prefill runs
-    the suffix of a prompt through it; the per-slot vector offsets of
-    the speculative verify are ROADMAP queue 1 item 9."""
-    return TR.lm_decode_block(params, cfg, tokens, cache, start)
+                 cache: Params, pos) -> Tuple[torch.Tensor, Params]:
+    """Multi-token decode-shaped forward of the ``lm`` family — the
+    speculative *verify* step: ``tokens (B, T)`` written at per-slot
+    positions ``pos (B,)`` (ragged offsets; causal attention within the
+    block) on either cache layout and scored in one forward, logits for
+    every block position ``(B, T, vocab_padded)``.  A host int ``pos``
+    is one offset for every slot (the prefix-sharing suffix prefill, on
+    the paged cache)."""
+    return TR.lm_decode_block(params, cfg, tokens, cache, pos)
 
 
 def _is_paged(cache: Params) -> bool:

@@ -21,11 +21,17 @@ Which kernel runs where:
     new queries over the ``start + L`` keys gathered back from the
     slot's pages in the cache dtype — the rows the JAX ``_sdpa`` reads
     at ``kv_len = start + L``;
-  * paged decode calls the paged-attention kernel with
-    ``lens = pos + 1`` over the page-table view, instead of JAX's
-    gathered view;
-  * monolithic decode is plain masked attention over the cache (as the
-    JAX ``_sdpa`` does).
+  * paged decode of ``Lq`` tokens per slot at per-slot positions ``pos``
+    (one token, or the speculative verify block) writes rows ``pos +
+    [0, Lq)`` through the page table and calls the paged-attention
+    kernel with ``lens = pos + Lq`` over the page-table view, instead of
+    JAX's gathered view (the kernel's query ``i`` sees the keys before
+    ``lens - (Lq - 1 - i)`` and before the view's end, as that view
+    does);
+  * monolithic decode writes the ``Lq`` rows at each slot's own ``pos``
+    (the start clamped so the block fits, as ``dynamic_update_slice``
+    clamps it) and is plain masked attention over the cache with
+    ``kv_len = pos + Lq`` (as the JAX ``_sdpa`` does).
 """
 
 from __future__ import annotations
@@ -170,10 +176,11 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
     ``cache_pos`` is a host int for prefill (the prompt fills rows
     ``[cache_pos, cache_pos + L)``; a nonzero offset needs the paged
-    cache) or a ``(B,)`` tensor of per-slot positions for one-token
-    decode.  ``cache`` is this layer's monolithic or paged cache (the
-    paged one detected by its ``ptab``); it is written in place and
-    returned.
+    cache) or a ``(B,)`` tensor of per-slot positions for decode: the
+    ``L`` tokens of each slot (one, or a verify block) fill rows
+    ``[pos, pos + L)``, causal within the block.  ``cache`` is this
+    layer's monolithic or paged cache (the paged one detected by its
+    ``ptab``); it is written in place and returned.
     """
     window = cfg.window_size if is_local else None
     q, k, v = _project_qkv(params, cfg, x, sparsity)
@@ -183,19 +190,21 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     prefill = isinstance(cache_pos, int)
     if prefill and cache_pos and "ptab" not in cache:
         raise NotImplementedError(
-            "prefill at a nonzero offset needs the paged cache (prefix "
-            "sharing shares pages); the monolithic verify block is ROADMAP "
-            "queue 1 item 9")
-    if not prefill and Lq != 1:
-        raise NotImplementedError(
-            "multi-token decode blocks are not ported yet (ROADMAP queue 1 "
-            "item 9)")
+            "prefill at a nonzero host offset needs the paged cache (prefix "
+            "sharing shares pages); decode at per-slot offsets takes a "
+            "(B,) tensor")
+
+    def rows_from(start: torch.Tensor) -> torch.Tensor:
+        """(B, Lq) cache rows of each slot's block from ``start (B,)``."""
+        start = start.long()[:, None]
+        return start if Lq == 1 else \
+            start + torch.arange(Lq, device=x.device)
 
     if "ptab" in cache:
         kp, vp, pt = cache["kp"], cache["vp"], cache["ptab"]
         ps, n_view = kp.shape[1], pt.shape[1]
         posn = (cache_pos + torch.arange(Lq, device=x.device)[None]
-                .expand(B, Lq) if prefill else cache_pos[:, None].long())
+                .expand(B, Lq) if prefill else rows_from(cache_pos))
         pages = pt.gather(1, (posn // ps).clamp(0, n_view - 1)).long()
         offs = posn % ps
         kp[pages, offs] = k.to(kp.dtype)
@@ -209,9 +218,12 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 raise NotImplementedError(
                     "paged decode with softcap or a sliding window is not "
                     "ported yet (ROADMAP queue 2 item 2)")
-            lens = (cache_pos + 1).clamp(max=n_view * ps).to(torch.int32)
-            out = dispatch.paged_attention(
-                q[:, 0].contiguous(), PagedKV(kp, vp, pt, lens))[:, None]
+            kv = PagedKV(kp, vp, pt, (cache_pos + Lq).to(torch.int32))
+            if Lq == 1:
+                out = dispatch.paged_attention(q[:, 0].contiguous(),
+                                               kv)[:, None]
+            else:
+                out = dispatch.paged_attention(q.contiguous(), kv)
     else:
         ck, cv = cache["k"], cache["v"]
         if prefill:
@@ -219,10 +231,14 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
             cv[:, :Lq] = v.to(cv.dtype)
             out = _flash_prefill(cfg, q, k, v, ck.dtype, window)
         else:
-            rows = torch.arange(B, device=x.device)
-            ck[rows, cache_pos.long()] = k[:, 0].to(ck.dtype)
-            cv[rows, cache_pos.long()] = v[:, 0].to(cv.dtype)
-            out = _sdpa_cache(cfg, q, ck, cv, cache_pos + 1, window)
+            # each slot's Lq rows at its own position, the start clamped
+            # so the block fits (a frozen slot near max_len), as the JAX
+            # vmap(dynamic_update_slice) clamps it
+            rows = rows_from(cache_pos.clamp(max=ck.shape[1] - Lq))
+            slots = torch.arange(B, device=x.device)[:, None]
+            ck[slots, rows] = k.to(ck.dtype)
+            cv[slots, rows] = v.to(cv.dtype)
+            out = _sdpa_cache(cfg, q, ck, cv, cache_pos + Lq, window)
 
     out = apply_linear(out.reshape(B, Lq, cfg.q_dim), params["wo"], sparsity)
     return out, cache

@@ -80,15 +80,18 @@ def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def lm_decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    cache: Params, start: int) -> Tuple[torch.Tensor, Params]:
-    """``tokens (B, T)`` written at rows ``[start, start + T)`` of every
-    slot, causal within the block over the rows already cached; fp32
-    logits for every block position ``(B, T, vocab_padded)``.  ``start``
-    is a host int (one offset for every slot, paged cache)."""
+                    cache: Params, pos) -> Tuple[torch.Tensor, Params]:
+    """``tokens (B, T)`` written at rows ``[pos, pos + T)`` of every slot,
+    causal within the block over the rows already cached; fp32 logits for
+    every block position ``(B, T, vocab_padded)``.  ``pos`` is a ``(B,)``
+    tensor of per-slot offsets (the speculative verify block, either
+    cache layout) or a host int, one offset for every slot (the prefix
+    suffix prefill, paged cache)."""
     B, T = tokens.shape
-    positions = (start + torch.arange(T, device=tokens.device))[None] \
-        .expand(B, T)
-    x = _forward(params, cfg, tokens, positions, cache, start)
+    block = torch.arange(T, device=tokens.device)
+    positions = (pos + block)[None].expand(B, T) if isinstance(pos, int) \
+        else pos[:, None] + block
+    x = _forward(params, cfg, tokens, positions, cache, pos)
     return L.unembed(params["embed"], x, cfg.final_softcap), cache
 
 

@@ -1,5 +1,6 @@
 """Serving package of the port: the streaming :class:`Engine` over the
-monolithic or paged KV cache, with prefix sharing on the paged one."""
+monolithic or paged KV cache, with prefix sharing on the paged one and
+speculative decoding on both."""
 
 from repro_torch.serving.api import Engine, RequestHandle
 from repro_torch.serving.backends import MonoBackend, PagedBackend
@@ -9,7 +10,9 @@ from repro_torch.serving.loops import (DecodeChunk, build_decode_chunk,
                                        build_prefill_slot_step,
                                        build_prefill_wave_step,
                                        build_prefix_fill_step,
-                                       build_prefix_prefill_slot_step)
+                                       build_prefix_prefill_slot_step,
+                                       build_spec_decode_chunk,
+                                       build_spec_decode_loop)
 from repro_torch.serving.prefix import PrefixHandle, PrefixIndex
 from repro_torch.serving.state import (TERMINAL_STATUSES, ChunkBuffers,
                                        EngineStats, Request, RequestStatus,
@@ -24,4 +27,5 @@ __all__ = [
     "sample_token_slots", "build_decode_chunk", "build_decode_loop",
     "build_prefill_slot_step", "build_prefill_wave_step",
     "build_prefix_prefill_slot_step", "build_prefix_fill_step",
+    "build_spec_decode_chunk", "build_spec_decode_loop",
 ]

@@ -16,12 +16,17 @@
     ``submit(..., prefix=handle)`` prepends it.  Sharing itself is
     automatic (by content, at admission) whenever
     ``ServeConfig.prefix_cache`` is on.
+  * speculative decoding with ``ServeConfig.spec_k > 0``: each decode
+    step drafts ``spec_k`` tokens per slot with the draft params (the
+    model itself, ``spec_draft="self"``, or its sparse packs,
+    ``"pack"``) and verifies them in one block forward of the verify
+    params; greedy output equals the plain loop's for any draft.
 
 Sync contract (as in the JAX engine): ``step()`` performs exactly one
-device→host transfer when any slot is live and zero otherwise;
-``sync_count`` counts them.  Priorities, deadlines, preemption, fault
-containment, the journal, speculation and sharding are ROADMAP queue 1
-items 9, 12 and 13.
+device→host transfer when any slot is live and zero otherwise — the
+speculative drafted/accepted counts ride in it; ``sync_count`` counts
+them.  Priorities, deadlines, preemption, fault containment, the
+journal and sharding are ROADMAP queue 1 items 12 and 13.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import models as MZ
+from repro_torch.core.sparse_linear import make_draft_params
 from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import make_backend
@@ -45,7 +51,6 @@ from repro_torch.serving.state import (TERMINAL_STATUSES, ChunkBuffers,
 __all__ = ["Engine", "RequestHandle"]
 
 _NOT_PORTED = {
-    "spec_k": "ROADMAP queue 1 item 9",
     "max_queue": "ROADMAP queue 1 item 12",
     "journal_path": "ROADMAP queue 1 item 12",
 }
@@ -60,10 +65,16 @@ class Engine:
     per-slot prefill; in-flight slots never stall.  ``params`` must lie
     on ``device``; the engine keeps its cache and decode buffers at fixed
     addresses for its whole life (its chunk graphs hold them).
+
+    Under speculation (``scfg.spec_k > 0``) ``params`` verify and
+    ``draft_params`` draft; without them the draft is ``params`` itself
+    (``spec_draft="self"``) or ``core.sparse_linear.make_draft_params``
+    of them (``"pack"``: the config's sparse packs of the same weights,
+    sharing every unpacked tensor).
     """
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Any, *,
-                 device="cuda"):
+                 draft_params: Any = None, device="cuda"):
         scfg.validate()
         defaults = ServeConfig()
         for field, item in _NOT_PORTED.items():
@@ -86,11 +97,27 @@ class Engine:
         self._stats: Dict[str, Any] = fresh_stats()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(scfg.seed)
+        if scfg.spec and draft_params is None:
+            draft_params = (make_draft_params(params, cfg)
+                            if scfg.spec_draft == "pack" else params)
+        self.draft_params = draft_params
         self.prefill_plan = dispatch.plan_params(params, scfg.prompt_pad,
                                                  self.device)
         self.decode_plan = dispatch.plan_params(params, scfg.slots,
                                                 self.device)
-        self._backend = make_backend(cfg, scfg, self._stats, self.device)
+        self.draft_plan: List[dict] = []
+        self.verify_plan: List[dict] = []
+        if scfg.spec:
+            # a speculative chunk runs both phases: the draft at the
+            # decode geometry, the verify at slots * (spec_k + 1) rows
+            self.draft_plan = dispatch.plan_params(draft_params, scfg.slots,
+                                                   self.device)
+            self.verify_plan = dispatch.plan_params(
+                params, scfg.slots * (scfg.spec_k + 1), self.device)
+            self.decode_plan = self.decode_plan + self.draft_plan \
+                + self.verify_plan
+        self._backend = make_backend(cfg, scfg, self._stats, self.device,
+                                     draft_params)
         self._slot_req: List[Optional[Request]] = [None] * scfg.slots
         self._temps = np.full((scfg.slots,), scfg.temperature, np.float32)
         self._cache = None
@@ -107,9 +134,16 @@ class Engine:
         return len(self.queue)
 
     def reset_stats(self) -> None:
+        """Zero the serving counters, the speculative drafted/accepted
+        tallies and the prefix-sharing tallies included."""
         self.sync_count = 0
         self._stats.clear()
         self._stats.update(fresh_stats())
+
+    def acceptance_rate(self) -> float:
+        """Accepted over drafted tokens since the last reset (0 without
+        speculation); also ``stats().acceptance_rate``."""
+        return self._stats["accepted"] / max(self._stats["drafted"], 1)
 
     def _cache_nbytes(self) -> int:
         if self._cache is None:
@@ -122,11 +156,13 @@ class Engine:
                            chunk_tokens=list(d["chunk_tokens"]),
                            prefills=d["prefills"], peak_pages=d["peak_pages"],
                            admission_waits=d["admission_waits"],
+                           drafted=d["drafted"], accepted=d["accepted"],
                            prefix_hits=d["prefix_hits"],
                            shared_pages=d["shared_pages"],
                            cow_copies=d["cow_copies"],
                            sync_count=self.sync_count,
                            cache_bytes=self._cache_nbytes(),
+                           acceptance_rate=self.acceptance_rate(),
                            chunk_runs=list(d["chunk_runs"]),
                            graph_captures=list(d["graph_captures"]))
 
@@ -200,7 +236,10 @@ class Engine:
         left-truncated to their last ``prompt_rows`` tokens; shorter ones
         are left-padded with token 0 (the pads are attended, as in the
         JAX engine).  ``prefix`` prepends a :meth:`register_prefix`
-        handle's tokens to ``prompt``."""
+        handle's tokens to ``prompt``.  Under speculation every request
+        samples at ``ServeConfig.temperature`` (residual acceptance
+        needs the draft and verify distributions at one temperature), so
+        another ``temperature`` raises."""
         scfg = self.scfg
         if prefix is not None:
             if prefix._engine is not self:
@@ -215,6 +254,12 @@ class Engine:
             max_new = scfg.max_new_tokens
         if max_new <= 0:
             raise ValueError(f"max_new must be positive, got {max_new}")
+        if temperature is not None and scfg.spec \
+                and float(temperature) != scfg.temperature:
+            raise ValueError(
+                "per-request temperature is not supported with speculative "
+                "decoding (residual acceptance needs draft and verify at one "
+                "temperature): set ServeConfig.temperature instead")
         if scfg.paged and scfg.request_pages(len(arr), max_new) \
                 > scfg.pool_pages:
             raise ValueError(
@@ -255,7 +300,7 @@ class Engine:
             self._cache = MZ.init_cache(
                 self.cfg, scfg.slots, scfg.max_len, page_size=scfg.page_size,
                 num_pages=scfg.pool_pages, device=self.device)
-            self._bufs = ChunkBuffers(scfg.slots, scfg.decode_chunk,
+            self._bufs = ChunkBuffers(scfg.slots, scfg.chunk_tokens,
                                       scfg.max_pages if scfg.paged else 0,
                                       self.device)
 
@@ -353,7 +398,7 @@ class Engine:
         TTFTs, record the chunk stats and retire finished slots."""
         now = time.perf_counter()
         emitted = []
-        for t in range(blk.shape[0]):
+        for t in range(blk.shape[0]):       # chunk_tokens rows under spec
             for i, r in enumerate(self._slot_req):
                 if emit[t, i] and r is not None:
                     r.out.append(int(blk[t, i]))
@@ -383,16 +428,16 @@ class Engine:
         generator = self._generator(self._temps[live])
         chunk = self._backend.begin_chunk(live, sampled=generator is not None)
         t0 = time.perf_counter()
-        b = self._bufs
-        chunk(self.params, self._cache, b, self._temps, generator)
-        # the one device→host transfer of the chunk
-        packed = torch.cat([b.tokens, b.emitted.to(torch.int32),
-                            b.state["done"].to(torch.int32)[None]])
-        host = packed.cpu().numpy()
+        chunk(self.params, self._cache, self._bufs, self._temps, generator)
+        tokens, emitted, done, tally = self._bufs.fetch()   # the one sync
         self.sync_count += 1
-        n = self.scfg.decode_chunk
-        return self._collect(host[:n], host[n:2 * n] != 0, host[2 * n] != 0,
-                             time.perf_counter() - t0)
+        self._stats["drafted"] += int(tally[0])
+        self._stats["accepted"] += int(tally[1])
+        events = self._collect(tokens, emitted, done,
+                               time.perf_counter() - t0)
+        self._backend.end_chunk(
+            [i for i in live if self._slot_req[i] is not None])
+        return events
 
     # --- convenience wrappers -------------------------------------------
 

@@ -19,7 +19,9 @@ device→host sync.  Each backend hands the scheduler the serving
 programs of ``serving.loops`` for its layout, and owns the decode chunk
 programs: one :class:`~repro_torch.serving.loops.DecodeChunk` per key
 ``(view_pages, sampled)``, whose CUDA graphs share one memory pool and
-one capture stream.  ``tokens`` in the
+one capture stream; the speculative chunk body is chosen by
+``scfg.spec`` in the shared base, so one spec builder serves both
+layouts.  ``tokens`` in the
 admission calls is the request's *padded* prompt (sharing keys on the
 padded layout); layouts without an index ignore it.
 """
@@ -42,8 +44,10 @@ class _BackendBase:
     paged = False
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig,
-                 stats: Dict[str, Any], device: torch.device):
+                 stats: Dict[str, Any], device: torch.device,
+                 draft_params: Any = None):
         self.cfg, self.scfg, self.stats, self.device = cfg, scfg, stats, device
+        self.draft_params = draft_params
         self._prefill_steps: Dict[Tuple[int, int, bool], Callable] = {}
         self._chunks: Dict[Tuple[Optional[int], bool],
                            loops.DecodeChunk] = {}
@@ -83,10 +87,15 @@ class _BackendBase:
         key = (view, sampled)
         run = self._chunks.get(key)
         if run is None:
+            if self.scfg.spec:
+                body = loops.build_spec_decode_chunk(
+                    self.cfg, self.scfg, self.draft_params,
+                    paged=self.paged, view_pages=view)
+            else:
+                body = loops.build_decode_chunk(
+                    self.cfg, self.scfg, paged=self.paged, view_pages=view)
             run = self._chunks[key] = loops.DecodeChunk(
-                loops.build_decode_chunk(self.cfg, self.scfg,
-                                         paged=self.paged, view_pages=view),
-                key, self.stats, self._pool, self._stream)
+                body, key, self.stats, self._pool, self._stream)
         return functools.partial(run, ptab=ptab, graphs=self._graphs)
 
 
@@ -119,6 +128,9 @@ class MonoBackend(_BackendBase):
         return self._chunk(None, sampled)
 
     def note_commit(self, slot: int) -> None:
+        pass
+
+    def end_chunk(self, live_slots: List[int]) -> None:
         pass
 
     def retire(self, slot: int) -> None:
@@ -362,7 +374,11 @@ class PagedBackend(_BackendBase):
         self._note_peak()
 
     def _ensure(self, i: int) -> None:
-        """Cover the next decode chunk, capped at the slot's reservation."""
+        """Cover the next decode chunk, capped at the slot's reservation.
+        ``chunk_tokens`` is the chunk's commit bound: under speculation
+        the drafted and verified rows past any commit need no page of
+        their own (their writes land in the null page and what they read
+        there only costs acceptance, never a committed token)."""
         scfg = self.scfg
         self._alloc(i, min(
             -(-min(self.slot_rows[i] + scfg.chunk_tokens, scfg.max_len)
@@ -378,17 +394,41 @@ class PagedBackend(_BackendBase):
         pages = -(-live_rows // scfg.page_size)
         return min(-(-pages // vc) * vc, scfg.max_pages)
 
+    def _trim(self, i: int) -> None:
+        """Return the pages slot ``i`` holds past its committed rows: a
+        speculative chunk's cover runs ahead of the commits when drafts
+        are rejected, and waiting requests can admit on those pages (the
+        next chunk's ``_ensure`` covers the slot again)."""
+        target = max(-(-self.slot_rows[i] // self.scfg.page_size), 1)
+        base = len(self.slot_shared[i])
+        while base + len(self.slot_pages[i]) > target and self.slot_pages[i]:
+            page = self.slot_pages[i].pop()
+            self.ptab[i, base + len(self.slot_pages[i])] = 0
+            self.free_pages.append(page)
+
     def begin_chunk(self, live_slots: List[int], sampled: bool) -> Callable:
+        # the view covers every row the chunk can write: its commits
+        # (chunk_tokens) and, under speculation, the verify block's
+        # uncommitted tail (spec_k rows), or a live slot's block write
+        # would be clipped into a page it still reads
         scfg = self.scfg
+        span = scfg.chunk_tokens + scfg.spec_k
         live_rows = 0
         for i in live_slots:
             self._ensure(i)
-            live_rows = max(live_rows, min(self.slot_rows[i]
-                                           + scfg.chunk_tokens, scfg.max_len))
+            live_rows = max(live_rows, min(self.slot_rows[i] + span,
+                                           scfg.max_len))
         return self._chunk(self._view_pages(live_rows), sampled, self.ptab)
 
     def note_commit(self, slot: int) -> None:
         self.slot_rows[slot] += 1   # pos advances once per emitted token
+
+    def end_chunk(self, live_slots: List[int]) -> None:
+        """At a speculative chunk's boundary, the pages its cover took
+        that the commits never reached go back to the pool."""
+        if self.scfg.spec:
+            for i in live_slots:
+                self._trim(i)
 
     def retire(self, slot: int) -> None:
         """Return the slot's private pages to the pool, decref its shared
@@ -410,6 +450,7 @@ class PagedBackend(_BackendBase):
 
 
 def make_backend(cfg: ModelConfig, scfg: ServeConfig, stats: Dict[str, Any],
-                 device: torch.device) -> _BackendBase:
+                 device: torch.device, draft_params: Any = None
+                 ) -> _BackendBase:
     kind = PagedBackend if scfg.paged else MonoBackend
-    return kind(cfg, scfg, stats, device)
+    return kind(cfg, scfg, stats, device, draft_params)

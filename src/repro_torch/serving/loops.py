@@ -23,6 +23,12 @@
   * :func:`build_decode_chunk` — the same steps as a body over the fixed
     :class:`~repro_torch.serving.state.ChunkBuffers`, writing its tokens,
     emits and final state in place: what the engine serves.
+  * :func:`build_spec_decode_loop` / :func:`build_spec_decode_chunk` —
+    the speculative twins (``ServeConfig.spec_k > 0``): each step drafts
+    ``spec_k`` tokens per slot with the draft params, verifies the
+    ``(slots, spec_k + 1)`` block in one forward of the verify params and
+    commits the accepted prefix plus one verify token; the token blocks
+    grow to ``decode_chunk * (spec_k + 1)`` rows.
   * :class:`DecodeChunk` — runs one key's body: eagerly on the CPU, and
     on the card as the replay of one captured ``torch.cuda.CUDAGraph``
     (the counterpart of the JAX package's one compiled program per
@@ -251,10 +257,207 @@ def build_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
     return body
 
 
-#: The kernel wrappers whose ``launches`` counters a replay advances by
-#: what its capture recorded (a replay makes no Python call).
-COUNTED = (bsr_matmul, csa_matmul, flash_attention, lookahead_decode,
-           nm_spmm, paged_attention)
+def _sample_at(logits: torch.Tensor, temperature: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``(B, V) → (B,)`` int32 at one temperature for every slot: the
+    argmax at ``temperature <= 0``, else :func:`sample_token_slots`'s
+    draw from ``generator``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    temps = torch.full(logits.shape[:1], temperature, device=logits.device)
+    return sample_token_slots(logits, temps, generator)
+
+
+def accept_drafts(vlg: torch.Tensor, drafts: torch.Tensor, dlogits,
+                  temperature: float, generator: Optional[torch.Generator]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The acceptance rule of a verify block: ``vlg (B, K + 1, V)`` the
+    verify logits of the carry token and the ``K`` drafts, ``drafts (B,
+    K)`` the drafted tokens, ``dlogits`` the ``K`` draft logits ``(B,
+    V)`` they were drawn from.  Returns ``acc (B, K)`` (1 while every
+    draft so far is accepted), the accepted count ``j (B,)`` and the
+    next carry token ``(B,)``.
+
+    At temperature 0 a draft is accepted while it equals the verify
+    argmax, and the carry is the verify argmax at position ``j`` (the
+    correction, or the bonus token after full acceptance).  Above it,
+    residual (rejection) sampling, the lossless rule: accept ``d_i`` with
+    probability ``min(1, p_verify / p_draft)``; at the first rejection
+    draw the carry from ``max(p_verify - p_draft, 0)``, renormalised, and
+    after full acceptance from ``p_verify`` at the bonus position — so
+    each committed token is distributed as the verify model's."""
+    K, V = drafts.shape[1], vlg.shape[-1]
+    if temperature <= 0.0:
+        g = torch.argmax(vlg, dim=-1).to(torch.int32)        # (B, K + 1)
+        acc = torch.cumprod((drafts == g[:, :K]).to(torch.int32), dim=1)
+        j = acc.sum(1)
+        return acc, j, g.gather(1, j[:, None].long())[:, 0]
+    pv = torch.softmax(vlg.float() / temperature, dim=-1)    # (B, K+1, V)
+    pd = torch.softmax(torch.stack(dlogits, 1).float() / temperature,
+                       dim=-1)                               # (B, K, V)
+    idx = drafts.long()[..., None]
+    pv_t = pv[:, :K].gather(-1, idx)[..., 0]                 # (B, K)
+    pd_t = pd.gather(-1, idx)[..., 0]
+    u = torch.rand(pd_t.shape, generator=generator, device=pd_t.device)
+    acc = torch.cumprod((u * pd_t <= pv_t).to(torch.int32), dim=1)
+    j = acc.sum(1)
+    at = j.long()[:, None, None].expand(-1, 1, V)
+    pv_j = pv.gather(1, at)[:, 0]                            # (B, V)
+    pd_j = torch.cat([pd, torch.zeros_like(pd[:, :1])], 1).gather(1, at)[:, 0]
+    res = (pv_j - pd_j).clamp_min(0.0)
+    total = res.sum(-1, keepdim=True)
+    res = torch.where(total > 0, res / total, pv_j)
+    carry = _sample_at(torch.where(res > 0, torch.log(res), -1e30), 1.0,
+                       generator)
+    return acc, j, carry
+
+
+def _spec_step(params, dparams, cfg: ModelConfig, scfg: ServeConfig, vcache,
+               tok, pos, done, left, generator: Optional[torch.Generator]):
+    """One draft + verify + commit step of the speculative loop (the
+    JAX ``spec_step``); ``vcache`` is the (view-narrowed) cache both
+    models run against.
+
+      1. emit the carry token; a slot freezes once the drafted block
+         would no longer fit below ``max_len`` (``pos + 1 + K``);
+      2. draft ``K`` tokens per slot with ``dparams``, one decode step
+         each at the slot's own position (``M = slots``);
+      3. verify the ``(slots, K + 1)`` block of the carry token and the
+         drafts in ONE ``decode_block`` of ``params`` (``M = slots * (K +
+         1)``), which re-writes the block's KV rows with verify values;
+      4. accept the longest draft prefix the verify agrees with
+         (:func:`accept_drafts`) and commit it under the budget and EOS
+         as the plain loop would; the next carry is the verify's token
+         at the first rejection (or the bonus token).
+
+    Rejected rows need no undo: ``pos`` advances by the committed count
+    only, so they are dead by masking.  Returns the next ``(tok, pos,
+    done, left)``, the step's ``(B, K + 1)`` tokens and emit mask
+    (column 0 the carry token, then the drafts) and the step's drafted
+    and accepted counts (0-d tensors)."""
+    K, V, T = scfg.spec_k, cfg.vocab_size, scfg.temperature
+    emit0 = ~done & (left > 0)
+    left = left - emit0.to(left.dtype)
+    done = done | (emit0 & ((tok == scfg.eos_token) | (left == 0)
+                            | (pos + 1 + K >= scfg.max_len)))
+    alive = ~done
+    drafts, dlogits = [], []
+    dtok = tok
+    for i in range(K):
+        lg, _ = MZ.decode_step(dparams, cfg, dtok, vcache, pos + i)
+        lg = lg[:, :V]
+        dtok = _sample_at(lg, T, generator)
+        drafts.append(dtok)
+        dlogits.append(lg)
+    dT = torch.stack(drafts, 1)                              # (B, K)
+    block = torch.cat([tok[:, None], dT], 1)                 # (B, K + 1)
+    vlg, _ = MZ.decode_block(params, cfg, block, vcache, pos)
+    vlg = vlg[:, :, :V]
+    acc, j, carry = accept_drafts(vlg, dT, dlogits, T, generator)
+    # commit the accepted drafts: the budget and EOS cut them short
+    # exactly where the plain loop would stop
+    accb = acc.bool()
+    eos_hit = accb & (dT == scfg.eos_token)
+    eos_before = (torch.cumsum(eos_hit.to(torch.int32), 1)
+                  - eos_hit.to(torch.int32)) > 0
+    in_budget = torch.arange(K, device=tok.device)[None] < left[:, None]
+    emit_d = alive[:, None] & accb & in_budget & ~eos_before
+    n_emit = emit_d.sum(1).to(left.dtype)
+    left = left - n_emit
+    done = done | (alive & ((emit_d & eos_hit).any(1) | (left == 0)))
+    pos = torch.where(alive, pos + 1 + n_emit, pos)
+    nxt = torch.where(~done, carry, tok)
+    drafted = torch.where(alive, K, 0).sum()
+    accepted = torch.where(alive, j, 0).sum()
+    return (nxt, pos, done, left, block,
+            torch.cat([emit0[:, None], emit_d], 1), drafted, accepted)
+
+
+def build_spec_decode_loop(cfg: ModelConfig, scfg: ServeConfig,
+                           paged: bool = False,
+                           view_pages: Optional[int] = None) -> Callable:
+    """(params, draft_params, cache, state, generator[, ptab]) → (cache,
+    state, tokens, emitted, drafted, accepted).
+
+    The speculative twin of :func:`build_decode_loop`: ``decode_chunk``
+    steps of :func:`_spec_step`.  ``tokens``/``emitted`` are
+    ``(decode_chunk * (spec_k + 1), slots)``: each step's ``spec_k + 1``
+    rows (the carry token, then the drafts) in order, the same block
+    layout the plain loop hands the host, taller; ``drafted`` and
+    ``accepted`` are the chunk's totals.  A slot freezes when fewer than
+    ``spec_k + 1`` cache rows remain, so parity with the plain loop
+    needs ``max_len >= prompt_rows + max_new + spec_k``.  Sampling runs
+    at the uniform ``scfg.temperature`` (residual acceptance needs the
+    draft and verify distributions at one temperature); ``generator`` is
+    ``None`` at temperature 0.  This functional form is the reference
+    the tests hold :func:`build_spec_decode_chunk` against."""
+
+    def loop(params, dparams, cache, state: State,
+             generator: Optional[torch.Generator], ptab: Any = None):
+        if paged:
+            cache = MZ.set_page_table(cache, ptab)
+        vcache = MZ.page_view(cache, view_pages) if paged else cache
+        tok, pos = state["tok"], state["pos"]
+        done, left = state["done"], state["left"]
+        toks, emits, drafted, accepted = [], [], 0, 0
+        for _ in range(scfg.decode_chunk):
+            tok, pos, done, left, blk, emit, dr, ac = _spec_step(
+                params, dparams, cfg, scfg, vcache, tok, pos, done, left,
+                generator)
+            toks.append(blk.T)
+            emits.append(emit.T)
+            drafted, accepted = drafted + dr, accepted + ac
+        state = {"tok": tok, "pos": pos, "done": done, "left": left}
+        return (cache, state, torch.cat(toks), torch.cat(emits), drafted,
+                accepted)
+
+    return loop
+
+
+def build_spec_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
+                            draft_params: Any, paged: bool = False,
+                            view_pages: Optional[int] = None) -> Callable:
+    """(params, cache, bufs: ChunkBuffers, generator) → None.
+
+    :func:`build_spec_decode_loop`'s steps over fixed buffers, as
+    :func:`build_decode_chunk` is the plain loop's: step ``t`` writes rows
+    ``[t (K + 1), (t + 1) (K + 1))`` of ``bufs.tokens`` / ``bufs.emitted``,
+    the chunk's drafted and accepted totals land in ``bufs.tally`` and
+    the final state in ``bufs.state``.  ``draft_params`` are bound here:
+    the engine's draft weights, at fixed addresses like its verify
+    weights."""
+    W = scfg.spec_k + 1
+
+    def body(params, cache, bufs: ChunkBuffers,
+             generator: Optional[torch.Generator]) -> None:
+        if paged:
+            MZ.set_page_table(cache, bufs.ptab)
+        vcache = MZ.page_view(cache, view_pages) if paged else cache
+        st = bufs.state
+        tok, pos, done, left = st["tok"], st["pos"], st["done"], st["left"]
+        drafted = accepted = 0
+        for t in range(scfg.decode_chunk):
+            tok, pos, done, left, blk, emit, dr, ac = _spec_step(
+                params, draft_params, cfg, scfg, vcache, tok, pos, done,
+                left, generator)
+            bufs.tokens[t * W:(t + 1) * W].copy_(blk.T)
+            bufs.emitted[t * W:(t + 1) * W].copy_(emit.T)
+            drafted, accepted = drafted + dr, accepted + ac
+        bufs.tally.copy_(torch.stack([drafted, accepted]))
+        for name, t in (("tok", tok), ("pos", pos), ("done", done),
+                        ("left", left)):
+            st[name].copy_(t)
+
+    return body
+
+
+#: The kernel wrappers' launch counters, ``(module, attribute)``, that a
+#: replay advances by what its capture recorded (a replay makes no Python
+#: call): every wrapper's ``launches``, and ``paged_attention``'s count of
+#: verify-block (Q > 1) launches.
+COUNTED = tuple((mod, "launches") for mod in (
+    bsr_matmul, csa_matmul, flash_attention, lookahead_decode, nm_spmm,
+    paged_attention)) + ((paged_attention, "block_launches"),)
 
 
 def _cache_ptrs(cache) -> Tuple[int, ...]:
@@ -325,7 +528,7 @@ class DecodeChunk:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             graph.register_generator_state(generator)
-        before = [mod.launches for mod in COUNTED]
+        before = [getattr(mod, attr) for mod, attr in COUNTED]
         t0 = time.perf_counter()
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool)
@@ -337,10 +540,10 @@ class DecodeChunk:
         graph.instantiate()
         t2 = time.perf_counter()
         # the capture's wrapper calls launched nothing: count per replay
-        for mod, n in zip(COUNTED, before):
-            if mod.launches != n:
-                self._launches[mod] = mod.launches - n
-            mod.launches = n
+        for (mod, attr), n in zip(COUNTED, before):
+            if getattr(mod, attr) != n:
+                self._launches[mod, attr] = getattr(mod, attr) - n
+            setattr(mod, attr, n)
         self.graph, self._bound = graph, _cache_ptrs(cache)
         self.stats["graph_captures"].append(
             {"key": list(self.key), "capture_s": t1 - t0,
@@ -352,5 +555,5 @@ class DecodeChunk:
                 f"decode chunk {self.key}: the cache's storage moved since "
                 "its graph was captured")
         self.graph.replay()
-        for mod, n in self._launches.items():
-            mod.launches += n
+        for (mod, attr), n in self._launches.items():
+            setattr(mod, attr, getattr(mod, attr) + n)

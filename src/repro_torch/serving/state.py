@@ -68,6 +68,7 @@ class TokenEvent:
 def fresh_stats() -> Dict[str, Any]:
     return {"chunk_s": [], "chunk_tokens": [], "prefills": 0,
             "peak_pages": 0, "admission_waits": 0,
+            "drafted": 0, "accepted": 0,
             "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0,
             "chunk_runs": [], "graph_captures": []}
 
@@ -80,11 +81,14 @@ class EngineStats:
     prefills: int                   # prompt prefills dispatched
     peak_pages: int                 # paged: pool high-water mark
     admission_waits: int            # paged: admissions deferred for pages
+    drafted: int                    # spec: tokens drafted
+    accepted: int                   # spec: drafted tokens accepted
     prefix_hits: int                # admissions that mapped shared pages
     shared_pages: int               # pages mapped read-only at admission
     cow_copies: int                 # copy-on-write page copies
     sync_count: int                 # device→host transfers
     cache_bytes: int                # allocated KV cache footprint
+    acceptance_rate: float          # accepted / drafted (0 if no spec)
     chunk_runs: List[Tuple[Any, str]]   # per chunk: (program key, "eager"
     #                                     | "capture" | "replay")
     graph_captures: List[Dict[str, Any]]  # per capture: key, capture_s,
@@ -103,22 +107,26 @@ class ChunkBuffers:
     """The fixed set of device tensors a decode chunk reads and writes.
 
     ``state`` (the decode state ``tok/pos/done/left``), ``temps (slots,)``,
-    the paged layout's ``ptab (slots, max_pages)`` and the output blocks
-    ``tokens``/``emitted (decode_chunk, slots)``.  An engine allocates them
-    once; the prefill steps, cancellations and chunks write into them in
-    place, never rebinding a tensor.  :meth:`stage` copies the host's
-    temperatures and page table in before a chunk — on the card through
-    pinned host buffers, outside any captured region."""
+    the paged layout's ``ptab (slots, max_pages)``, the output blocks
+    ``tokens``/``emitted (rows, slots)`` — ``rows`` is
+    ``ServeConfig.chunk_tokens``, ``decode_chunk * (spec_k + 1)`` — and
+    ``tally (2,)``, the chunk's drafted and accepted tokens (zero without
+    speculation).  An engine allocates them once; the prefill steps,
+    cancellations and chunks write into them in place, never rebinding a
+    tensor.  :meth:`stage` copies the host's temperatures and page table
+    in before a chunk — on the card through pinned host buffers, outside
+    any captured region; :meth:`fetch` is the chunk's one transfer
+    back."""
 
-    def __init__(self, slots: int, decode_chunk: int, max_pages: int,
-                 device):
+    def __init__(self, slots: int, rows: int, max_pages: int, device):
         dev = torch.device(device)
         self.state = init_decode_state(slots, dev)
         self.temps = torch.zeros(slots, dtype=torch.float32, device=dev)
-        self.tokens = torch.zeros((decode_chunk, slots), dtype=torch.int32,
+        self.tokens = torch.zeros((rows, slots), dtype=torch.int32,
                                   device=dev)
-        self.emitted = torch.zeros((decode_chunk, slots), dtype=torch.bool,
+        self.emitted = torch.zeros((rows, slots), dtype=torch.bool,
                                    device=dev)
+        self.tally = torch.zeros(2, dtype=torch.int32, device=dev)
         self.ptab = (torch.zeros((slots, max_pages), dtype=torch.int32,
                                  device=dev) if max_pages else None)
         pin = dev.type == "cuda"
@@ -150,6 +158,20 @@ class ChunkBuffers:
             dst.copy_(host, non_blocking=True)
         self._staged = torch.cuda.Event()
         self._staged.record()
+
+    def fetch(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                             np.ndarray]:
+        """The chunk's one device→host transfer: ``(tokens, emitted, done,
+        tally)`` as host arrays."""
+        rows, slots = self.tokens.shape
+        packed = torch.cat([self.tokens.flatten(),
+                            self.emitted.flatten().to(torch.int32),
+                            self.state["done"].to(torch.int32), self.tally])
+        host = packed.cpu().numpy()
+        n = rows * slots
+        return (host[:n].reshape(rows, slots),
+                host[n:2 * n].reshape(rows, slots) != 0,
+                host[2 * n:2 * n + slots] != 0, host[2 * n + slots:])
 
 
 def sample_token_slots(logits: torch.Tensor, temps: torch.Tensor,

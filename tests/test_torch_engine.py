@@ -102,5 +102,5 @@ def test_engine_validates_requests(served):
     for bad in ([], [[1, 2]], [1.5, 2.0], list(range(70)), [tcfg.vocab_size]):
         with pytest.raises(ValueError):
             eng.submit(bad)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, TServeConfig(**SERVE, spec_k=2), tp, device="cpu")
+    with pytest.raises(NotImplementedError):    # not ported yet
+        TEngine(tcfg, TServeConfig(**SERVE, max_queue=2), tp, device="cpu")

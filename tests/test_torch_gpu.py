@@ -429,13 +429,38 @@ def test_paged_attention_fma_route(cuda):
     run_paged(*paged_inputs(91, 5, 1, q_dtype=torch.float32), "fma")
 
 
+@pytest.mark.parametrize("H,Hk", [(16, 8), (16, 2)])
+@pytest.mark.parametrize("Q", [2, 4, 16])
+def test_paged_attention_fma_verify_block(cuda, Q, H, Hk):
+    """fp32 q as a (B, Q, H, D) block on the fma route, one block per 8
+    query rows (Q * G = 4 to 128): query i sees lens - (Q - 1 - i) keys,
+    past the view's end too; rows that see none are zero."""
+    args = paged_inputs(95 + Q, 6, Q, H=H, Hk=Hk, q_dtype=torch.float32,
+                        lens=[0, 1, Q - 1, 16, 77, 140])
+    got = run_paged(*args, "fma")
+    assert (got[0] == 0).all() and (got[1, :Q - 1] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
+@pytest.mark.parametrize("Q", [9, 16])
+def test_paged_attention_row_tiles(cuda, Q):
+    """bf16 blocks of Q * G = 18 and 32 query rows (G = 2): two row tiles
+    of the m16 tile on the tensor cores, each with its own walk."""
+    args = paged_inputs(110 + Q, 6, Q, lens=[0, 1, Q - 1, 16, 77, 128])
+    p = paged_mod.plan(6, 16, 8, Q, 8, 128, (BF16, BF16), 16)
+    assert p["grid"] == (2 * 6 * 8 * p["split"],)
+    got = run_paged(*args, "mma")
+    assert (got[0] == 0).all() and (got[1, :Q - 1] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
 def test_attention_unsupported_shapes_raise(cuda):
     """A bf16 call no route takes raises rather than falling back."""
-    with pytest.raises(ValueError):          # Q * G = 32 > 16 rows
-        paged_mod.paged_attention(*paged_inputs(92, 2, 16, lens=[5, 9]))
-    with pytest.raises(ValueError):          # fp32 takes Q = 1 only
-        paged_mod.paged_attention(*paged_inputs(
-            93, 2, 2, lens=[5, 9], q_dtype=torch.float32))
+    q, kp, vp, ptab, lens = paged_inputs(92, 2, 4, lens=[5, 9])
+    with pytest.raises(TypeError):           # bf16 q over fp32 pools
+        paged_mod.paged_attention(q, kp.float(), vp.float(), ptab, lens)
+    with pytest.raises(ValueError):          # no paged kernel for D = 96
+        paged_mod.paged_attention(*paged_inputs(93, 2, 2, D=96, lens=[5, 9]))
     with pytest.raises(ValueError):          # no kernel for D = 96
         flash_mod.flash_attention(*flash_inputs(94, 8, 8, D=96))
 
@@ -625,6 +650,58 @@ def test_sampled_graph_chunks_advance_the_generator(cuda):
     assert eager.generate(GRAPH_PROMPTS) == first
     other = _graph_engine(cuda, temperature=0.9, seed=6)()
     assert other.generate(GRAPH_PROMPTS) != first
+
+
+@pytest.mark.parametrize("draft,temperature", [("self", 0.0),
+                                               ("pack", 0.0),
+                                               ("self", 0.9)])
+def test_spec_graph_serve_equals_eager(cuda, draft, temperature):
+    """Speculative serves (2-layer qwen3-0.6b nm, fp32, spec_k = 3) as
+    captured chunk graphs give the eager serve's tokens, ``sync_count``,
+    drafted and accepted counts and launches per kernel (verify blocks
+    included) exactly, cold and warm; the pack draft runs nm_spmm on
+    dense verify weights, a self draft accepts (nearly) everything."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.core.sparse_linear import pack_params
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(qwen3_0_6b.sparse(), n_layers=2,
+                              layer_kinds=(), dtype="float32")
+    params = models.init_model(cfg, seed=0, device=cuda)
+    if draft == "self":
+        params = pack_params(params, cfg)
+    scfg = ServeConfig(**dict(GRAPH_SERVE, spec_k=3, spec_draft=draft,
+                              temperature=temperature, seed=5))
+
+    def run(graphs):
+        eng = Engine(cfg, scfg, params, device=cuda)
+        eng._backend._graphs = graphs
+        out, hows = [], set()
+        for _ in range(2):
+            blocks = paged_mod.block_launches
+            tokens, syncs, launches, st = _serve(eng)
+            out.append((tokens, syncs, launches, st.drafted, st.accepted,
+                        paged_mod.block_launches - blocks))
+            hows |= {how for _, how in st.chunk_runs}
+        return out, hows
+
+    eager, _ = run(False)
+    graph, hows = run(True)
+    assert graph == eager
+    assert {"eager", "capture"} <= hows
+    tokens, syncs, launches, drafted, accepted, blocks = graph[0]
+    steps = syncs * scfg.decode_chunk
+    assert blocks == cfg.n_layers * steps                # one verify a step
+    assert launches["repro_torch.kernels.paged_attention"] == \
+        cfg.n_layers * steps * (scfg.spec_k + 1)
+    if draft == "pack":
+        assert launches["repro_torch.kernels.nm_spmm"] == \
+            7 * cfg.n_layers * steps * scfg.spec_k
+    else:
+        assert accepted / drafted > 0.9
+    assert all(len(t) == 24 for t in tokens)
 
 
 def _to_cpu(tree):

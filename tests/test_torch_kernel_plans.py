@@ -186,13 +186,20 @@ def test_flash_plan_refuses_what_the_kernels_cannot_take():
         tiling.flash_plan(1, H, HK, 128, 128, D, torch.float16)
 
 
+#: (warps, split) of the qwen3 decode step by Q: the same 16 parts, as
+#: 2 warps x 8 blocks for the verify block (17% faster there in
+#: tools/attention_sweep.py)
+QWEN3_PAGED = {1: (4, 4), 4: (2, 8)}
+
+
 @pytest.mark.parametrize("Q,rows", [(1, 2), (4, 8)])
 def test_paged_plan_qwen3_decode(Q, rows):
     """The decode step of chip_smoke.py: 8 slots, 8 kv heads, a 32-page
     view of 16-row pages; Q = 4 is the verify block."""
     p = tiling.paged_plan(8, H, HK, Q, 32, D, (BF16, BF16), 16)
-    assert p == dict(route="mma", warps=4, split=4, ring=2, rows=rows,
-                     grid=(256,))
+    warps, split = QWEN3_PAGED[Q]
+    assert p == dict(route="mma", warps=warps, split=split, ring=2,
+                     rows=rows, grid=(8 * HK * split,))
 
 
 @pytest.mark.parametrize("B", [1, 8, 32])
@@ -225,11 +232,25 @@ def test_paged_plan_fp32_and_other_head_dims_take_fma():
             "route"] == "fma"
 
 
+def test_paged_plan_takes_more_rows_than_one_tile():
+    """Q * G = 32 query rows per kv head (a Q = 16 block): two row tiles
+    of 16 on the tensor cores, each its own cluster of ``split`` blocks."""
+    p = tiling.paged_plan(8, H, HK, 16, 32, D, (BF16, BF16), 16)
+    assert p["route"] == "mma" and p["rows"] == 32
+    assert p["grid"] == (2 * 8 * HK * p["split"],)
+    assert 2 * 8 * HK * p["split"] * p["warps"] <= tiling.PAGED_MAX_WARPS
+
+
+@pytest.mark.parametrize("Q", [2, 4, 16])
+def test_paged_plan_fma_takes_a_verify_block(Q):
+    """fp32 q takes a (B, Q, H, D) block on the fma route: one block per
+    8 of the Q * G query rows of each (sequence, kv head)."""
+    p = tiling.paged_plan(8, H, HK, Q, 32, D, (FP32, BF16), 16)
+    assert p == dict(route="fma", warps=8, split=1, rows=Q * H // HK,
+                     grid=(8, HK, -(-Q * H // HK // 8)))
+
+
 def test_paged_plan_refuses_what_the_kernels_cannot_take():
-    with pytest.raises(ValueError):          # Q * G = 32 > 16 rows
-        tiling.paged_plan(8, H, HK, 16, 32, D, (BF16, BF16))
-    with pytest.raises(ValueError):          # the fma route takes Q = 1
-        tiling.paged_plan(8, H, HK, 2, 32, D, (FP32, BF16))
     with pytest.raises(ValueError):          # no kernel for D = 96
         tiling.paged_plan(8, H, HK, 1, 32, 96, (BF16, BF16))
     with pytest.raises(TypeError):           # bf16 q over fp32 pools

@@ -9,8 +9,9 @@
 and 512, for every (query rows per block, keys per tile) the kernel is
 built for.  ``paged``: a decode step at B = 8 slots over a 32-page view
 of 16-row pages, at ``chip_smoke.py``'s mixed lens (0..512), at the
-serve's own lens (129..192) and as a Q = 4 verify block, for every
-(warps per block, blocks per cluster).  Each shape is held against its
+serve's own lens (129..192) and as verify blocks of Q = 4 and Q = 16 (two
+row tiles of 16 query rows), for every (warps per block, blocks per
+cluster).  Each shape is held against its
 plain version first, then timed as device microseconds per call from
 CUDA-graph replay over enough distinct inputs (q/k/v, or page pools) to
 stream at least ``STREAM_BYTES`` from HBM rather than the 50 MB L2
@@ -117,7 +118,9 @@ def sweep_paged(dev, gen) -> None:
              "serve lens 129..192": (np.sort(rng.integers(
                  129, 193, size=SLOTS)).astype(np.int32), 1),
              "Q=4 block, lens 0..512": (np.asarray(
-                 [0, 1, 17, 64, 130, 256, 400, 512], np.int32), 4)}
+                 [0, 1, 17, 64, 130, 256, 400, 512], np.int32), 4),
+             "Q=16 block, lens 0..512": (np.asarray(
+                 [0, 1, 17, 64, 130, 256, 400, 512], np.int32), 16)}
     for what, (lens_np, Q) in cases.items():
         q, pools, ptab, lens = paged_inputs(dev, gen, lens_np, Q)
         n = len(pools)
