@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      The block
      and combined packs have exactly half of each weight's (128, 128)
      tiles zeroed, one empty strip and padding slots; the lookahead
-     kernel also reproduces integer weights bit-exactly;
+     kernel also reproduces integer weights bit-exactly.  Then the same
+     nm_spmm, flash and paged checks at phase 9's shapes: one layer of
+     stablelm-12b (32 query heads of 160 over 8 kv heads) and of
+     qwen2-vl-72b (64 of 128 over 8, so 8 query rows of a kv head);
   4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
      format on all seven projections: ``sparse()`` (2:4, g=128) and
@@ -108,7 +111,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      acceptance rate, peak memory; capture and instantiate seconds per
      key; the warm means against (a).  Then the model at 2 layers in
      fp32 with a ``pack`` draft in each format against the CPU path's
-     greedy tokens (phase 5's rule): the FMA route's verify block.
+     greedy tokens (phase 5's rule): the FMA route's verify block;
+  9. stablelm-12b (40 layers, d_model 5120, 32 heads of 160 over 8 kv
+     heads, d_ff 13824, vocab 100352, an untied head) and qwen2-vl-72b
+     (d_model 8192, 64 heads of 128 over 8, d_ff 29568, vocab 152064,
+     M-RoPE (16, 24, 24), cut to ``QWEN2_VL_LAYERS`` of its 80 layers:
+     80 dense bf16 layers do not fit the card before packing) at their
+     published widths, bf16, random weights from a seed, ``sparse()``'s
+     2:4 packs on all seven projections, through phase 4's serve and
+     stream: a cold graph serve, then phase 4's turns (warm graph,
+     eager, warm graph, eager).  Gates: budgets and syncs; tokens,
+     ``sync_count`` and launches of every turn equal; only nm_spmm and
+     the two attention kernels launch, the attention kernels on their
+     tensor-core routes, flash once per layer and prefill, paged once
+     per layer and decode step, nm_spmm 7 times per layer and forward;
+     qwen2-vl's prefill of its prompt's embedding rows gives the token
+     prefill's logits bitwise.  Then both at 2 layers in fp32 against
+     the CPU path (phase 5's rule), both attention kernels on the FMA
+     route.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -254,8 +274,8 @@ def ptxas_table(report: str) -> list:
 
 # --- phase 3: each kernel against its plain version -------------------------
 
-def qwen3_projections(cfg):
-    """(name, K, N) of the seven projections of one qwen3 layer."""
+def layer_projections(cfg):
+    """(name, K, N) of the seven projections of one layer of ``cfg``."""
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
             ("w_in", d, ff), ("w_gate", d, ff), ("w_out", ff, d)]
@@ -278,14 +298,17 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
     """All seven projection geometries at every M of ``SWEEP_M`` against
     the plain version; timed at ``TIMED_M`` per layer: ``copies`` layers
     of distinct packs, so the weights stream from HBM as they do through
-    28 layers."""
+    the model's layers (one layer of stablelm-12b or qwen2-vl-72b is
+    already 0.28-0.88 G of weights), and each projection alone against
+    cuBLAS and its bound (a small one stays in the L2 across the
+    replays)."""
     from repro_torch.core import pruning, sparsity
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     packs, dense = [], []
     for _ in range(copies):
-        for _, k, n in qwen3_projections(cfg):
+        for _, k, n in layer_projections(cfg):
             w = (torch.randn((k, n), generator=gen, device=dev)
                  / k ** 0.5).to(torch.bfloat16)
             pw, _ = pruning.n_m(w, 2, 4, group=128)
@@ -293,16 +316,17 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
             dense.append(pw)
     err, rows = 0.0, {}
     for M in SWEEP_M:
-        log_plans("nm_spmm", M, [(proj, K.plan(M, k, n, torch.bfloat16))
-                                 for proj, k, n in qwen3_projections(cfg)])
+        log_plans(f"nm_spmm {cfg.name}", M,
+                  [(proj, K.plan(M, k, n, torch.bfloat16))
+                   for proj, k, n in layer_projections(cfg)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
-              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+              .to(torch.bfloat16) for _, k, _ in layer_projections(cfg)}
         err_m = max(check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
                                 K.nm_spmm(xs[p.K], p),
                                 ref.nm_spmm_ref(xs[p.K], p))
                     for p in packs[:7])
-        log(f"[kernels] nm_spmm M={M}: max abs err {err_m:.3e} against "
-            "the plain version")
+        log(f"[kernels] nm_spmm {cfg.name} M={M}: max abs err {err_m:.3e} "
+            "against the plain version")
         err = max(err, err_m)
         if M not in TIMED_M:
             continue
@@ -317,8 +341,16 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
                       lambda: [torch.matmul(xs[w.shape[0]], w)
                                for w in dense], copies),
             bound_ms=b, bound_by=by)
-        log(f"[kernels] nm_spmm  one layer's 7 projections at M={M}: "
-            f"{json.dumps(rows[M])}")
+        log(f"[kernels] nm_spmm {cfg.name} one layer's 7 projections at "
+            f"M={M}: {json.dumps(rows[M])}")
+        for (proj, _, _), p, w in zip(layer_projections(cfg), packs, dense):
+            x = xs[p.K]
+            b, by = bound_ms((M * p.K + p.Kc * p.N + M * p.N) * 2
+                             + p.idx.numel() * 4, 2.0 * M * p.Kc * p.N)
+            log(f"[kernels] nm_spmm {cfg.name} {proj} M={M}: " + json.dumps(
+                dict(ms=device_ms(lambda: K.nm_spmm(x, p)),
+                     library_ms=device_ms(lambda: torch.matmul(x, w)),
+                     bound_ms=b, bound_by=by)))
     return dict(name="nm_spmm", source="src/repro_torch/csrc/nm_spmm.cu",
                 replaces="src/repro/kernels/nm_spmm.py:68",
                 max_abs_err=err, **rows[8])
@@ -331,10 +363,11 @@ def log_attn_plan(name: str, what: str, plan: dict) -> None:
 
 #: phase 3's paged-attention calls: (lens case, Q, q dtype); the first is
 #: the kernel's row of the ``kernels`` line; Q > 1 are verify blocks (Q =
-#: 4 is phase 8's, Q = 16 gives Q * G = 32 rows, two row tiles)
+#: 4 is phase 8's, Q = 16 gives Q * G = 32 to 128 rows, several row
+#: tiles); fp32 q takes the FMA route
 PAGED_CASES = (("mixed", 1, torch.bfloat16), ("serve", 1, torch.bfloat16),
-               ("mixed", 4, torch.bfloat16), ("mixed", 4, torch.float32),
-               ("mixed", 16, torch.bfloat16))
+               ("mixed", 4, torch.bfloat16), ("mixed", 1, torch.float32),
+               ("mixed", 4, torch.float32), ("mixed", 16, torch.bfloat16))
 
 
 def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
@@ -342,8 +375,9 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
     pages, a 32-page (512-row) view, held against the plain version at
     each of ``PAGED_CASES``: mixed lens with one dead slot (its rows must
     be exactly zero, two calls bitwise equal) and the serve's own lens,
-    129..192, one query per slot; verify blocks of Q = 4 (bf16 and fp32
-    q, the tensor-core and the FMA route) and Q = 16.  Each is timed over
+    129..192, one query per slot, bf16 and fp32 q (the tensor-core and
+    the FMA route); verify blocks of Q = 4 (bf16 and fp32 q) and Q = 16.
+    Each is timed over
     ``copies`` pools, so the live rows (5.7 MB a pool) stream from HBM
     rather than the 50 MB L2, as one layer's do in a decode step, beside
     SDPA over the gathered view under the same causal mask."""
@@ -371,7 +405,8 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
         lens = torch.from_numpy(lens_np).to(dev)
         shape = (B, H, D) if Q == 1 else (B, Q, H, D)
         q = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        name = f"{str(dtype)[6:]} B={B} Q={Q} lens={what}"
+        name = f"{str(dtype)[6:]} B={B} H={H} Hk={Hk} D={D} Q={Q} " \
+            f"lens={what}"
         log_attn_plan("paged_attention", name,
                       K.plan(B, H, Hk, Q, mp, D, (q.dtype, kp.dtype), ps))
         got = K.paged_attention(q, kp, vp, ptab, lens)
@@ -412,12 +447,6 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
             bound_ms=b, bound_by=by)
         log(f"[kernels] paged_attention {name} lens={lens_l}: "
             f"{json.dumps(rows[what, Q, dtype])}")
-    q32 = torch.randn((B, H, D), generator=gen, device=dev)
-    log_attn_plan("paged_attention", f"fp32 q, bf16 pools, B={B} Q=1",
-                  K.plan(B, H, Hk, 1, mp, D, (q32.dtype, kp.dtype), ps))
-    err["fp32 Q=1"] = check_close(
-        "paged_attention fp32 q", K.paged_attention(q32, kp, vp, ptab, lens),
-        ref.paged_attention_ref(q32, kp, vp, ptab, lens))
     log("[kernels] paged_attention max abs err against the plain version: "
         + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
         + "; the lens == 0 rows zero; two calls bitwise equal")
@@ -429,11 +458,12 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
 
 
 def check_flash_attention(cfg, dev) -> dict:
-    """Prefill attention of one prompt, timed at L = 128 and a ragged 200;
-    phase 7's suffixes of a shared prefix (``SUFFIX_SHAPES``), checked and
-    timed against SDPA under a lower-right causal mask; checked, not
-    timed: a suffix (37 queries over 200 keys), a window with softcap,
-    and fp32."""
+    """Prefill attention of one prompt, timed at L = 128 and a ragged 200
+    in bf16 (the tensor-core route) and fp32 (the FMA route); phase 7's
+    suffixes of a shared prefix (``SUFFIX_SHAPES``), checked and timed
+    against SDPA under a lower-right causal mask; checked, not timed: a
+    suffix (37 queries over 200 keys) and a window with softcap.  The
+    row's ``max_abs_err`` is the bf16 calls' largest."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -444,30 +474,35 @@ def check_flash_attention(cfg, dev) -> dict:
         return [torch.randn((1, h, n, D), generator=gen, device=dev).to(dtype)
                 for h, n in ((H, Lq), (Hk, Lk), (Hk, Lk))]
 
-    err, rows = 0.0, {}
-    for L in (128, 200):
-        q, k, v = qkv(L, L)
-        log_attn_plan("flash_attention", f"bf16 B=1 H={H} Hk={Hk} L={L}",
-                      K.plan(1, H, Hk, L, L, D, q.dtype))
-        err = max(err, check_close(
-            f"flash_attention L={L}", K.flash_attention(q, k, v),
-            ref.mha_ref(q.float(), k.float(), v.float())))
-        kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
-        pairs = L * (L + 1) / 2
-        b, by = bound_ms((2 * H + 2 * Hk) * L * D * 2, 4.0 * H * D * pairs)
-        rows[L] = dict(
-            **timings(lambda: K.flash_attention(q, k, v),
-                      lambda: ref.mha_ref(q, k, v),
-                      lambda: sdpa(q, kr, vr, is_causal=True), 1),
-            bound_ms=b, bound_by=by)
-        log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} L={L}: "
-            f"{json.dumps(rows[L])}")
+    err, rows = {torch.bfloat16: 0.0, torch.float32: 0.0}, {}
+    for dtype in err:
+        for L in (128, 200):
+            q, k, v = qkv(L, L, dtype)
+            what = f"{str(dtype)[6:]} B=1 H={H} Hk={Hk} D={D} L={L}"
+            log_attn_plan("flash_attention", what,
+                          K.plan(1, H, Hk, L, L, D, q.dtype))
+            err[dtype] = max(err[dtype], check_close(
+                f"flash_attention {what}", K.flash_attention(q, k, v),
+                ref.mha_ref(q.float(), k.float(), v.float())))
+            kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+            pairs = L * (L + 1) / 2
+            b, by = bound_ms((2 * H + 2 * Hk) * L * D * q.element_size(),
+                             4.0 * H * D * pairs,
+                             BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                             else FP32_FLOPS_PER_S)
+            rows[L, dtype] = dict(
+                **timings(lambda: K.flash_attention(q, k, v),
+                          lambda: ref.mha_ref(q, k, v),
+                          lambda: sdpa(q, kr, vr, is_causal=True), 1),
+                bound_ms=b, bound_by=by)
+            log(f"[kernels] flash_attention {what}: "
+                f"{json.dumps(rows[L, dtype])}")
     from torch.nn.attention.bias import causal_lower_right
     for Lq, Lk in SUFFIX_SHAPES:
         q, k, v = qkv(Lq, Lk)
         log_attn_plan("flash_attention", f"bf16 suffix Lq={Lq} Lk={Lk}",
                       K.plan(1, H, Hk, Lq, Lk, D, q.dtype))
-        err = max(err, check_close(
+        err[torch.bfloat16] = max(err[torch.bfloat16], check_close(
             f"flash_attention suffix Lq={Lq} Lk={Lk}",
             K.flash_attention(q, k, v),
             ref.mha_ref(q.float(), k.float(), v.float())))
@@ -480,8 +515,8 @@ def check_flash_attention(cfg, dev) -> dict:
                              lambda: ref.mha_ref(q, k, v),
                              lambda: sdpa(q, kr, vr, attn_mask=mask), 1),
                    bound_ms=b, bound_by=by)
-        log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} suffix Lq={Lq} "
-            f"Lk={Lk} (SDPA with a lower-right causal mask): "
+        log(f"[kernels] flash_attention B=1 H={H} Hk={Hk} D={D} suffix "
+            f"Lq={Lq} Lk={Lk} (SDPA with a lower-right causal mask): "
             f"{json.dumps(row)}")
     for what, (Lq, Lk, kw) in {
             "suffix Lq=37 Lk=200": (37, 200, {}),
@@ -489,21 +524,18 @@ def check_flash_attention(cfg, dev) -> dict:
                                            dict(window=64, softcap=30.0))
     }.items():
         q, k, v = qkv(Lq, Lk)
-        err = max(err, check_close(
+        err[torch.bfloat16] = max(err[torch.bfloat16], check_close(
             f"flash_attention {what}", K.flash_attention(q, k, v, **kw),
             ref.mha_ref(q.float(), k.float(), v.float(), **kw)))
-    q, k, v = qkv(128, 128, torch.float32)
-    log_attn_plan("flash_attention", f"fp32 B=1 H={H} Hk={Hk} L=128",
-                  K.plan(1, H, Hk, 128, 128, D, q.dtype))
-    err32 = check_close("flash_attention fp32", K.flash_attention(q, k, v),
-                        ref.mha_ref(q, k, v))
-    log(f"[kernels] flash_attention max abs err {err:.3e} (bf16: L = 128, "
-        f"200, phase 7's suffixes, window + softcap), {err32:.3e} (fp32) "
-        "against the plain version")
+    log(f"[kernels] flash_attention H={H} Hk={Hk} D={D} max abs err "
+        f"{err[torch.bfloat16]:.3e} (bf16: L = 128, 200, phase 7's "
+        f"suffixes, window + softcap), {err[torch.float32]:.3e} (fp32: L = "
+        "128, 200) against the plain version")
     return dict(name="flash_attention",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:97",
-                max_abs_err=err, **rows[128])
+                max_abs_err=err[torch.bfloat16],
+                **rows[128, torch.bfloat16])
 
 
 #: (queries, keys) of phase 7's suffix prefills: a 48-token suffix after
@@ -562,7 +594,7 @@ def strip_packs(cfg, dev, fmt: str, copies: int, seed: int):
     rng = np.random.default_rng(seed)
     packs, dense = [], []
     for _ in range(copies):
-        for _, k, n in qwen3_projections(cfg):
+        for _, k, n in layer_projections(cfg):
             w = zero_half_tiles((torch.randn((k, n), generator=gen,
                                              device=dev) / k ** 0.5)
                                 .to(torch.bfloat16), rng, empty_strip=True)
@@ -593,9 +625,9 @@ def check_strip_kernel(cfg, dev, fmt: str, copies: int) -> dict:
     for M in SWEEP_M:
         log_plans(name, M, [
             (proj, mod.plan(M, p.K, p.N, torch.bfloat16, p.max_nnz))
-            for (proj, _, _), p in zip(qwen3_projections(cfg), packs)])
+            for (proj, _, _), p in zip(layer_projections(cfg), packs)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
-              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+              .to(torch.bfloat16) for _, k, _ in layer_projections(cfg)}
         err_m = 0.0
         for p in packs[:7]:
             what = f"{name} M={M} K={p.K} N={p.N}"
@@ -647,7 +679,7 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
     rng = np.random.default_rng(SEED + 5)
     packs, dense = [], []
     for _ in range(copies):
-        for _, k, n in qwen3_projections(cfg):
+        for _, k, n in layer_projections(cfg):
             w = zero_half_tiles((torch.randn((k, n), generator=gen,
                                              device=dev) / k ** 0.5)
                                 .to(torch.bfloat16), rng)
@@ -659,9 +691,9 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
     for M in SWEEP_M:
         log_plans("lookahead_matmul", M,
                   [(proj, K.plan(M, k, n, torch.bfloat16))
-                   for proj, k, n in qwen3_projections(cfg)])
+                   for proj, k, n in layer_projections(cfg)])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
-              .to(torch.bfloat16) for _, k, _ in qwen3_projections(cfg)}
+              .to(torch.bfloat16) for _, k, _ in layer_projections(cfg)}
         err_m = max(check_close(f"lookahead_matmul M={M} K={p.K} N={p.N}",
                                 K.lookahead_matmul(xs[p.K], p),
                                 ref.lookahead_matmul_ref(xs[p.K], p))
@@ -750,26 +782,36 @@ def pack_summary(params) -> str:
     return "no tile skipping"
 
 
+#: the wrappers' counts of a kind of their launches, and the tag of each
+#: in :func:`launch_counts`: verify blocks (paged Q > 1) and the
+#: tensor-core route (both attention kernels)
+SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma"}
+
+
 def zero_counts(counters) -> None:
     """Set every wrapper's launch counts to 0."""
     for mod in counters:
         mod.launches = 0
-        if hasattr(mod, "block_launches"):
-            mod.block_launches = 0
+        for attr in SUB_COUNTS:
+            if hasattr(mod, attr):
+                setattr(mod, attr, 0)
 
 
 def counted(launches: dict) -> list:
     """The kernel names of a :func:`launch_counts` dict."""
-    return [name for name in launches if not name.endswith(" Q>1")]
+    return [name for name in launches if " " not in name]
 
 
 def launch_counts(counters) -> dict:
-    """Each wrapper's launches by kernel module name, and ``paged_attention
-    Q>1``, the paged launches of a verify block."""
+    """Each wrapper's launches by kernel module name, ``paged_attention
+    Q>1`` (the paged launches of a verify block), and ``<kernel> mma``,
+    the attention launches on the tensor-core route."""
     got = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in counters}
     for mod in counters:
-        if hasattr(mod, "block_launches"):
-            got[f"{mod.__name__.rsplit('.', 1)[1]} Q>1"] = mod.block_launches
+        for attr, tag in SUB_COUNTS.items():
+            if hasattr(mod, attr):
+                got[f"{mod.__name__.rsplit('.', 1)[1]} {tag}"] = \
+                    getattr(mod, attr)
     return got
 
 
@@ -935,20 +977,25 @@ def mean_of(turns, what: str, graphs: bool) -> float:
     return sum(vals) / len(vals) if vals else float("nan")
 
 
+#: the turns after a cold serve: (name, graphs on)
+TURNS = (("graph warm", True), ("eager", False), ("graph warm", True),
+         ("eager", False))
+
+
 def graph_turns(eng, prompts, counters, cold, tag: str) -> list:
-    """The ``[graph]`` turns (phases 4 and 8) on the engine that just
-    served ``prompts`` cold (captures included): the same stream again
-    warm, then with graphs off (the backend's private switch), in turns —
-    warm, eager, warm, eager.  Tokens, ``sync_count``, drafted and
-    accepted tokens and each kernel's launches (verify blocks included)
-    must equal the eager serves' exactly, and every key that ran twice
+    """The ``[graph]`` turns (phases 4, 8 and 9) on the engine that just
+    served ``prompts`` cold (captures included): the same stream again,
+    warm with graphs on or eager with them off (the backend's private
+    switch), in ``TURNS``: warm, eager, warm, eager.  Tokens,
+    ``sync_count``, drafted and accepted tokens and each kernel's
+    launches (verify blocks and routes included) must equal the first
+    eager serve's exactly, and every key that ran twice
     has exactly one capture.  Returns the turns, ``(name, graphs, (tokens,
     report, launches))``, the cold serve first."""
     seen, captured = {}, set()
     check_graph_runs(eng.stats(), seen, captured, True)
     turns = [("graph cold", True, cold)]
-    for name, graphs in (("graph warm", True), ("eager", False),
-                         ("graph warm", True), ("eager", False)):
+    for name, graphs in TURNS:
         eng._backend._graphs = graphs
         got = serve_prompts(eng, prompts, counters)
         check_graph_runs(eng.stats(), seen, captured, graphs)
@@ -1104,8 +1151,8 @@ def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
                                scfg.prompt_pad, scfg.max_len)
         split = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
                      None)
-        log(f"[fidelity {fmt}] request {i}: {len(got)} tokens, first "
-            f"split at {split}, min CPU top-2 gap {min(gaps):.3e}"
+        log(f"[fidelity {fmt} {cfg.name}] request {i}: {len(got)} tokens, "
+            f"first split at {split}, min CPU top-2 gap {min(gaps):.3e}"
             + ("" if split is None else f", gap there {gaps[split]:.3e}"))
         if len(got) != len(want) or (split is not None
                                      and gaps[split] >= GAP_TOL):
@@ -1548,6 +1595,126 @@ def spec_vs_cpu(cfg, dev, counters) -> None:
             f"first splits against the CPU {splits}")
 
 
+# --- phase 9: stablelm-12b and qwen2-vl-72b ---------------------------------
+
+#: qwen2-vl-72b's depth on the card: a dense bf16 init of all 80 layers
+#: (~141 GB) exceeds the card's 80 GB, and the port packs after init
+QWEN2_VL_LAYERS = 16
+
+
+def family_configs() -> list:
+    """Phase 9's configurations: stablelm-12b ``sparse()`` at full depth
+    and qwen2-vl-72b ``sparse()`` cut to ``QWEN2_VL_LAYERS`` layers."""
+    from repro_torch.configs import qwen2_vl_72b, stablelm_12b
+    return [stablelm_12b.sparse(),
+            dataclasses.replace(qwen2_vl_72b.sparse(),
+                                n_layers=QWEN2_VL_LAYERS, layer_kinds=())]
+
+
+def check_routes(tag: str, launches: dict, route: str) -> None:
+    """Both attention kernels launched, every launch on ``route``."""
+    for name in ("flash_attention", "paged_attention"):
+        want = launches[name] if route == "mma" else 0
+        if not launches[name] or launches[f"{name} mma"] != want:
+            raise AssertionError(f"{tag}: {name} must launch on its {route} "
+                                 f"route only: {launches}")
+
+
+def embeds_prefill(params, cfg, dev, prompt) -> None:
+    """The prompt's token prefill and the prefill of its rows of the
+    embedding table (``input_mode="embeds"``), each on a fresh cache:
+    the logits must be bitwise equal."""
+    from repro_torch import models
+    tokens = torch.from_numpy(prompt[None]).to(dev)
+    got = []
+    for batch in ({"tokens": tokens},
+                  {"embeds": params["embed"][tokens.long()]}):
+        cache = models.init_cache(cfg, 1, 512, device=dev)
+        got.append(models.prefill(params, cfg, batch, cache)[0])
+    if not torch.equal(*got):
+        raise AssertionError(f"{cfg.name}: the embeds prefill differs from "
+                             "the token prefill (max abs diff "
+                             f"{(got[0] - got[1]).abs().max().item():.3e})")
+    log(f"[family {cfg.name}] embeds prefill of a {len(prompt)}-token "
+        "prompt: logits bitwise equal to its token prefill")
+
+
+def family_serve(cfg, dev, counters) -> dict:
+    """Phase 9 (a) and (b): ``cfg`` at its published widths, bf16, random
+    weights from the seed, 2:4 packs on all seven projections (the dense
+    weights freed after packing), phase 4's serve and stream through the
+    Engine: a cold graph serve, then :func:`graph_turns`.  Gates:
+    budgets and syncs (``serve_prompts``); only nm_spmm and both
+    attention kernels launch, the attention kernels on their tensor-core
+    routes, flash once per layer and prefill, paged once per layer and
+    decode step, nm_spmm 7 times per layer and forward; for an embeds
+    config,
+    :func:`embeds_prefill`.  Then one replayed decode chunk under the
+    profiler (:func:`profile_decode_chunk`).  Returns the cold serve's
+    launches."""
+    import gc
+
+    from repro_torch.core.sparsity import NMPack
+    from repro_torch.serving import Engine
+    tag = f"family {cfg.name}"
+    t0 = time.perf_counter()
+    params = sparse_model(cfg, dev, SEED)
+    torch.cuda.synchronize()
+    packs = [w for layer in params["layers"] for fam in ("attn", "mlp")
+             for name, w in layer[fam].items() if not name.endswith("_norm")]
+    if len(packs) != 7 * cfg.n_layers or \
+            not all(isinstance(w, NMPack) for w in packs):
+        raise AssertionError(f"{tag}: not every projection is a 2:4 pack")
+    tables = [params[k] for k in ("embed", "unembed") if k in params]
+    log(f"[{tag}] {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"{'tied' if cfg.tie_embeddings else 'untied'} head, "
+        f"mrope={cfg.mrope_sections}, {cfg.dtype}: random init + pack in "
+        f"{time.perf_counter() - t0:.1f} s; packed values "
+        f"{sum(w.values.numel() * 2 for w in packs) / 1e9:.3f} GB, "
+        f"embedding tables {[round(t.numel() * 2 / 1e9, 3) for t in tables]}"
+        f" GB, {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    eng = Engine(cfg, spec_config(), params, device=dev)
+    prompts = phase4_prompts(cfg.vocab_size)
+    cold = serve_prompts(eng, prompts, counters)
+    _, rep, launches = cold
+    path = {"nm_spmm", "paged_attention", "flash_attention"}
+    if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+        raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                             f"launch and no other: {launches}")
+    check_routes(tag, launches, "mma")
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    want = {"flash_attention": cfg.n_layers * rep["prefills"],
+            "paged_attention": cfg.n_layers * steps,
+            "nm_spmm": 7 * cfg.n_layers * (rep["prefills"] + steps)}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{tag}: launches {launches}, want {want} for "
+                             f"{rep['prefills']} prefills and {steps} steps")
+    log(f"[{tag}] {json.dumps(rep)}")
+    turns = graph_turns(eng, prompts, counters, cold, tag)
+    warm = [ms for name, _, (_, r, _) in turns if name == "graph warm"
+            for ms in r["chunk_ms"]]
+    profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+    if cfg.input_mode == "embeds":
+        embeds_prefill(params, cfg, dev, prompts[0])
+    del eng, params, packs, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 9 (c): ``cfg`` cut to 2 layers in fp32 through phase 5's
+    :func:`card_vs_cpu`; both attention kernels launch on the FMA route
+    (D = 160 for stablelm)."""
+    small = dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
+                                dtype="float32")
+    zero_counts(counters)
+    card_vs_cpu(small, dev)
+    check_routes(f"fidelity {cfg.name}", launch_counts(counters), "fma")
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -1598,6 +1765,10 @@ def main() -> int:
             check_strip_kernel(cfg, dev, "combined", copies=8),
             check_strip_kernel(cfg, dev, "block", copies=4),
             check_lookahead(cfg, dev)]
+    for fcfg in family_configs():
+        check_nm_spmm(fcfg, dev, copies=1)
+        check_paged_attention(fcfg, dev)
+        check_flash_attention(fcfg, dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -1646,6 +1817,15 @@ def main() -> int:
         launches[name] += got[name]
     spec_vs_cpu(small, dev, counters)
     timed("8 speculation", t0)
+
+    t0 = time.perf_counter()
+    for fcfg in family_configs():
+        got = family_serve(fcfg, dev, counters)
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += got[name]
+    for fcfg in family_configs():
+        family_vs_cpu(fcfg, dev, counters)
+    timed("9 stablelm-12b and qwen2-vl-72b", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

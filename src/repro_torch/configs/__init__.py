@@ -1,8 +1,9 @@
 """Config registry of the port: one module per architecture, each with
 ``config()`` (full size) and ``reduced()`` (smoke size).
 
-Only qwen3-0.6b is ported; the other architectures of the JAX registry
-come with their model families (ROADMAP queue 1 item 11).
+Ported: qwen3-0.6b, stablelm-12b (untied head, head_dim 160) and
+qwen2-vl-72b (M-RoPE, embeds input).  The other architectures of the JAX
+registry come with their model families (ROADMAP queue 1 items 11b-11e).
 """
 
 from __future__ import annotations
@@ -11,9 +12,10 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["qwen3_0_6b"]
+ARCHS = ["qwen3_0_6b", "stablelm_12b", "qwen2_vl_72b"]
 
-ALIASES = {"qwen3-0.6b": "qwen3_0_6b"}
+ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "stablelm-12b": "stablelm_12b",
+           "qwen2-vl-72b": "qwen2_vl_72b"}
 
 
 def _module(arch: str):
@@ -21,7 +23,7 @@ def _module(arch: str):
     if name not in ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: {ARCHS}; "
-            "ROADMAP queue 1 item 11)")
+            "ROADMAP queue 1 items 11b-11e)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -18,7 +18,12 @@ Convolution kernels ``(H, W, Cin, Cout)`` are pruned as their
 ``(H·W·Cin, Cout)`` view, as Algorithm 1 walks ``kernel[h][w][c]``.
 
 Scores are computed on the host in float32 numpy (exact for bf16 and f32
-weights); each result lands on ``w``'s device in ``w``'s dtype.
+weights); each result lands on ``w``'s device in ``w``'s dtype.  The
+exception is :func:`n_m`, which runs in torch ops on ``w``'s device (a
+full-width model's weights are tens of GB, which a host pass would copy
+out and back at minutes per model): its float32 group sums run in that
+device's order, so two positions within rounding of each other may rank
+apart from :func:`n_m_numpy`'s.
 """
 
 from __future__ import annotations
@@ -48,18 +53,22 @@ def _threshold_topk(scores: np.ndarray, keep: int) -> np.ndarray:
     return (scores >= kth).astype(scores.dtype)
 
 
-def n_m_numpy(w: np.ndarray, n: int, m: int, group: int = 1
-              ) -> Tuple[np.ndarray, np.ndarray]:
-    """Keep the top-``n`` of every ``m`` consecutive K-entries per column
-    (positions shared across ``group`` output columns).  Returns
-    ``(pruned, mask)``; sparsity is exactly ``1 - n/m``."""
-    K, N = w.shape
+def _check_n_m(K: int, N: int, n: int, m: int, group: int) -> None:
     if K % m:
         raise ValueError(f"K={K} not divisible by m={m}")
     if N % group:
         raise ValueError(f"N={N} not divisible by group={group}")
     if not 0 < n <= m:
         raise ValueError(f"need 0 < n <= m, got {n}:{m}")
+
+
+def n_m_numpy(w: np.ndarray, n: int, m: int, group: int = 1
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Keep the top-``n`` of every ``m`` consecutive K-entries per column
+    (positions shared across ``group`` output columns).  Returns
+    ``(pruned, mask)``; sparsity is exactly ``1 - n/m``."""
+    K, N = w.shape
+    _check_n_m(K, N, n, m, group)
     s = np.abs(w).reshape(K // m, m, N // group, group).sum(axis=3)
     # rank within each m-group (stable, as jnp.argsort): keep the top-n
     order = np.argsort(-s, axis=1, kind="stable")       # (Kg, m, Ng)
@@ -71,8 +80,16 @@ def n_m_numpy(w: np.ndarray, n: int, m: int, group: int = 1
 
 def n_m(w: torch.Tensor, n: int, m: int, group: int = 1
         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`n_m_numpy` on a tensor."""
-    return _back(w, *n_m_numpy(_host(w), n, m, group))
+    """:func:`n_m_numpy` in torch ops on ``w``'s device (float32 group
+    sums in that device's order)."""
+    K, N = w.shape
+    _check_n_m(K, N, n, m, group)
+    s = w.float().abs().reshape(K // m, m, N // group, group).sum(dim=3)
+    order = torch.argsort(-s, dim=1, stable=True)           # (Kg, m, Ng)
+    gmask = torch.argsort(order, dim=1, stable=True) < n
+    mask = gmask[..., None].expand(-1, -1, -1, group).reshape(K, N)
+    mask = mask.to(w.dtype)
+    return w * mask, mask
 
 
 def block_semi_structured_numpy(w: np.ndarray, sparsity: float,

@@ -19,7 +19,9 @@
 
 The packers run offline on the host in float32 numpy exactly as the JAX
 package's do, so packs built from the same weights are array-equal; each
-pack lands on the weight's device in the weight's dtype.
+pack lands on the weight's device in the weight's dtype.  The exception
+is :func:`pack_nm`, which runs in torch ops on the weight's device (a
+full-width model's weights are tens of GB).
 """
 
 from __future__ import annotations
@@ -72,42 +74,28 @@ class NMPack:
         return _to(self, device)
 
 
-def pack_nm_numpy(w: np.ndarray, n: int, m: int, g: int = 1
-                  ) -> tuple[np.ndarray, np.ndarray]:
-    """The numpy packer behind :func:`pack_nm`: ``(values, idx)``.
+def pack_nm(w: torch.Tensor, n: int, m: int, g: int = 1) -> NMPack:
+    """Pack a weight already pruned to (group-shared) n:m along K, in
+    torch ops on ``w``'s device and in ``w``'s dtype.
 
     If ``w`` is not exactly n:m it is *projected*: the top-n magnitude
     rows per (m-group × column-group) are kept — so
-    ``pack_nm(pruning.n_m(w)…)`` round-trips exactly.
+    ``pack_nm(pruning.n_m(w)…)`` round-trips exactly.  The group sums are
+    float32 in the device's order; on a weight pruned to n:m the kept
+    rows are the non-zero ones whatever the order.
     """
     K, N = w.shape
     if K % m or N % g:
-        raise ValueError(f"{w.shape} incompatible with m={m}, g={g}")
+        raise ValueError(f"{tuple(w.shape)} incompatible with m={m}, g={g}")
     Kg, Ng = K // m, N // g
-    wg = np.asarray(w).reshape(Kg, m, Ng, g)
-    score = np.abs(wg).sum(axis=3)                      # (Kg, m, Ng)
-    order = np.argsort(-score, axis=1)[:, :n, :]        # top-n positions
-    pos = np.sort(order, axis=1)                        # keep K-order
-    vals = np.take_along_axis(wg, pos[:, :, :, None], axis=1)  # (Kg,n,Ng,g)
-    Kc = Kg * n
-    values = vals.reshape(Kc, N)
-    idx = pos.reshape(Kc, Ng).astype(np.int32)
-    return values, idx
-
-
-def pack_nm(w: torch.Tensor, n: int, m: int, g: int = 1) -> NMPack:
-    """Pack a weight already pruned to (group-shared) n:m along K.
-
-    Runs offline on the host in float32 numpy (exact for bf16 and f32
-    weights); the pack lands on ``w``'s device in ``w``'s dtype.
-    """
-    K, N = w.shape
-    values, idx = pack_nm_numpy(w.detach().float().cpu().numpy(), n, m, g)
-    return NMPack(values=torch.from_numpy(values).to(w.device, w.dtype),
-                  idx=torch.from_numpy(idx).to(w.device),
+    wg = w.detach().reshape(Kg, m, Ng, g)
+    score = wg.float().abs().sum(dim=3)                 # (Kg, m, Ng)
+    order = torch.argsort(-score, dim=1, stable=True)[:, :n, :]
+    pos = torch.sort(order, dim=1).values               # keep K-order
+    vals = torch.take_along_dim(wg, pos[..., None], dim=1)  # (Kg, n, Ng, g)
+    return NMPack(values=vals.reshape(Kg * n, N).contiguous(),
+                  idx=pos.reshape(Kg * n, Ng).to(torch.int32).contiguous(),
                   K=K, N=N, n=n, m=m, g=g)
-
-
 
 
 def _to(pack, device):

@@ -15,7 +15,7 @@
 //
 // Two routes, chosen by the wrapper's plan (kernels/tiling.py::flash_plan):
 //
-// bf16, D in {64, 128} -> tensor cores (flash_attention_mma), the
+// bf16, D in {64, 128, 160} -> tensor cores (flash_attention_mma), the
 // FlashAttention-2 layout.  A block of WARPS warps owns BQ = 16 * WARPS
 // query rows of one head; each warp owns 16 rows, their Q fragments held
 // in registers (ldmatrix from the staged Q tile).  K/V tiles of BK keys
@@ -32,7 +32,11 @@
 // its rows reaches.  Ragged Lq/Lk edges are zero-filled and masked, a
 // fully masked row gives zeros, and row tiles with the most keys are
 // launched first.  The plan picks BQ and BK so that the grid fills the
-// card at the prompt's shape (tools/attention_sweep.py).
+// card at the prompt's shape (tools/attention_sweep.py).  Nothing here
+// needs D to be a power of two: D = 160 (stablelm) is 10 k16 steps of
+// S = Q K^T and 20 n8 tiles of O, paired two by two by the x4 loads of
+// V, and 20 sixteen-byte pieces per staged row (row stride D + 8 = 168
+// bf16: eight ldmatrix rows still fall in distinct bank groups).
 //
 // fp32 (and bf16 at D = 32 or 256) -> CUDA-core FMAs
 // (flash_attention_fma), kept for fp32 parity: a block of 4 warps owns 16
@@ -401,7 +405,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
 // none, softcap <= 0 means none.  Anything else returns
 // cudaErrorInvalidValue without a launch; otherwise cudaGetLastError().
 
-// bf16, D in {64, 128}; bq (query rows per block) in {16, 32, 64}, bk
+// bf16, D in {64, 128, 160}; bq (query rows per block) in {16, 32, 64}, bk
 // (keys per tile) in {32, 64}.
 extern "C" int flash_attention_mma_launch(const void* q, const void* k,
                                           const void* v, void* out, int B,
@@ -420,12 +424,14 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k,
   FLASH_MMA(64, 1, 64) FLASH_MMA(64, 2, 64) FLASH_MMA(64, 4, 64)
   FLASH_MMA(128, 1, 32) FLASH_MMA(128, 2, 32) FLASH_MMA(128, 4, 32)
   FLASH_MMA(128, 1, 64) FLASH_MMA(128, 2, 64) FLASH_MMA(128, 4, 64)
+  FLASH_MMA(160, 1, 32) FLASH_MMA(160, 2, 32) FLASH_MMA(160, 4, 32)
+  FLASH_MMA(160, 1, 64) FLASH_MMA(160, 2, 64) FLASH_MMA(160, 4, 64)
 #undef FLASH_MMA
   return static_cast<int>(err);
 }
 
-// float32 at D in {32, 64, 128, 256}; bfloat16 only at D in {32, 256}
-// (64 and 128 take the tensor cores).
+// float32 at D in {32, 64, 128, 160, 256}; bfloat16 only at D in {32,
+// 256} (64, 128 and 160 take the tensor cores).
 extern "C" int flash_attention_fma_launch(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int H, int Hk, int Lq, int Lk, int D,
@@ -442,7 +448,7 @@ extern "C" int flash_attention_fma_launch(const void* q, const void* k,
                             softcap, scale, s);
   if (dtype == kFloat32) {
     FLASH_FMA(float, 32) FLASH_FMA(float, 64) FLASH_FMA(float, 128)
-    FLASH_FMA(float, 256)
+    FLASH_FMA(float, 160) FLASH_FMA(float, 256)
   } else if (dtype == kBFloat16) {
     FLASH_FMA(bf16, 32) FLASH_FMA(bf16, 256)
   }

@@ -19,7 +19,7 @@
 //
 // Two routes, chosen by the wrapper's plan (kernels/tiling.py::paged_plan):
 //
-// bf16 q and pools, D in {64, 128} -> tensor cores (paged_attention_mma),
+// bf16 q and pools, D in {64, 128, 160} -> tensor cores (paged_attention_mma),
 // flash-decoding.  The `split` blocks of one (sequence, kv head) form a
 // thread-block cluster, and each block's WARPS warps walk on their own:
 // part v = rank * WARPS + warp of the V = split * WARPS parts takes the
@@ -60,7 +60,11 @@
 // max and sums the ranks' rescaled accumulators in rank order, so two
 // calls are bitwise equal, and stores.  A part with no chunk publishes
 // max -1e30 and denominator 0 and still joins both cluster barriers (the
-// "started" one at entry and the one after the pushes).
+// "started" one at entry and the one after the pushes).  D = 160
+// (stablelm) needs no power of two: 10 k16 steps, 20 n8 tiles paired by
+// the x4 loads, 20 sixteen-byte pieces per staged row, 40 float4 units
+// per output row in the merge, and a warp's published state (10,368 B)
+// still fits in a ring of two chunks (21,504 B).
 //
 // fp32 q (over fp32 or bf16 pools), and bf16 at D = 32 or 256 ->
 // CUDA-core FMAs (paged_attention_fma), kept for fp32 parity: one block
@@ -530,6 +534,7 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
     case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
     case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
     case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 160: return launch_fma<TQ, TKV, 160>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
     case 256: return launch_fma<TQ, TKV, 256>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -542,7 +547,7 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
 // out contiguous and 16-byte aligned, H % Hk == 0.  Anything else returns
 // cudaErrorInvalidValue without a launch; otherwise cudaGetLastError().
 
-// bf16 q (B, Q, H, D) and pools, D in {64, 128}, one row tile of 16 query
+// bf16 q (B, Q, H, D) and pools, D in {64, 128, 160}, one row tile of 16 query
 // rows per 16 of the Q * H / Hk; warps in {1, 2, 4} per block, split in
 // {1, 2, 4, 8} blocks per cluster, a ring of 2 to 4 chunks per warp.
 extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
@@ -566,14 +571,15 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
                             ptab_stride, scale, split, ring, s);
   PAGED_MMA(64, 1) PAGED_MMA(64, 2) PAGED_MMA(64, 4)
   PAGED_MMA(128, 1) PAGED_MMA(128, 2) PAGED_MMA(128, 4)
+  PAGED_MMA(160, 1) PAGED_MMA(160, 2) PAGED_MMA(160, 4)
 #undef PAGED_MMA
   return static_cast<int>(err);
 }
 
 // q (B, Q, H, D) and out in q_dtype, one block per 8 of the Q * H / Hk
-// query rows, D in {32, 64, 128, 256}: float32 q over float32 or bf16
-// pools; bf16 q and pools only at D in {32, 256} (64 and 128 take the
-// tensor cores).
+// query rows, D in {32, 64, 128, 160, 256}: float32 q over float32 or
+// bf16 pools; bf16 q and pools only at D in {32, 256} (64, 128 and 160
+// take the tensor cores).
 extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
                                           const void* vp, const void* ptab,
                                           const void* lens, void* out, int B,

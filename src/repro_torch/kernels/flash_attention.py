@@ -5,9 +5,9 @@ D)`` — with causal masking, sliding windows, tanh soft-capping, GQA and
 the suffix offset ``Lk - Lq``.  On a CUDA tensor it launches
 ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention.py``; the source's head says what bounds
-it and how it is laid out): bfloat16 at D = 64 or 128 runs on the tensor
-cores, float32 (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as
-:func:`plan` says.  On a CPU tensor it runs the plain version
+it and how it is laid out): bfloat16 at D = 64, 128 or 160 runs on the
+tensor cores, float32 (and bfloat16 at D = 32 or 256) on CUDA-core FMAs,
+as :func:`plan` says.  On a CPU tensor it runs the plain version
 ``ref.mha_ref``.  There is no fallback between them.
 """
 
@@ -28,6 +28,8 @@ launches = 0
 #: Those of them with fewer queries than keys (a prompt's suffix over a
 #: shared prefix).
 suffix_launches = 0
+#: Those of them on the tensor-core route.
+mma_launches = 0
 
 
 #: ``plan(B, H, Hk, Lq, Lk, D, dtype)``: route, tile and grid of a call.
@@ -54,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q (B, H, Lq, D), k/v (B, Hk, Lk, D) -> (B, H, Lq, D)``; queries
     are the last ``Lq`` positions of the keys.  Rows with no key in
     reach give zeros on the card."""
-    global launches, suffix_launches
+    global launches, suffix_launches, mma_launches
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
@@ -94,4 +96,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches += 1
     if Lq < Lk:
         suffix_launches += 1
+    if p["route"] == "mma":
+        mma_launches += 1
     return out

@@ -8,10 +8,10 @@ and ``lens[b]`` rows are valid.  On a CUDA tensor it launches
 ``csrc/paged_attention.cu`` (the port of
 ``repro/kernels/paged_attention.py``; the source's head says what bounds
 it and how it is laid out), which walks only the pages a sequence owns
-and never materializes the gathered view: bfloat16 q and pools at D = 64
-or 128 run on the tensor cores (split over a thread-block cluster), float32
-q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as :func:`plan` says;
-both take a ``(B, Q, H, D)`` verify block of any ``Q``.
+and never materializes the gathered view: bfloat16 q and pools at D = 64,
+128 or 160 run on the tensor cores (split over a thread-block cluster),
+float32 q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as
+:func:`plan` says; both take a ``(B, Q, H, D)`` verify block of any ``Q``.
 On a CPU tensor it runs the plain version ``ref.paged_attention_ref``.
 There is no fallback between them.
 """
@@ -33,6 +33,8 @@ launches = 0
 #: Of those, the launches with a ``(B, Q, H, D)`` block of Q > 1 queries
 #: (the speculative verify).
 block_launches = 0
+#: Of those, the launches on the tensor-core route.
+mma_launches = 0
 
 
 class PagedKV(NamedTuple):
@@ -92,7 +94,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     a kv head run in row tiles of 16 (tensor cores) or 8 (FMA) rows
     (:func:`plan`).
     """
-    global launches, block_launches
+    global launches, block_launches, mma_launches
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale)
     if q.device.type != "cuda":
@@ -142,4 +144,6 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     launches += 1
     if Q > 1:
         block_launches += 1
+    if p["route"] == "mma":
+        mma_launches += 1
     return out

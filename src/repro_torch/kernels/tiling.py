@@ -83,8 +83,8 @@ def fma_tiles(M: int, N: int, narrow: int) -> dict:
 # --- attention: flash_attention.cu and paged_attention.cu -------------------
 
 ATTN_DTYPES = ("float32", "bfloat16")
-HEAD_DIMS = (32, 64, 128, 256)   # head dims the kernels are built for
-MMA_HEAD_DIMS = (64, 128)        # head dims of the tensor-core routes
+HEAD_DIMS = (32, 64, 128, 160, 256)  # head dims the kernels are built for
+MMA_HEAD_DIMS = (64, 128, 160)   # head dims of the tensor-core routes
 FLASH_BQ = (16, 32, 64)          # query rows per block: 1, 2 or 4 warps
 FLASH_BK = (32, 64)              # keys per tile
 FLASH_FMA_BQ = 16
@@ -127,7 +127,8 @@ def flash_plan(B: int, H: int, Hk: int, Lq: int, Lk: int, D: int,
     ``Lk = 256``, 64 beyond.  In the sweep 64 rows were fastest, or
     within 8% of the fastest, at every prompt length (128, 200, 512),
     also where that leaves 32 blocks on 132 SMs (L = 128); 32 keys were
-    faster up to L = 200, 64 at L = 512."""
+    faster up to L = 200, 64 at L = 512.  The sweep ran at D = 128; D =
+    160 takes the same rule."""
     name = _dtype_name(dtype)
     _heads(H, Hk, D)
     if name == "float32" or D not in MMA_HEAD_DIMS:
@@ -157,7 +158,8 @@ def paged_plan(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
     ``tools/attention_sweep.py``: enough parts that a part walks at most
     2 chunks of the view, as many warps per block as there are parts up
     to 4 for one query per sequence and up to 2 for a verify block (Q =
-    4 ran 17% faster as 2 warps x 8 blocks than as 4 x 4, same parts),
+    4 ran 17% faster as 2 warps x 8 blocks than as 4 x 4, same parts; the
+    sweep ran at D = 128, and D = 160 takes the same rule),
     then the fewest blocks per cluster that give them; the split halves
     while the grid would hold more than ``PAGED_MAX_WARPS`` warps (one
     wave).  It depends on ``B * Hk``, ``Q`` and the view only, never on

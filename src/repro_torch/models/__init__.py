@@ -1,13 +1,14 @@
 """Model API of the port — the JAX package's serving surface for the
-decoder-only ("lm") family.
+decoder-only ("lm") family: dense gated LMs with a tied or untied head
+(qwen3, stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl).
 
 ``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
 ``decode_block``, plus the cache helpers the serving loops use
 (``blank_slot_cache``, ``merge_cache_slot``, ``copy_page``,
 ``set_page_table``, ``page_view``, ``unpage_view``).  Caches are updated
 in place; the helpers return the cache for call-site parity with the JAX
-API.  The hybrid (mamba) and encoder-decoder families are ROADMAP queue 1
-item 11.
+API.  MoE, the hybrid (mamba) and encoder-decoder families and the gemma
+features are ROADMAP queue 1 items 11b-11e.
 """
 
 from __future__ import annotations
@@ -40,13 +41,13 @@ def family(cfg: ModelConfig) -> str:
 
 def _check_ported(cfg: ModelConfig) -> None:
     f = family(cfg)
-    if f != "lm" or cfg.n_experts or not cfg.mlp_gated \
-            or not cfg.tie_embeddings or cfg.embed_scale or cfg.post_norm \
-            or cfg.mrope_sections is not None or cfg.input_mode != "tokens":
+    if f != "lm" or cfg.n_experts or not cfg.mlp_gated or cfg.embed_scale \
+            or cfg.post_norm or cfg.input_mode not in ("tokens", "embeds"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense gated decoder-only LMs with tied "
-            "embeddings are ported (MoE/SSM/enc-dec and the other model "
-            "features are ROADMAP queue 1 item 11)")
+            f"{cfg.name}: only dense gated decoder-only LMs are ported (tied "
+            "or untied head, M-RoPE, embeds input); MoE is ROADMAP queue 1 "
+            "item 11b, SSM/hybrid 11c, enc-dec 11d and the gemma features "
+            "(post-norms, scaled embeds, ungated MLPs) 11e")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -76,8 +77,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Prompt ``batch["tokens"] (B, L)`` → (last-position logits, cache)."""
-    return TR.lm_prefill(params, cfg, batch["tokens"], cache)
+    """Prompt ``batch["embeds"] (B, L, d)`` (an ``input_mode="embeds"``
+    config) or ``batch["tokens"] (B, L)`` → (last-position logits,
+    cache)."""
+    return TR.lm_prefill(params, cfg, batch.get("embeds", batch.get("tokens")),
+                         cache)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,

@@ -184,8 +184,8 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """
     window = cfg.window_size if is_local else None
     q, k, v = _project_qkv(params, cfg, x, sparsity)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     B, Lq = x.shape[0], x.shape[1]
     prefill = isinstance(cache_pos, int)
     if prefill and cache_pos and "ptab" not in cache:

@@ -1,9 +1,11 @@
 """Model configuration — the JAX package's :class:`ModelConfig`, field for
 field, so a config built on either side describes the same model.
 
-The port serves the decoder-only ("lm") family so far; the fields of the
-MoE, SSM and encoder-decoder families are carried for parity and
-rejected by ``models.init_model`` (ROADMAP queue 1 item 11).
+The port serves the decoder-only ("lm") family so far, with a tied or
+untied head, M-RoPE (``mrope_sections``) and embeds input
+(``input_mode``); the fields of the MoE, SSM and encoder-decoder
+families and the gemma features are carried for parity and rejected by
+``models.init_model`` (ROADMAP queue 1 items 11b-11e).
 """
 
 from __future__ import annotations

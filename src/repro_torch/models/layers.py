@@ -9,7 +9,7 @@ through ``core.sparse_linear.apply_linear``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,13 +57,34 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10_000.0) -> torch.Tensor:
-    """Rotate ``x (B, L, H, D)`` by ``positions (B, L)`` (standard RoPE,
-    split-half layout)."""
+               theta: float = 10_000.0,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """Rotate ``x (B, L, H, D)`` by ``positions`` (split-half layout).
+
+    ``positions`` is ``(B, L)`` for standard RoPE, or ``(B, L, 3)``
+    (temporal, height, width) for M-RoPE: the ``D/2`` frequency slots
+    fall into ``mrope_sections`` groups, each rotated by its own position
+    component.  Identical triples give standard RoPE."""
     D = x.shape[-1]
     inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
                                         device=x.device) / D))
-    ang = positions[..., None].float() * inv                # (B, L, D/2)
+    if mrope_sections is None:
+        if positions.dim() != x.dim() - 2:
+            raise ValueError("standard RoPE expects (..., L) positions")
+        ang = positions[..., None].float() * inv            # (B, L, D/2)
+    else:
+        if positions.shape[-1] != 3:
+            raise ValueError("M-RoPE expects (..., L, 3) positions")
+        if sum(mrope_sections) != D // 2:
+            raise ValueError(f"mrope sections {mrope_sections} != "
+                             f"D/2={D // 2}")
+        # the position component of each frequency slot, built on the
+        # device (a captured decode chunk may copy nothing from the host)
+        s0, s1, _ = mrope_sections
+        slot = torch.arange(D // 2, device=x.device)
+        sect = (slot >= s0).long() + (slot >= s0 + s1).long()
+        ang = positions.float().index_select(-1, sect) * inv  # (B, L, D/2)
     sin = torch.sin(ang)[..., None, :]                       # (B, L, 1, D/2)
     cos = torch.cos(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -2,12 +2,14 @@
 per-layer params.
 
 Params are ``{"embed": (V_pad, d), "layers": [per-layer dict, ...],
-"ln_final": {"scale"}}``; a per-layer dict holds ``ln_attn``, ``ln_mlp``,
-``attn`` (``wq/wk/wv/wo`` + qk-norm scales) and ``mlp``
-(``w_in/w_gate/w_out``).  Projections may be dense tensors or packs —
-``apply_linear`` dispatches on the type.  The cache keeps the JAX
+"ln_final": {"scale"}}``, plus ``"unembed": (V_pad, d)`` for an untied
+head (``tie_embeddings=False``, stablelm); a per-layer dict holds
+``ln_attn``, ``ln_mlp``, ``attn`` (``wq/wk/wv/wo`` + qk-norm scales) and
+``mlp`` (``w_in/w_gate/w_out``).  Projections may be dense tensors or
+packs — ``apply_linear`` dispatches on the type.  The cache keeps the JAX
 package's stacked ``(n_layers, ...)`` leaves; layer ``l`` works on views
-of slice ``l``.
+of slice ``l``.  Under M-RoPE (qwen2-vl) the positions are broadcast to
+identical (t, h, w) triples, as the JAX model does for text.
 """
 
 from __future__ import annotations
@@ -35,11 +37,20 @@ def init_layer(cfg: ModelConfig, dtype: torch.dtype,
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     """Random LM params (normal, fan-in scaled, as the JAX init)."""
     dtype = L.DTYPES[cfg.dtype]
-    return {"embed": L.init_embedding(cfg.vocab_padded, cfg.d_model, dtype,
-                                      generator, device),
-            "layers": [init_layer(cfg, dtype, generator, device)
-                       for _ in range(cfg.n_layers)],
-            "ln_final": L.init_rmsnorm(cfg.d_model, device)}
+    p = {"embed": L.init_embedding(cfg.vocab_padded, cfg.d_model, dtype,
+                                   generator, device),
+         "layers": [init_layer(cfg, dtype, generator, device)
+                    for _ in range(cfg.n_layers)],
+         "ln_final": L.init_rmsnorm(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.init_embedding(cfg.vocab_padded, cfg.d_model, dtype,
+                                        generator, device)
+    return p
+
+
+def head(params: Params) -> torch.Tensor:
+    """The output head's table: the untied ``unembed``, else ``embed``."""
+    return params.get("unembed", params["embed"])
 
 
 def _layer_cache(cache: Params, l: int) -> Params:
@@ -59,24 +70,33 @@ def block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity)
 
 
-def _forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def _forward(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
              positions: torch.Tensor, cache: Params, cache_pos
              ) -> torch.Tensor:
-    x = L.embed(params["embed"], tokens)
+    """``inputs``: tokens ``(B, L)``, or embeds ``(B, L, d)`` when
+    ``cfg.input_mode == "embeds"`` (cast to the model dtype);
+    ``positions (B, L)``, broadcast to triples under M-RoPE."""
+    if cfg.input_mode == "embeds" and inputs.dim() == 3:
+        x = inputs.to(L.DTYPES[cfg.dtype])
+    else:
+        x = L.embed(params["embed"], inputs)
+    if cfg.mrope_sections is not None:
+        positions = positions[..., None].expand(*positions.shape, 3)
     for l, p in enumerate(params["layers"]):
         x = block(p, cfg, x, positions, cfg.layer_kinds[l],
                   _layer_cache(cache, l), cache_pos)
     return L.rmsnorm(params["ln_final"], x, cfg.norm_eps)
 
 
-def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def lm_prefill(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
                cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Fill rows ``[0, L)`` of the cache with the prompt ``tokens (B, L)``;
-    return the last position's fp32 logits ``(B, vocab_padded)``."""
-    B, Lq = tokens.shape
-    positions = torch.arange(Lq, device=tokens.device)[None].expand(B, Lq)
-    x = _forward(params, cfg, tokens, positions, cache, 0)
-    return L.unembed(params["embed"], x[:, -1], cfg.final_softcap), cache
+    """Fill rows ``[0, L)`` of the cache with the prompt — tokens ``(B,
+    L)`` or embeds ``(B, L, d)`` (:func:`_forward`); return the last
+    position's fp32 logits ``(B, vocab_padded)``."""
+    B, Lq = inputs.shape[:2]
+    positions = torch.arange(Lq, device=inputs.device)[None].expand(B, Lq)
+    x = _forward(params, cfg, inputs, positions, cache, 0)
+    return L.unembed(head(params), x[:, -1], cfg.final_softcap), cache
 
 
 def lm_decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -92,7 +112,7 @@ def lm_decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = (pos + block)[None].expand(B, T) if isinstance(pos, int) \
         else pos[:, None] + block
     x = _forward(params, cfg, tokens, positions, cache, pos)
-    return L.unembed(params["embed"], x, cfg.final_softcap), cache
+    return L.unembed(head(params), x, cfg.final_softcap), cache
 
 
 def lm_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -101,4 +121,4 @@ def lm_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """One decode step: ``token (B,)`` written at per-slot ``pos (B,)`` →
     next-token fp32 logits ``(B, vocab_padded)``."""
     x = _forward(params, cfg, token[:, None], pos[:, None], cache, pos)
-    return L.unembed(params["embed"], x[:, 0], cfg.final_softcap), cache
+    return L.unembed(head(params), x[:, 0], cfg.final_softcap), cache

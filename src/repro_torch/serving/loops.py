@@ -453,11 +453,14 @@ def build_spec_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
 
 #: The kernel wrappers' launch counters, ``(module, attribute)``, that a
 #: replay advances by what its capture recorded (a replay makes no Python
-#: call): every wrapper's ``launches``, and ``paged_attention``'s count of
-#: verify-block (Q > 1) launches.
+#: call): every wrapper's ``launches``, ``paged_attention``'s count of
+#: verify-block (Q > 1) launches and the attention wrappers' counts of
+#: tensor-core-route launches.
 COUNTED = tuple((mod, "launches") for mod in (
     bsr_matmul, csa_matmul, flash_attention, lookahead_decode, nm_spmm,
-    paged_attention)) + ((paged_attention, "block_launches"),)
+    paged_attention)) + ((paged_attention, "block_launches"),
+                         (paged_attention, "mma_launches"),
+                         (flash_attention, "mma_launches"))
 
 
 def _cache_ptrs(cache) -> Tuple[int, ...]:

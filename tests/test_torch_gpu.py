@@ -454,6 +454,107 @@ def test_paged_attention_row_tiles(cuda, Q):
     assert torch.equal(got, paged_mod.paged_attention(*args))
 
 
+# --- D = 160: stablelm-12b's 32 query heads over 8 kv heads of 160 ----------
+
+D160 = dict(H=32, Hk=8, D=160)
+
+
+@pytest.mark.parametrize("Lq,Lk,kw", [
+    (1, 1, {}), (63, 63, {}), (128, 128, {}), (200, 200, {}), (333, 333, {}),
+    (37, 200, {}), (200, 200, {"window": 48, "softcap": 30.0})])
+def test_flash_attention_d160_mma(cuda, Lq, Lk, kw):
+    run_flash(*flash_inputs(120, Lq, Lk, **D160), "mma", **kw)
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("bq", [16, 32, 64])
+def test_flash_attention_d160_every_tile(cuda, monkeypatch, bq, bk):
+    monkeypatch.setattr(flash_mod, "plan",
+                        lambda *a: dict(route="mma", bq=bq, bk=bk))
+    q, k, v = flash_inputs(130, 150, 150, **D160)
+    got = flash_mod.flash_attention(q, k, v, window=70)
+    close(got, ref.mha_ref(q.float(), k.float(), v.float(), window=70))
+
+
+@pytest.mark.parametrize("L", [70, 200])
+def test_flash_attention_d160_fma(cuda, L):
+    run_flash(*flash_inputs(140, L, L, dtype=torch.float32, **D160), "fma")
+
+
+@pytest.mark.parametrize("Q", [1, 4, 16])
+def test_paged_attention_d160_mma(cuda, Q):
+    """G = 4: one query per slot (4 rows), a Q = 4 verify block (one full
+    row tile) and Q = 16 (four row tiles); dead rows zero, two calls
+    bitwise equal."""
+    args = paged_inputs(150 + Q, 6, Q, lens=[0, 1, Q - 1 or 1, 16, 77, 200],
+                        **D160)
+    got = run_paged(*args, "mma")
+    assert (got[0] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_paged_attention_d160_every_split(cuda, monkeypatch, warps, split):
+    monkeypatch.setattr(paged_mod, "plan", lambda *a: dict(
+        route="mma", warps=warps, split=split,
+        ring=tiling.paged_ring(8, warps * split)))    # 8 pages of 16 rows
+    q, kp, vp, ptab, lens = paged_inputs(160, 5, 4, lens=[0, 3, 40, 100, 128],
+                                         **D160)
+    got = paged_mod.paged_attention(q, kp, vp, ptab, lens)
+    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("pools", ["bf16", "fp32"])
+@pytest.mark.parametrize("Q", [1, 4])
+def test_paged_attention_d160_fma(cuda, Q, pools):
+    q, kp, vp, ptab, lens = paged_inputs(
+        170 + Q, 6, Q, q_dtype=torch.float32, lens=[0, 1, 16, 77, 128, 140],
+        **D160)
+    if pools == "fp32":
+        kp, vp = kp.float(), vp.float()
+    got = run_paged(q, kp, vp, ptab, lens, "fma")
+    assert (got[0] == 0).all()
+
+
+# --- G = 8: qwen2-vl-72b's 64 query heads over 8 kv heads of 128 ------------
+
+G8 = dict(H=64, Hk=8, D=128)
+
+
+@pytest.mark.parametrize("Lq,Lk,kw", [
+    (1, 1, {}), (63, 63, {}), (128, 128, {}), (200, 200, {}), (37, 200, {}),
+    (200, 200, {"window": 48, "softcap": 30.0})])
+def test_flash_attention_g8_mma(cuda, Lq, Lk, kw):
+    run_flash(*flash_inputs(180, Lq, Lk, **G8), "mma", **kw)
+
+
+@pytest.mark.parametrize("Q", [1, 2, 4, 16])
+def test_paged_attention_g8_mma(cuda, Q):
+    """G = 8: one query per slot (8 rows, half an m16 tile), Q = 2 (one
+    full tile), Q = 4 (two row tiles) and Q = 16 (eight); dead rows
+    zero, two calls bitwise equal."""
+    args = paged_inputs(190 + Q, 6, Q, lens=[0, 1, Q - 1 or 1, 16, 77, 200],
+                        **G8)
+    got = run_paged(*args, "mma")
+    assert (got[0] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(*args))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_paged_attention_g8_every_split(cuda, monkeypatch, warps, split):
+    monkeypatch.setattr(paged_mod, "plan", lambda *a: dict(
+        route="mma", warps=warps, split=split,
+        ring=tiling.paged_ring(8, warps * split)))    # 8 pages of 16 rows
+    q, kp, vp, ptab, lens = paged_inputs(200, 5, 1, lens=[0, 3, 40, 100, 128],
+                                         **G8)
+    got = paged_mod.paged_attention(q, kp, vp, ptab, lens)
+    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    assert (got[0] == 0).all()
+
+
 def test_attention_unsupported_shapes_raise(cuda):
     """A bf16 call no route takes raises rather than falling back."""
     q, kp, vp, ptab, lens = paged_inputs(92, 2, 4, lens=[5, 9])

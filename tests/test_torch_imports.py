@@ -17,6 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.configs.stablelm_12b",
+        "repro_torch.configs.qwen2_vl_72b"} <= set(names), names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]

@@ -153,12 +153,12 @@ H, HK, D = 16, 8, 128            # qwen3-0.6b attention
 BF16, FP32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("L", [1, 16, 63, 128, 200, 333, 512])
 def test_flash_plan_bf16_takes_the_tensor_cores(L, hd):
-    """bf16 at D = 64 or 128: a tile the kernel is built for whose rows
-    cover the prompt exactly once; the qwen3 prefill (L = 128, 200) takes
-    64 rows by 32 keys."""
+    """bf16 at D = 64, 128 or 160: a tile the kernel is built for whose
+    rows cover the prompt exactly once; the qwen3 prefill (L = 128, 200)
+    takes 64 rows by 32 keys."""
     p = tiling.flash_plan(1, H, HK, L, L, hd, BF16)
     assert p["route"] == "mma"
     assert p["bq"] in tiling.FLASH_BQ and p["bk"] in tiling.FLASH_BK
@@ -257,6 +257,44 @@ def test_paged_plan_refuses_what_the_kernels_cannot_take():
         tiling.paged_plan(8, H, HK, 1, 32, D, (BF16, FP32))
     with pytest.raises(TypeError):
         tiling.paged_plan(8, H, HK, 1, 32, D, (torch.float16, BF16))
+
+
+#: stablelm-12b's attention: 32 query heads over 8 kv heads of 160
+SH, SHK, SD = 32, 8, 160
+
+
+@pytest.mark.parametrize("L", [128, 200])
+def test_flash_plan_stablelm_d160(L):
+    """The stablelm prefill: bf16 takes the tensor cores with the qwen3
+    tile (64 rows by 32 keys), fp32 the FMA kernel; D = 96 still has no
+    kernel."""
+    p = tiling.flash_plan(1, SH, SHK, L, L, SD, BF16)
+    assert p == dict(route="mma", bq=64, bk=32, warps=4,
+                     grid=(SH, -(-L // 64)))
+    assert tiling.flash_plan(1, SH, SHK, L, L, SD, FP32) == dict(
+        route="fma", bq=tiling.FLASH_FMA_BQ, bk=32, grid=(SH, -(-L // 16)))
+    with pytest.raises(ValueError):
+        tiling.flash_plan(1, SH, SHK, L, L, 96, BF16)
+
+
+@pytest.mark.parametrize("Q,rows,warps,split,ring", [
+    (1, 4, 4, 4, 2), (4, 16, 2, 8, 2), (16, 64, 2, 2, 4)])
+def test_paged_plan_stablelm_d160(Q, rows, warps, split, ring):
+    """The stablelm decode step (8 slots, a 32-page view of 16-row pages,
+    G = 4): bf16 takes the tensor cores, a Q = 4 verify block is one row
+    tile of 16 rows, a Q = 16 block four, capped to one wave; fp32 q (over
+    fp32 or bf16 pools) takes the FMA kernel; D = 96 still raises."""
+    p = tiling.paged_plan(8, SH, SHK, Q, 32, SD, (BF16, BF16), 16)
+    tiles = -(-rows // tiling.PAGED_ROWS)
+    assert p == dict(route="mma", warps=warps, split=split, ring=ring,
+                     rows=rows, grid=(tiles * 8 * SHK * split,))
+    assert tiles * 8 * SHK * split * warps <= tiling.PAGED_MAX_WARPS
+    for dtypes in ((FP32, FP32), (FP32, BF16)):
+        assert tiling.paged_plan(8, SH, SHK, Q, 32, SD, dtypes, 16) == dict(
+            route="fma", warps=8, split=1, rows=rows,
+            grid=(8, SHK, -(-rows // tiling.PAGED_FMA_ROWS)))
+    with pytest.raises(ValueError):
+        tiling.paged_plan(8, SH, SHK, Q, 32, 96, (BF16, BF16), 16)
 
 
 def test_paged_split_never_depends_on_lens():

@@ -38,6 +38,29 @@ def test_prune_and_pack_equal_jax(n, m, g):
     assert sparsity.values_bytes(tp) == tp.values.numel() * 4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,g", [(2, 4, 128), (1, 4, 64), (4, 8, 128)])
+def test_device_pruning_and_packing_equal_the_host_pass(n, m, g, dtype):
+    """``n_m`` and ``pack_nm``, which run in torch ops on the weight's
+    device, equal the host numpy passes (``n_m_numpy``, the JAX package's
+    ``pack_nm``) on bf16 and fp32 weights without near ties."""
+    w = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(512, 384)).astype(np.float32)).to(dtype)
+    tw, tmask = pruning.n_m(w, n, m, group=g)
+    hw, hmask = pruning.n_m_numpy(w.float().numpy(), n, m, group=g)
+    assert tw.dtype == dtype and tmask.dtype == dtype
+    np.testing.assert_array_equal(tw.float().numpy(), hw)
+    np.testing.assert_array_equal(tmask.float().numpy(), hmask)
+    tp, hp = sparsity.pack_nm(tw, n, m, g=g), jsparsity.pack_nm(hw, n, m, g=g)
+    np.testing.assert_array_equal(tp.values.float().numpy(),
+                                  np.asarray(hp.values))
+    np.testing.assert_array_equal(tp.idx.numpy(), np.asarray(hp.idx))
+    assert tp.idx.dtype == torch.int32 and tp.values.dtype == dtype
+    assert torch.equal(tp.densify(), tw)
+    with pytest.raises(ValueError):
+        pruning.n_m(w[:, :100], n, m, group=g)
+
+
 def test_bf16_pack_keeps_the_weights():
     w = torch.from_numpy(np.random.default_rng(1).normal(
         size=(128, 256)).astype(np.float32)).to(torch.bfloat16)

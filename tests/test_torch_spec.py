@@ -5,8 +5,9 @@ on a 1x1 mesh with Auto axes).
 
 In every greedy case the port's tokens, ``sync_count``, drafted and
 accepted equal the JAX engine's, for monolithic and paged caches and for
-the self draft and a ``pack`` draft in each of the four formats; and the
-tokens equal the plain loop's (greedy speculation is lossless).  Beside
+the self draft and a ``pack`` draft in each of the four formats, and
+over shared prefix pages (hits, shared pages and copies equal too); and
+the tokens equal the plain loop's (greedy speculation is lossless).  Beside
 them: ``decode_block`` at ragged per-slot offsets against the JAX logits,
 the served chunk body against the functional ``build_spec_decode_loop``,
 and the residual acceptance rule held statistically (JAX's threefry
@@ -106,6 +107,35 @@ def test_self_draft_equals_jax_and_the_plain_loop(dense, layout):
     assert_same(jout, tout, jeng, teng)
     assert tout == plain(dense, kw)
     assert teng.acceptance_rate() > 0.9          # self-draft ~ always
+
+
+#: speculation over shared pages: a 16-token head (two 8-row pages) led
+#: by 4 prompts of 24 tokens on 2 slots — two tails, a full repeat of the
+#: first prompt (copy-on-write of its last page) and a third tail
+SPEC_HEAD = np.arange(1, 17, dtype=np.int32)
+SPEC_PREFIX_PROMPTS = [np.concatenate([SPEC_HEAD, t]) for t in (
+    np.arange(101, 109, dtype=np.int32), np.arange(201, 209, dtype=np.int32),
+    np.arange(101, 109, dtype=np.int32), np.arange(301, 309, dtype=np.int32))]
+
+
+@pytest.mark.parametrize("draft", [None, 7], ids=["self", "garbage"])
+def test_speculation_with_prefix_sharing_equals_jax(dense, draft):
+    """``spec_k=3`` on the paged cache with ``prefix_cache=True``: tokens,
+    syncs, drafted, accepted, peak pages, hits, shared pages and copies
+    equal the JAX engine's, and the tokens the plain loop's."""
+    kw = dict(BASE, spec_k=3, page_size=8, prompt_pad=24, prefix_cache=True)
+    budgets = [6, 5, 6, 4]
+    jout, tout, jeng, teng = serve_both(dense, kw, SPEC_PREFIX_PROMPTS,
+                                        budgets, draft=draft)
+    assert_same(jout, tout, jeng, teng)
+    js, ts = jeng.stats(), teng.stats()
+    shared = ("prefix_hits", "shared_pages", "cow_copies")
+    assert [getattr(ts, k) for k in shared] == \
+        [getattr(js, k) for k in shared]
+    assert ts.prefix_hits > 0 and ts.shared_pages > 0 and ts.cow_copies > 0
+    assert tout == plain(dense, kw, SPEC_PREFIX_PROMPTS, budgets)
+    if draft is None:
+        assert teng.acceptance_rate() > 0.9
 
 
 def test_paged_view_bucketed(dense):

@@ -2,7 +2,7 @@
 """Time every tile of ``flash_attention``'s and every split of
 ``paged_attention``'s tensor-core route on one NVIDIA GPU, against SDPA.
 
-    python3 tools/attention_sweep.py [flash] [paged]    # default: both
+    python3 tools/attention_sweep.py [flash] [paged] [d160]  # default: both
 
 ``flash``: one prompt of qwen3-0.6b's attention (B 1, 16 query heads over
 8 kv heads of 128) at L = 128 and 200 (the prefill of ``chip_smoke.py``)
@@ -20,6 +20,8 @@ stream at least ``STREAM_BYTES`` from HBM rather than the 50 MB L2
 repeated; for paged, over the gathered view with the lens mask).  The
 plans in ``kernels/tiling.py`` (``flash_plan``, ``paged_plan``) were
 chosen from this table; each plan is printed beside the fastest.
+``d160`` sweeps stablelm-12b's attention instead (32 query heads over 8
+kv heads of 160), where the plans take the rules chosen at D = 128.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ref, tiling  # noqa: E402
 
 STREAM_BYTES = 128 << 20     # > 2.5x the H100's 50 MB L2
-H, HK, D = 16, 8, 128        # qwen3-0.6b attention
+H, HK, D = 16, 8, 128        # qwen3-0.6b attention (d160: stablelm-12b's)
 PS, POOL, VIEW, SLOTS = 16, 257, 32, 8
 SDPA = torch.nn.functional.scaled_dot_product_attention
 
@@ -163,9 +165,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("attention_sweep: no CUDA device", file=sys.stderr)
         return 2
-    names = sys.argv[1:] or ["flash", "paged"]
+    global H, HK, D
+    args = sys.argv[1:]
+    if "d160" in args:
+        H, HK, D = 32, 8, 160
+    names = [a for a in args if a != "d160"] or ["flash", "paged"]
     if not set(names) <= {"flash", "paged"}:
-        print("attention_sweep: kernels are flash, paged", file=sys.stderr)
+        print("attention_sweep: kernels are flash, paged (and the option "
+              "d160)", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     C.log(C.nvidia_smi())
