@@ -34,7 +34,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      kernel also reproduces integer weights bit-exactly.  Then the same
      nm_spmm, flash and paged checks at phase 9's shapes: one layer of
      stablelm-12b (32 query heads of 160 over 8 kv heads) and of
-     qwen2-vl-72b (64 of 128 over 8, so 8 query rows of a kv head);
+     qwen2-vl-72b (64 of 128 over 8, so 8 query rows of a kv head); and
+     at phase 10's: nm_spmm at one routed expert of qwen2-moe-a2.7b
+     (2048 → 1408 → 2048) and of dbrx-132b (6144 → 10752 → 6144) at the
+     rows a capacity dispatch hands an expert (M = 1, 3, 11, 40), timed
+     over enough experts to stream from HBM, qwen2-moe's shared FFN
+     (5632 wide) at M = 8 and 128, and both attention kernels at 16
+     heads over 16 (G = 1) and 48 over 8 (G = 6);
   4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
      format on all seven projections: ``sparse()`` (2:4, g=128) and
@@ -128,7 +134,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      qwen2-vl's prefill of its prompt's embedding rows gives the token
      prefill's logits bitwise.  Then both at 2 layers in fp32 against
      the CPU path (phase 5's rule), both attention kernels on the FMA
-     route.
+     route;
+ 10. the MoE family: qwen2-moe-a2.7b (24 layers, d_model 2048, 16 heads
+     of 128 over 16, 60 experts top-4 of d_expert 1408 and 4 shared,
+     vocab 151936, tied) and dbrx-132b (d_model 6144, 48 heads of 128
+     over 8, 16 experts top-4 of d_expert 10752, vocab 100352, cut to
+     ``DBRX_LAYERS`` of its 40 layers: 40 packed layers are ~134 GB)
+     at published widths, bf16, random weights from a seed, each layer
+     packed as it is drawn (one dense layer is the only transient),
+     ``sparse()``'s 2:4 packs on the routed (and qwen2-moe's shared)
+     experts, attention dense, served through the sorted capacity
+     dispatch in phase 4's serve and stream: a cold graph serve, then
+     phase 4's turns.  Gates: budgets and syncs; turns equal; only
+     nm_spmm and the two attention kernels launch, attention on the
+     tensor-core routes, flash once per layer and prefill, paged once
+     per layer and decode step, nm_spmm 3 E times per layer and forward
+     (+ 3 for the shared FFN).  Printed: the share of routes dropped at
+     decode and at prefill, and the turns' metrics.  Then both at 2
+     layers in fp32: the Engine's tokens on the card against the same
+     batch decoded on the CPU path (``batched_greedy``; phase 5's rule
+     at the first split).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -294,44 +319,47 @@ def log_plans(name: str, M: int, plans) -> None:
     log(f"[plan] {name} M={M}: " + "; ".join(parts))
 
 
-def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
-    """All seven projection geometries at every M of ``SWEEP_M`` against
-    the plain version; timed at ``TIMED_M`` per layer: ``copies`` layers
-    of distinct packs, so the weights stream from HBM as they do through
-    the model's layers (one layer of stablelm-12b or qwen2-vl-72b is
-    already 0.28-0.88 G of weights), and each projection alone against
-    cuBLAS and its bound (a small one stays in the L2 across the
-    replays)."""
+def check_nm_spmm(cfg, dev, copies: int = 4, projections=None,
+                  sweep=SWEEP_M, timed=TIMED_M, what="layer") -> dict:
+    """Each projection geometry of ``projections`` (default: the seven of
+    one layer) at every M of ``sweep`` against the plain version; timed
+    at ``timed`` per ``what`` (a layer, an expert): ``copies`` of distinct
+    packs, so the weights stream from HBM as they do through the model's
+    layers (one layer of stablelm-12b or qwen2-vl-72b is already
+    0.28-0.88 G of weights), and each projection alone against cuBLAS
+    and its bound (a small one stays in the L2 across the replays)."""
     from repro_torch.core import pruning, sparsity
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
+    projections = projections or layer_projections(cfg)
+    n_proj = len(projections)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     packs, dense = [], []
     for _ in range(copies):
-        for _, k, n in layer_projections(cfg):
+        for _, k, n in projections:
             w = (torch.randn((k, n), generator=gen, device=dev)
                  / k ** 0.5).to(torch.bfloat16)
             pw, _ = pruning.n_m(w, 2, 4, group=128)
             packs.append(sparsity.pack_nm(pw, 2, 4, g=128))
             dense.append(pw)
     err, rows = 0.0, {}
-    for M in SWEEP_M:
+    for M in sweep:
         log_plans(f"nm_spmm {cfg.name}", M,
                   [(proj, K.plan(M, k, n, torch.bfloat16))
-                   for proj, k, n in layer_projections(cfg)])
+                   for proj, k, n in projections])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
-              .to(torch.bfloat16) for _, k, _ in layer_projections(cfg)}
+              .to(torch.bfloat16) for _, k, _ in projections}
         err_m = max(check_close(f"nm_spmm M={M} K={p.K} N={p.N}",
                                 K.nm_spmm(xs[p.K], p),
                                 ref.nm_spmm_ref(xs[p.K], p))
-                    for p in packs[:7])
+                    for p in packs[:n_proj])
         log(f"[kernels] nm_spmm {cfg.name} M={M}: max abs err {err_m:.3e} "
             "against the plain version")
         err = max(err, err_m)
-        if M not in TIMED_M:
+        if M not in timed:
             continue
         nbytes = flops = 0.0
-        for p in packs[:7]:
+        for p in packs[:n_proj]:
             nbytes += (M * p.K + p.Kc * p.N + M * p.N) * 2 + p.idx.numel() * 4
             flops += 2.0 * M * p.Kc * p.N
         b, by = bound_ms(nbytes, flops)
@@ -341,9 +369,9 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
                       lambda: [torch.matmul(xs[w.shape[0]], w)
                                for w in dense], copies),
             bound_ms=b, bound_by=by)
-        log(f"[kernels] nm_spmm {cfg.name} one layer's 7 projections at "
-            f"M={M}: {json.dumps(rows[M])}")
-        for (proj, _, _), p, w in zip(layer_projections(cfg), packs, dense):
+        log(f"[kernels] nm_spmm {cfg.name} one {what}'s {n_proj} projections"
+            f" at M={M}: {json.dumps(rows[M])}")
+        for (proj, _, _), p, w in zip(projections, packs, dense):
             x = xs[p.K]
             b, by = bound_ms((M * p.K + p.Kc * p.N + M * p.N) * 2
                              + p.idx.numel() * 4, 2.0 * M * p.Kc * p.N)
@@ -353,7 +381,7 @@ def check_nm_spmm(cfg, dev, copies: int = 4) -> dict:
                      bound_ms=b, bound_by=by)))
     return dict(name="nm_spmm", source="src/repro_torch/csrc/nm_spmm.cu",
                 replaces="src/repro/kernels/nm_spmm.py:68",
-                max_abs_err=err, **rows[8])
+                max_abs_err=err, **rows[timed[0]])
 
 
 def log_attn_plan(name: str, what: str, plan: dict) -> None:
@@ -1715,6 +1743,220 @@ def family_vs_cpu(cfg, dev, counters) -> None:
     check_routes(f"fidelity {cfg.name}", launch_counts(counters), "fma")
 
 
+# --- phase 10: the MoE family ------------------------------------------------
+
+#: dbrx-132b's depth on the card: its 40 layers of 2:4 experts are ~134 GB
+DBRX_LAYERS = 8
+#: rows each expert takes in phase 10's serve: C at 8 decode slots
+#: (qwen2-moe 1, dbrx 3) and in a 128-row prompt (11, 40)
+EXPERT_M = (1, 3, 11, 40)
+
+
+def moe_configs() -> list:
+    """Phase 10's configurations: qwen2-moe-a2.7b ``sparse()`` at full
+    depth and dbrx-132b ``sparse()`` cut to ``DBRX_LAYERS`` layers."""
+    from repro_torch.configs import dbrx_132b, qwen2_moe_a2_7b
+    return [qwen2_moe_a2_7b.sparse(),
+            dataclasses.replace(dbrx_132b.sparse(), n_layers=DBRX_LAYERS,
+                                layer_kinds=())]
+
+
+def expert_projections(cfg):
+    """(name, K, N) of one routed expert of ``cfg``."""
+    d, de = cfg.d_model, cfg.d_expert
+    return [("w_in", d, de), ("w_gate", d, de), ("w_out", de, d)]
+
+
+def shared_projections(cfg):
+    """(name, K, N) of ``cfg``'s shared-expert FFN."""
+    d, ds = cfg.d_model, cfg.d_expert * cfg.n_shared_experts
+    return [("shared w_in", d, ds), ("shared w_gate", d, ds),
+            ("shared w_out", ds, d)]
+
+
+def check_moe_kernels(cfg, dev) -> None:
+    """Phase 3 at an MoE config: nm_spmm at one routed expert (timed over
+    enough experts to stream from HBM) at every M of ``EXPERT_M``, the
+    shared FFN at 8 and 128 rows, and both attention kernels at its
+    heads."""
+    per_expert = sum(k * n for _, k, n in expert_projections(cfg))
+    copies = max(1, math.ceil(128e6 / per_expert))     # > the 50 MB L2
+    check_nm_spmm(cfg, dev, copies=copies,
+                  projections=expert_projections(cfg), sweep=EXPERT_M,
+                  timed=EXPERT_M, what="expert")
+    if cfg.n_shared_experts:
+        check_nm_spmm(cfg, dev, copies=4, projections=shared_projections(cfg),
+                      what="shared FFN")
+    check_paged_attention(cfg, dev)
+    check_flash_attention(cfg, dev)
+
+
+def moe_serve(cfg, dev, counters) -> dict:
+    """Phase 10 (a) and (b): ``cfg`` at its published widths, bf16, random
+    weights from the seed, each layer packed as it is drawn
+    (``init_model(packed=True)``), phase 4's serve and stream through the
+    Engine: a cold graph serve, then :func:`graph_turns`.  Gates: budgets
+    and syncs (``serve_prompts``); every routed and shared expert
+    projection a 2:4 pack; only nm_spmm and both attention kernels
+    launch, the attention kernels on their tensor-core routes, flash
+    once per layer and prefill, paged once per layer and decode step,
+    nm_spmm ``3 E`` times per layer and forward (plus 3 for the shared
+    FFN).  Printed: the share of routes dropped at decode and at
+    prefill in the cold serve (``models.moe.route_tally``).  Then one
+    replayed decode chunk under the profiler.  Returns the cold serve's
+    launches."""
+    import gc
+
+    from repro_torch import models
+    from repro_torch.core.sparsity import NMPack
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving import Engine
+    tag = f"moe {cfg.name}"
+    t0 = time.perf_counter()
+    params = models.init_model(cfg, seed=SEED, device=dev, packed=True)
+    torch.cuda.synchronize()
+    E, shared = cfg.n_experts, 3 if cfg.n_shared_experts else 0
+    moes = [layer["moe"] for layer in params["layers"]]
+    experts = [w for m in moes for k in MOE.EXPERT_WEIGHTS for w in m[k]]
+    shared_w = [w for m in moes for w in m.get("shared", {}).values()]
+    if len(experts) != 3 * E * cfg.n_layers or len(shared_w) != \
+            shared * cfg.n_layers or not all(
+                isinstance(w, NMPack) for w in experts + shared_w):
+        raise AssertionError(f"{tag}: not every expert projection is a 2:4 "
+                             "pack")
+    attn = [w for layer in params["layers"] for w in layer["attn"].values()]
+
+    def gb(ws):
+        return round(sum(w.values.numel() * 2 + w.idx.numel() * 4
+                         if isinstance(w, NMPack) else w.numel() * 2
+                         for w in ws) / 1e9, 3)
+
+    log(f"[{tag}] {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} {E} experts "
+        f"top-{cfg.top_k} d_expert={cfg.d_expert} shared="
+        f"{cfg.n_shared_experts} vocab={cfg.vocab_size}, {cfg.dtype}: "
+        f"random init + pack layer by layer in "
+        f"{time.perf_counter() - t0:.1f} s; GB: routed experts "
+        f"{gb(experts)}, shared {gb(shared_w)}, attention (dense) "
+        f"{gb(attn)}, embedding {gb([params['embed']])}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    MOE.route_tally = {k: torch.zeros(2, dtype=torch.int64, device=dev)
+                       for k in ("decode", "prefill")}
+    try:
+        eng = Engine(cfg, spec_config(), params, device=dev)
+        prompts = phase4_prompts(cfg.vocab_size)
+        cold = serve_prompts(eng, prompts, counters)
+        kept = {k: t.tolist() for k, t in MOE.route_tally.items()}
+        _, rep, launches = cold
+        path = {"nm_spmm", "paged_attention", "flash_attention"}
+        if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+            raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                                 f"launch and no other: {launches}")
+        check_routes(tag, launches, "mma")
+        steps = rep["chunks"] * eng.scfg.decode_chunk
+        fwd = rep["prefills"] + steps
+        want = {"flash_attention": cfg.n_layers * rep["prefills"],
+                "paged_attention": cfg.n_layers * steps,
+                "nm_spmm": (3 * E + shared) * cfg.n_layers * fwd}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"{tag}: launches {launches}, want {want} "
+                                 f"for {rep['prefills']} prefills and {steps} "
+                                 "steps")
+        log(f"[{tag}] {json.dumps(rep)}")
+        log(f"[{tag}] routes dropped in the cold serve: " + ", ".join(
+            f"{k} {1 - a / b:.4f} ({b - a} of {b}, C = "
+            f"{models.expert_rows(cfg, 8 if k == 'decode' else 128)})"
+            for k, (a, b) in kept.items()))
+        turns = graph_turns(eng, prompts, counters, cold, tag)
+        warm = [ms for name, _, (_, r, _) in turns if name == "graph warm"
+                for ms in r["chunk_ms"]]
+        profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+    finally:
+        MOE.route_tally = None
+    del eng, params, moes, experts, shared_w, attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def batched_greedy(params, cfg, prompts, max_new, prompt_pad, max_len,
+                   device="cpu"):
+    """Greedy decoding of ``prompts`` as one batch, routed as the Engine
+    routes them: each prompt (left-padded to ``prompt_pad``) prefilled
+    alone into its slot, then one decode step of every slot at a time.
+    Returns each request's tokens and the top-2 logit gap at each step.
+    A capacity dispatch couples the slots of a step, so one-sequence
+    decoding (:func:`greedy`) is not the MoE reference."""
+    from repro_torch import models
+    B = len(prompts)
+    cache = models.init_cache(cfg, B, max_len, device=device)
+    first = []
+    for i, p in enumerate(prompts):
+        tokens = np.zeros((1, prompt_pad), np.int32)
+        tokens[0, prompt_pad - len(p):] = p
+        scratch = models.blank_slot_cache(cache)
+        logits, scratch = models.prefill(
+            params, cfg, {"tokens": torch.from_numpy(tokens).to(device)},
+            scratch)
+        models.merge_cache_slot(cache, scratch, i)
+        first.append(logits[0])
+    logits = torch.stack(first)
+    pos = torch.full((B,), prompt_pad, dtype=torch.int32, device=device)
+    out, gaps = [[] for _ in prompts], [[] for _ in prompts]
+    for t in range(max_new):
+        lg = logits[:, :cfg.vocab_size].float().cpu()
+        top = lg.topk(2, dim=-1).values
+        tok = lg.argmax(-1)
+        for i in range(B):
+            out[i].append(int(tok[i]))
+            gaps[i].append(float(top[i, 0] - top[i, 1]))
+        if t == max_new - 1:
+            break
+        logits, cache = models.decode_step(
+            params, cfg, tok.to(torch.int32).to(device), cache, pos)
+        pos = pos + 1
+    return out, gaps
+
+
+def moe_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 10 (c): ``cfg`` cut to 2 layers in fp32, each layer packed as
+    drawn; the Engine's greedy tokens on the card against
+    :func:`batched_greedy` on the CPU path: equal, or the first step at
+    which any request splits is a near tie of that request's CPU logits
+    (phase 5's rule; after it the slots' routes differ, so nothing later
+    is compared).  Both attention kernels on the FMA route."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    tag = f"moe fidelity {cfg.name}"
+    small = dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
+                                dtype="float32")
+    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+    # 8 new tokens: the CPU path streams a dbrx layer's 6.3 GB of fp32
+    # packs per forward, a second or more each
+    scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32, page_size=16,
+                       decode_chunk=8, max_new_tokens=8, eos_token=-1)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, small.vocab_size, size=int(n)).astype(np.int32)
+               for n in (5, 17, 26, 32)]
+    zero_counts(counters)
+    got = Engine(small, scfg, params, device=dev).generate(prompts)
+    check_routes(tag, launch_counts(counters), "fma")
+    t0 = time.perf_counter()
+    want, gaps = batched_greedy(_to(params, "cpu"), small, prompts,
+                                scfg.max_new_tokens, scfg.prompt_pad,
+                                scfg.max_len)
+    splits = [first_split(a, b) for a, b in zip(got, want)]
+    step = min((t for t in splits if t is not None), default=None)
+    log(f"[{tag}] 2 layers fp32, {len(prompts)} requests of "
+        f"{scfg.max_new_tokens} tokens (CPU path {time.perf_counter() - t0:.1f}"
+        f" s): first splits {splits}, min CPU top-2 gap "
+        f"{min(min(g) for g in gaps):.3e}")
+    bad = [i for i, t in enumerate(splits) if t == step and t is not None
+           and gaps[i][t] >= GAP_TOL]
+    if any(len(g) != scfg.max_new_tokens for g in got) or bad:
+        raise AssertionError(f"{tag}: card {got} vs CPU {want}")
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -1769,6 +2011,8 @@ def main() -> int:
         check_nm_spmm(fcfg, dev, copies=1)
         check_paged_attention(fcfg, dev)
         check_flash_attention(fcfg, dev)
+    for mcfg in moe_configs():
+        check_moe_kernels(mcfg, dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -1826,6 +2070,15 @@ def main() -> int:
     for fcfg in family_configs():
         family_vs_cpu(fcfg, dev, counters)
     timed("9 stablelm-12b and qwen2-vl-72b", t0)
+
+    t0 = time.perf_counter()
+    for mcfg in moe_configs():
+        got = moe_serve(mcfg, dev, counters)
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += got[name]
+    for mcfg in moe_configs():
+        moe_vs_cpu(mcfg, dev, counters)
+    timed("10 qwen2-moe-a2.7b and dbrx-132b", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

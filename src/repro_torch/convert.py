@@ -11,7 +11,11 @@ output is the port's tree: ``layers`` becomes a list of per-layer dicts,
 packs become the port's pack classes, arrays become tensors on
 ``device`` in their own dtype — so both sides compute the same thing.
 A layer of a stacked block or combined pack keeps the padding slots the
-JAX packer added up to the largest layer's ``max_nnz``.
+JAX packer added up to the largest layer's ``max_nnz``.  An MoE layer's
+expert projections (``moe/w_in``, ``w_gate``, ``w_out``; the JAX tree
+stacks them ``(L, E, …)``) keep their expert axis as a dense ``(E, K, N)``
+tensor, or become a list of ``E`` packs — the forms
+``core.sparse_linear.pack_params`` gives; ``router`` stays fp32.
 
 :func:`cnn_params_from_numpy` does the same for the TinyML CNNs of
 ``models/cnn.py``: conv kernels go from HWIO to the port's OIHW, every
@@ -45,29 +49,42 @@ def _pack_class(node: Any) -> Optional[type]:
     return _PACKS.get(frozenset(node)) if isinstance(node, dict) else None
 
 
-def _convert(node: Any, device, layer=None) -> Any:
-    """Convert a subtree, taking slice ``layer`` of every array when the
-    subtree is a layer stack."""
+#: the expert projections of an MoE layer's ``moe`` subtree
+_EXPERTS = ("w_in", "w_gate", "w_out")
+
+
+def _convert(node: Any, device, index: tuple = (), moe: bool = False
+             ) -> Any:
+    """Convert a subtree, taking ``a[index]`` of every array (``index``
+    names a layer of a layer stack, and an expert of an expert stack);
+    under an ``moe`` dict, an expert pack stack becomes a list of packs."""
     cls = _pack_class(node)
     if cls is not None:
         return cls(**{k: int(v) if isinstance(v, (int, np.integer)) else
-                      _tensor(v[layer] if layer is not None else v, device)
+                      _tensor(np.asarray(v)[index], device)
                       for k, v in node.items()})
     if isinstance(node, dict):
-        return {k: _convert(v, device, layer) for k, v in node.items()}
-    a = np.asarray(node)
-    return _tensor(a[layer] if layer is not None else a, device)
+        out = {}
+        for k, v in node.items():
+            if moe and k in _EXPERTS and _pack_class(v) is not None:
+                E = _lead(v)[len(index)]
+                out[k] = [_convert(v, device, index + (e,))
+                          for e in range(E)]
+            else:
+                out[k] = _convert(v, device, index, moe=k == "moe")
+        return out
+    return _tensor(np.asarray(node)[index], device)
 
 
-def _depth(node: Any) -> int:
-    """Leading-axis length of the first array in a layer stack."""
+def _lead(node: Any) -> tuple:
+    """Shape of the first array in a subtree (a pack's ``values`` or
+    ``enc``)."""
     cls = _pack_class(node)
     if cls is not None:
-        first = "enc" if "enc" in node else "values"
-        return np.asarray(node[first]).shape[0]
+        return np.asarray(node["enc" if "enc" in node else "values"]).shape
     if isinstance(node, dict):
-        return _depth(next(iter(node.values())))
-    return np.asarray(node).shape[0]
+        return _lead(next(iter(node.values())))
+    return np.asarray(node).shape
 
 
 def params_from_numpy(tree: dict, device="cuda") -> dict:
@@ -77,7 +94,7 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     out = {}
     for k, v in tree.items():
         if k == "layers":
-            out[k] = [_convert(v, device, l) for l in range(_depth(v))]
+            out[k] = [_convert(v, device, (l,)) for l in range(_lead(v)[0])]
         else:
             out[k] = _convert(v, device)
     return out

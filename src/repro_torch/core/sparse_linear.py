@@ -128,11 +128,23 @@ def _geometry_ok(K: int, N: int, scfg: SparsityConfig) -> bool:
     return True
 
 
+def _pack_stacked(w: torch.Tensor, scfg: SparsityConfig) -> list:
+    """Prune + pack each slice of an ``(E, K, N)`` expert stack: a list of
+    ``E`` packs, each the JAX package's ``_pack_stacked`` slice (block
+    and combined packs padded to the stack's largest ``max_nnz``)."""
+    pruned = [prune_weight(s, scfg)[0] for s in w]
+    pad = None
+    if scfg.format in ("block", "combined"):
+        pad = max(pack_weight(p, scfg).max_nnz for p in pruned)
+    return [pack_weight(p, scfg, pad_to=pad) for p in pruned]
+
+
 def pack_params(params: Any, cfg: Any) -> Any:
     """Offline prune + pack of a whole param tree (nested dicts/lists of
     tensors, ``layers`` a list of per-layer dicts).  Weights whose
     geometry does not divide the pack tiling stay dense; everything else
-    a family's :class:`SparsityConfig` governs becomes a pack."""
+    a family's :class:`SparsityConfig` governs becomes a pack, and an
+    ``(E, K, N)`` expert stack a list of ``E`` packs."""
 
     def visit(node, names):
         if isinstance(node, dict):
@@ -140,10 +152,12 @@ def pack_params(params: Any, cfg: Any) -> Any:
         if isinstance(node, list):
             return [visit(v, names) for v in node]
         scfg = _family_sparsity(names, cfg)
-        if scfg is None or scfg.format == "dense" or node.ndim != 2:
+        if scfg is None or scfg.format == "dense" or node.ndim not in (2, 3):
             return node
-        if not _geometry_ok(*node.shape, scfg):
+        if not _geometry_ok(*node.shape[-2:], scfg):
             return node
+        if node.ndim == 3:
+            return _pack_stacked(node, scfg)
         pruned, _ = prune_weight(node, scfg)
         return pack_weight(pruned, scfg)
 

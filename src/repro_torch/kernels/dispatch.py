@@ -218,9 +218,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            softcap=softcap, scale=scale)
 
 
-def plan_params(params: Any, M: int, device) -> List[dict]:
+def plan_params(params: Any, M: int, device,
+                expert_M: Optional[int] = None) -> List[dict]:
     """The dispatch decision for every packed weight of a param tree at
-    ``M`` rows on ``device`` — what the engine records per phase."""
+    ``M`` rows on ``device`` — what the engine records per phase.  A
+    routed expert's packs (``moe/w_in|w_gate|w_out/<e>``) take
+    ``expert_M`` rows when it is given: the rows a capacity dispatch
+    hands each expert (``models.moe.expert_rows``)."""
     mode = resolve_mode(device)
     plan: List[dict] = []
 
@@ -233,7 +237,10 @@ def plan_params(params: Any, M: int, device) -> List[dict]:
                 visit(v, path + (str(i),))
         elif isinstance(node, PACK_TYPES):
             d = SparsityDescriptor.of(node)
-            plan.append({"param": "/".join(path), "M": M,
+            routed = expert_M is not None and len(path) >= 3 and \
+                path[-3] == "moe" and path[-2] in ("w_in", "w_gate", "w_out")
+            plan.append({"param": "/".join(path),
+                         "M": expert_M if routed else M,
                          "kernel": _entry_for(d.kind).name, "mode": mode,
                          "pattern": d.pattern})
 

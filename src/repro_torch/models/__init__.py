@@ -1,14 +1,15 @@
 """Model API of the port — the JAX package's serving surface for the
-decoder-only ("lm") family: dense gated LMs with a tied or untied head
-(qwen3, stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl).
+decoder-only ("lm") family: gated LMs with a tied or untied head (qwen3,
+stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl), and
+routed experts in place of the MLP (qwen2-moe, dbrx; ``models/moe.py``).
 
 ``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
 ``decode_block``, plus the cache helpers the serving loops use
 (``blank_slot_cache``, ``merge_cache_slot``, ``copy_page``,
 ``set_page_table``, ``page_view``, ``unpage_view``).  Caches are updated
 in place; the helpers return the cache for call-site parity with the JAX
-API.  MoE, the hybrid (mamba) and encoder-decoder families and the gemma
-features are ROADMAP queue 1 items 11b-11e.
+API.  The hybrid (mamba) and encoder-decoder families and the gemma
+features are ROADMAP queue 1 items 11c-11e.
 """
 
 from __future__ import annotations
@@ -22,13 +23,14 @@ from repro_torch.models import transformer as TR
 from repro_torch.models.attention import (init_kv_cache, init_paged_kv_cache,
                                           paged_max_pages)
 from repro_torch.models.config import LayerKind, ModelConfig
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 
-__all__ = ["LayerKind", "ModelConfig", "family", "init_model", "init_cache",
-           "prefill", "decode_step", "decode_block", "blank_slot_cache",
-           "merge_cache_slot", "copy_page", "set_page_table", "page_view",
-           "unpage_view", "paged_max_pages"]
+__all__ = ["LayerKind", "ModelConfig", "family", "expert_rows", "init_model",
+           "init_cache", "prefill", "decode_step", "decode_block",
+           "blank_slot_cache", "merge_cache_slot", "copy_page",
+           "set_page_table", "page_view", "unpage_view", "paged_max_pages"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -39,26 +41,34 @@ def family(cfg: ModelConfig) -> str:
     return "lm"
 
 
+def expert_rows(cfg: ModelConfig, tokens: int) -> Optional[int]:
+    """Rows each routed expert's projections take in a forward of
+    ``tokens`` tokens (``None`` without experts)."""
+    return MOE.expert_rows(cfg, tokens) if cfg.n_experts else None
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     f = family(cfg)
-    if f != "lm" or cfg.n_experts or not cfg.mlp_gated or cfg.embed_scale \
+    if f != "lm" or not cfg.mlp_gated or cfg.embed_scale \
             or cfg.post_norm or cfg.input_mode not in ("tokens", "embeds"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense gated decoder-only LMs are ported (tied "
-            "or untied head, M-RoPE, embeds input); MoE is ROADMAP queue 1 "
-            "item 11b, SSM/hybrid 11c, enc-dec 11d and the gemma features "
+            f"{cfg.name}: only gated decoder-only LMs are ported (tied or "
+            "untied head, M-RoPE, embeds input, routed experts); SSM/hybrid "
+            "is ROADMAP queue 1 item 11c, enc-dec 11d and the gemma features "
             "(post-norms, scaled embeds, ungated MLPs) 11e")
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0,
-               device="cuda") -> Params:
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+               packed: bool = False) -> Params:
     """Random params from ``seed`` on ``device`` (a ``torch.Generator``
-    on that device draws them)."""
+    on that device draws them); ``packed`` prunes and packs them per
+    ``cfg`` layer by layer as they are drawn, for a model whose dense
+    weights do not fit the device."""
     _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return TR.init_lm(cfg, gen, device)
+    return TR.init_lm(cfg, gen, device, packed=packed)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -167,6 +167,23 @@ def _flash_suffix(cfg: ModelConfig, q, kp, vp, pt, kv_len: int, window):
     return out.transpose(1, 2)
 
 
+def _last_writers(rows: torch.Tensor, *vals: torch.Tensor):
+    """``vals (B, Lq, ...)`` with each entry replaced by the value of the
+    last entry (in ``(B, Lq)`` order) whose pool row ``rows (B, Lq)`` is
+    the same.  Frozen slots write their rows to the null page, where they
+    may collide; a CUDA scatter keeps any one of the colliding values,
+    the CPU's and the JAX scatter the last.  Slots interact only through
+    an MoE capacity dispatch, where a frozen slot's route can take a live
+    token's place; so the MoE decode writes the last value from every
+    colliding entry, and the card keeps what the CPU keeps."""
+    flat = rows.reshape(-1)
+    n = flat.numel()
+    order = torch.arange(n, device=flat.device)
+    last = torch.where(flat[:, None] == flat[None, :], order, -1).amax(1)
+    return tuple(t.reshape(n, *t.shape[2:])[last].reshape(t.shape)
+                 for t in vals)
+
+
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: Params, cache_pos, *,
               is_local: bool = False,
@@ -207,8 +224,11 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 .expand(B, Lq) if prefill else rows_from(cache_pos))
         pages = pt.gather(1, (posn // ps).clamp(0, n_view - 1)).long()
         offs = posn % ps
-        kp[pages, offs] = k.to(kp.dtype)
-        vp[pages, offs] = v.to(vp.dtype)
+        k, v = k.to(kp.dtype), v.to(vp.dtype)
+        if cfg.n_experts and not prefill:
+            k, v = _last_writers(pages * ps + offs, k, v)
+        kp[pages, offs] = k
+        vp[pages, offs] = v
         if prefill and cache_pos:
             out = _flash_suffix(cfg, q, kp, vp, pt, cache_pos + Lq, window)
         elif prefill:

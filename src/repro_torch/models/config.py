@@ -2,10 +2,10 @@
 field, so a config built on either side describes the same model.
 
 The port serves the decoder-only ("lm") family so far, with a tied or
-untied head, M-RoPE (``mrope_sections``) and embeds input
-(``input_mode``); the fields of the MoE, SSM and encoder-decoder
-families and the gemma features are carried for parity and rejected by
-``models.init_model`` (ROADMAP queue 1 items 11b-11e).
+untied head, M-RoPE (``mrope_sections``), embeds input (``input_mode``)
+and routed experts (the MoE fields); the fields of the SSM and
+encoder-decoder families and the gemma features are carried for parity
+and rejected by ``models.init_model`` (ROADMAP queue 1 items 11c-11e).
 """
 
 from __future__ import annotations

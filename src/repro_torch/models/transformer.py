@@ -5,8 +5,10 @@ Params are ``{"embed": (V_pad, d), "layers": [per-layer dict, ...],
 "ln_final": {"scale"}}``, plus ``"unembed": (V_pad, d)`` for an untied
 head (``tie_embeddings=False``, stablelm); a per-layer dict holds
 ``ln_attn``, ``ln_mlp``, ``attn`` (``wq/wk/wv/wo`` + qk-norm scales) and
-``mlp`` (``w_in/w_gate/w_out``).  Projections may be dense tensors or
-packs — ``apply_linear`` dispatches on the type.  The cache keeps the JAX
+``mlp`` (``w_in/w_gate/w_out``), or for an MoE config (``n_experts``)
+``moe`` (``router``, the expert stacks, optional ``shared``; see
+``models/moe.py``).  Projections may be dense tensors or packs —
+``apply_linear`` dispatches on the type.  The cache keeps the JAX
 package's stacked ``(n_layers, ...)`` leaves; layer ``l`` works on views
 of slice ``l``.  Under M-RoPE (qwen2-vl) the positions are broadcast to
 identical (t, h, w) triples, as the JAX model does for text.
@@ -18,7 +20,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.sparse_linear import pack_params
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.config import LayerKind, ModelConfig
 
@@ -27,20 +31,32 @@ Params = Dict[str, Any]
 
 def init_layer(cfg: ModelConfig, dtype: torch.dtype,
                generator: torch.Generator, device) -> Params:
-    return {"ln_attn": L.init_rmsnorm(cfg.d_model, device),
-            "ln_mlp": L.init_rmsnorm(cfg.d_model, device),
-            "attn": init_attention(cfg, dtype, generator, device),
-            "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, dtype, generator,
-                              device)}
+    p = {"ln_attn": L.init_rmsnorm(cfg.d_model, device),
+         "ln_mlp": L.init_rmsnorm(cfg.d_model, device),
+         "attn": init_attention(cfg, dtype, generator, device)}
+    if cfg.n_experts:
+        p["moe"] = M.init_moe(cfg, dtype, generator, device)
+    else:
+        p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, dtype, generator,
+                              device)
+    return p
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
-    """Random LM params (normal, fan-in scaled, as the JAX init)."""
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
+            packed: bool = False) -> Params:
+    """Random LM params (normal, fan-in scaled, as the JAX init).  With
+    ``packed``, each layer is pruned and packed per ``cfg`` right after
+    its init (``pack_params``), so one dense layer is the only transient:
+    the draws, and so the packs, equal ``pack_params`` of the dense init."""
     dtype = L.DTYPES[cfg.dtype]
+
+    def layer():
+        p = init_layer(cfg, dtype, generator, device)
+        return pack_params(p, cfg) if packed else p
+
     p = {"embed": L.init_embedding(cfg.vocab_padded, cfg.d_model, dtype,
                                    generator, device),
-         "layers": [init_layer(cfg, dtype, generator, device)
-                    for _ in range(cfg.n_layers)],
+         "layers": [layer() for _ in range(cfg.n_layers)],
          "ln_final": L.init_rmsnorm(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["unembed"] = L.init_embedding(cfg.vocab_padded, cfg.d_model, dtype,
@@ -60,13 +76,17 @@ def _layer_cache(cache: Params, l: int) -> Params:
 def block(p: Params, cfg: ModelConfig, x: torch.Tensor,
           positions: torch.Tensor, kind: int, cache: Params, cache_pos
           ) -> torch.Tensor:
-    """Pre-norm block: ``x + attn(norm(x))``, then ``x + mlp(norm(x))``."""
+    """Pre-norm block: ``x + attn(norm(x))``, then ``x + mlp(norm(x))``,
+    the MoE block in place of the MLP under ``cfg.n_experts`` (its aux
+    loss dropped: nothing here trains)."""
     h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     attn_out, _ = attention(p["attn"], cfg, h, positions, cache, cache_pos,
                             is_local=kind == int(LayerKind.ATTN_LOCAL),
                             sparsity=cfg.attn_sparsity)
     x = x + attn_out
     h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    if cfg.n_experts:
+        return x + M.moe_block(p["moe"], cfg, h)[0]
     return x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity)
 
 

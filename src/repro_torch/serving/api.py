@@ -82,6 +82,12 @@ class Engine:
                 raise NotImplementedError(
                     f"ServeConfig.{field} is not served by the port yet "
                     f"({item})")
+        if cfg.n_experts and (scfg.spec or scfg.prefix_cache):
+            raise NotImplementedError(
+                f"{cfg.name}: speculative decoding and prefix sharing are not "
+                "served for MoE configs yet (ROADMAP queue 1 item 16): a "
+                "verify block or a suffix prefill routes another token set "
+                "than the plain loop, so its capacity drops differ")
         if scfg.prefix_cache and MZ.family(cfg) != "lm":
             raise ValueError(
                 "prefix_cache shares KV pages by position; the "
@@ -101,10 +107,11 @@ class Engine:
             draft_params = (make_draft_params(params, cfg)
                             if scfg.spec_draft == "pack" else params)
         self.draft_params = draft_params
-        self.prefill_plan = dispatch.plan_params(params, scfg.prompt_pad,
-                                                 self.device)
-        self.decode_plan = dispatch.plan_params(params, scfg.slots,
-                                                self.device)
+        self.prefill_plan = dispatch.plan_params(
+            params, scfg.prompt_pad, self.device,
+            MZ.expert_rows(cfg, scfg.prompt_pad))
+        self.decode_plan = dispatch.plan_params(
+            params, scfg.slots, self.device, MZ.expert_rows(cfg, scfg.slots))
         self.draft_plan: List[dict] = []
         self.verify_plan: List[dict] = []
         if scfg.spec:

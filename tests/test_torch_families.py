@@ -15,8 +15,10 @@ Auto axes, weights carried over with ``convert.params_from_numpy``):
 * Engine parity: greedy transcripts and ``sync_count`` equal the JAX
   ``Engine`` and ``conftest.reference_decode``, both layouts, both tiny
   configs, plus speculation (self and 2:4 pack draft) on the untied one;
-* ``_check_ported`` still refuses the MoE, SSM/hybrid, enc-dec and gemma
-  configs of the JAX registry.
+* ``_check_ported`` still refuses the SSM/hybrid, enc-dec and gemma
+  configs of the JAX registry; the MoE configs pass it (their own suite is
+  ``test_torch_moe.py``), while their speculation and prefix sharing stay
+  refused.
 """
 
 import dataclasses
@@ -117,8 +119,9 @@ def test_registry_names_the_ported_archs():
     cfg = TC.get("stablelm-12b")
     assert not cfg.tie_embeddings and cfg.head_dim == cfg.d_model // 32
     assert TC.get("qwen2-vl-72b").mrope_sections == (16, 24, 24)
-    with pytest.raises(NotImplementedError, match="11b"):
-        TC.get("dbrx-132b")
+    assert TC.get("dbrx-132b") == to_port(JC.get("dbrx-132b"))
+    with pytest.raises(NotImplementedError, match="11c-11e"):
+        TC.get("mamba2-130m")
 
 
 # --- M-RoPE ----------------------------------------------------------------------
@@ -347,15 +350,28 @@ def test_pack_draft_shares_the_untied_head(untied_dense):
 
 # --- what stays refused --------------------------------------------------------------
 
-REFUSED = [a for a in JC.list_archs() if a not in ("qwen3_0_6b", *PORTED)]
+#: the MoE family: ported (ROADMAP queue 1 item 11b), its speculation and
+#: prefix sharing not yet (item 16)
+MOE = ("qwen2_moe_a2_7b", "dbrx_132b")
+REFUSED = [a for a in JC.list_archs()
+           if a not in ("qwen3_0_6b", *PORTED, *MOE)]
 
 
-@pytest.mark.parametrize("arch", REFUSED)
+@pytest.mark.parametrize("arch", sorted(REFUSED + list(MOE)))
 def test_check_ported_refuses_the_other_families(arch):
-    """MoE, SSM/hybrid, enc-dec and gemma stay refused, with the message
-    naming their ROADMAP items."""
+    """SSM/hybrid, enc-dec and gemma stay refused, with the message naming
+    their ROADMAP items.  The MoE archs pass ``_check_ported``, and what
+    stays refused for them is speculation and prefix sharing."""
     cfg = to_port(JC.get_reduced(arch))
-    with pytest.raises(NotImplementedError, match="11b.*11c.*11d.*11e"):
+    if arch in MOE:
+        TM._check_ported(cfg)
+        params = TM.init_model(cfg, device="cpu")
+        for kw in (dict(spec_k=2), dict(prefix_cache=True)):
+            with pytest.raises(NotImplementedError, match="item 16"):
+                TEngine(cfg, TServeConfig(**SERVE, page_size=8, **kw),
+                        params, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="11c.*11d.*11e"):
         TM.init_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 16, device="cpu")
@@ -363,5 +379,11 @@ def test_check_ported_refuses_the_other_families(arch):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_check_ported_accepts_stablelm_and_qwen2_vl(arch):
+    for fn in ("config", "reduced", "sparse"):
+        TM._check_ported(to_port(getattr(JC._module(arch), fn)()))
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_check_ported_accepts_the_moe_family(arch):
     for fn in ("config", "reduced", "sparse"):
         TM._check_ported(to_port(getattr(JC._module(arch), fn)()))

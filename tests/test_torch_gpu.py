@@ -890,3 +890,65 @@ def test_capture_that_syncs_raises(cuda, monkeypatch):
     assert [how for _, how in st.chunk_runs] == ["eager"]
     assert st.graph_captures == [] and st.sync_count == 1
     assert all(c.graph is None for c in eng._backend._chunks.values())
+
+
+# --- the MoE family --------------------------------------------------------
+
+def _moe_config(arch, dtype, layers=2):
+    """``arch``'s ``sparse()`` cut to ``layers``: published widths, 2:4
+    experts."""
+    import dataclasses
+    import importlib
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return dataclasses.replace(mod.sparse(), n_layers=layers,
+                               layer_kinds=(), dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "dbrx_132b"])
+def test_moe_sorted_matches_the_cpu_path(cuda, arch):
+    """One fp32 MoE layer of packed experts at published widths, 8 decode
+    rows (C = 1 or 3, routes dropped) and a 128-row prompt: the card
+    (nm_spmm's FMA route) against the same function on the CPU."""
+    from repro_torch import models
+    from repro_torch.models import moe
+    cfg = _moe_config(arch, "float32", layers=1)
+    layer = models.init_model(cfg, seed=1, device=cuda,
+                              packed=True)["layers"][0]["moe"]
+    cpu = {k: ([w.to("cpu") for w in v] if isinstance(v, list) else
+               {n: w.to("cpu") for n, w in v.items()}
+               if isinstance(v, dict) else v.to("cpu"))
+           for k, v in layer.items()}
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for shape in ((8, 1, cfg.d_model), (1, 128, cfg.d_model)):
+        x = torch.randn(shape, generator=g, device=cuda)
+        before = nm_mod.launches
+        got, _ = moe.moe_sorted(layer, cfg, x)
+        assert nm_mod.launches - before == 3 * cfg.n_experts + (
+            3 if cfg.n_shared_experts else 0)
+        want, _ = moe.moe_sorted(cpu, cfg, x.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "dbrx_132b"])
+def test_moe_graph_serve_equals_eager(cuda, arch):
+    """A 2-layer bf16 MoE model at published widths through the captured
+    chunk graphs gives the eager serve's tokens, ``sync_count`` and
+    launches; nm_spmm launches 3 E (+ 3 shared) times per layer and
+    forward."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = _moe_config(arch, "bfloat16")
+    params = models.init_model(cfg, seed=0, device=cuda, packed=True)
+    scfg = ServeConfig(**GRAPH_SERVE)
+    eager = Engine(cfg, scfg, params, device=cuda)
+    eager._backend._graphs = False
+    want = _serve(eager)
+    graph, seen = Engine(cfg, scfg, params, device=cuda), {}
+    cold = _serve(graph)
+    assert cold[:3] == want[:3]
+    assert len(_check_graph_runs(cold[3], seen)) >= 2
+    st = want[3]
+    steps = len(st.chunk_s) * scfg.decode_chunk
+    per = 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
+    assert want[2][nm_mod.__name__] == per * cfg.n_layers * (
+        st.prefills + steps)
