@@ -40,7 +40,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      rows a capacity dispatch hands an expert (M = 1, 3, 11, 40), timed
      over enough experts to stream from HBM, qwen2-moe's shared FFN
      (5632 wide) at M = 8 and 128, and both attention kernels at 16
-     heads over 16 (G = 1) and 48 over 8 (G = 6);
+     heads over 16 (G = 1) and 48 over 8 (G = 6); and at phase 11's:
+     nm_spmm at mamba2-130m's ``out_proj`` (1536 → 768) and at one
+     zamba2-1.2b layer (``out_proj`` 4096 → 2048 and the shared MLP's
+     2048 ↔ 8192), timed over enough copies to stream from HBM, and both
+     attention kernels at zamba2's heads (D = 64, 32 over 32, G = 1);
   4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
      format on all seven projections: ``sparse()`` (2:4, g=128) and
@@ -101,8 +105,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      steps of the bf16 logits' resolution, read by replaying the
      unshared tokens one sequence at a time); and the same stream at 2
      layers in fp32 gives the CPU path's tokens (phase 5's rule);
-  8. speculative decoding: phase 4's qwen3-0.6b (28 layers, bf16,
-     ``sparse()``'s config over dense random weights) and stream through
+  8. speculative decoding: phase 4's qwen3-0.6b at full width, cut to
+     ``SPEC_LAYERS`` of its 28 layers (bf16, ``sparse()``'s config over
+     dense random weights; the cut keeps the whole run well inside its
+     time limit as later phases join it) and stream through
      (a) the plain loop, a cold and a warm graph serve, then with
      ``spec_k=3`` (b) the self draft and (c) the config's 2:4 packs as
      the draft (``spec_draft="pack"``: nm_spmm drafts, the dense weights
@@ -154,6 +160,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      layers in fp32: the Engine's tokens on the card against the same
      batch decoded on the CPU path (``batched_greedy``; phase 5's rule
      at the first split).
+ 11. the SSM/hybrid family: mamba2-130m (24 Mamba-2 layers, d_model
+     768, 24 SSD heads of 64, state 128, vocab 50280, tied) and
+     zamba2-1.2b (38 layers, d_model 2048, 64 SSD heads of 64, state 64,
+     one shared attention block of 32 heads of 64 and a gated MLP of
+     8192 before layers 3, 9, 15, 21, 27 and 33, vocab 32000, tied) at
+     published widths and depth, bf16, random weights from a seed, each
+     layer packed as it is drawn: ``sparse()``'s 2:4 packs on
+     ``out_proj`` and the shared MLP, ``in_proj`` dense (its width is no
+     multiple of 128), through phase 4's serve and stream: a cold graph
+     serve, then phase 4's turns.  Gates: budgets and syncs; turns
+     equal; only nm_spmm (and zamba2's attention kernels, on the
+     tensor-core routes) launch, nm_spmm once per ``out_proj`` and
+     shared-MLP projection and forward, flash once per shared slot and
+     prefill, paged once per shared slot and decode step; the recurrent
+     state keeps its addresses through all serves.  Printed: the turns'
+     metrics, the profile of a replayed chunk, and the device ms of the
+     SSD scan of a prompt and of the recurrent update per layer.  Then
+     in fp32, mamba2 at 2 layers and zamba2 at its first 4: the Engine's
+     tokens on the card against one-sequence greedy decoding on the CPU
+     path (phase 5's rule), monolithic in two waves (the second wave
+     starts from zero recurrent state) and paged; and zamba2 at 4
+     layers speculative (``spec_k = 3``) with a draft from another seed:
+     a rollback of the recurrent state at nearly every step, the plain
+     loop's tokens, warm graph turns equal to the eager ones.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -1491,6 +1521,8 @@ def prefix_vs_cpu(cfg, dev) -> None:
 # --- phase 8: speculative decoding ------------------------------------------
 
 SPEC_K = 3                         # drafted tokens per verify block
+#: phase 8's depth: 12 serves of 28 layers took ~200 s of the run
+SPEC_LAYERS = 8
 
 
 def spec_config(**kw):
@@ -1957,6 +1989,273 @@ def moe_vs_cpu(cfg, dev, counters) -> None:
         raise AssertionError(f"{tag}: card {got} vs CPU {want}")
 
 
+# --- phase 11: the SSM/hybrid family -----------------------------------------
+
+def hybrid_configs() -> list:
+    """Phase 11's configurations: mamba2-130m and zamba2-1.2b ``sparse()``
+    at full width and depth."""
+    from repro_torch.configs import mamba2_130m, zamba2_1_2b
+    return [mamba2_130m.sparse(), zamba2_1_2b.sparse()]
+
+
+def hybrid_packs(cfg) -> int:
+    """nm_spmm launches of one forward of ``cfg``: every ``out_proj``,
+    and the shared MLP's three projections at each shared slot."""
+    from repro_torch.models.hybrid import shared_slots
+    return cfg.n_layers + 3 * len(shared_slots(cfg))
+
+
+def check_hybrid_kernels(cfg, dev) -> None:
+    """Phase 3 at a hybrid config: nm_spmm at its ``out_proj`` (and
+    zamba2's shared MLP, one layer's four projections), timed over enough
+    copies to stream from HBM; for zamba2 both attention kernels at its
+    heads (D = 64, 32 over 32)."""
+    from repro_torch.models.hybrid import shared_slots
+    projections = [("out_proj", cfg.d_inner, cfg.d_model)]
+    if shared_slots(cfg):
+        d, ff = cfg.d_model, cfg.d_ff
+        projections += [("shared w_in", d, ff), ("shared w_gate", d, ff),
+                        ("shared w_out", ff, d)]
+    per = sum(k * n for _, k, n in projections)
+    check_nm_spmm(cfg, dev, copies=max(1, math.ceil(128e6 / per)),
+                  projections=projections)
+    if shared_slots(cfg):
+        check_paged_attention(cfg, dev)
+        check_flash_attention(cfg, dev)
+
+
+def ssm_times(cfg, dev) -> None:
+    """Device ms (CUDA-graph replay) of the SSM parts of phase 11's serve
+    at its shapes, per layer: the SSD scan of one 128-row prompt (the
+    per-slot prefill), the O(1) recurrent update of 8 slots beside its
+    bound (the fp32 state read and written once), and one whole mamba
+    layer (projections included) at decode and at prefill."""
+    from repro_torch import models
+    from repro_torch.models import ssm
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    A = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    xs, dt = rand(1, 128, H, P), rand(1, 128, H, dtype=torch.float32).exp()
+    Bp, Cp = rand(1, 128, H, N), rand(1, 128, H, N)
+    chunk = ssm._pick_chunk(128, cfg.ssm_chunk)
+    scan = device_ms(lambda: ssm.ssd_chunked(xs, dt, A, Bp, Cp, chunk))
+    state = rand(8, H, P, N, dtype=torch.float32)
+    x1, dt1 = rand(8, H, P), rand(8, H, dtype=torch.float32).exp()
+    B1, C1 = rand(8, H, N), rand(8, H, N)
+    upd = device_ms(lambda: ssm.ssm_update(state, x1, dt1, A, B1, C1))
+    b, by = bound_ms(2 * state.numel() * 4, 4.0 * state.numel(),
+                     FP32_FLOPS_PER_S)
+    one = dataclasses.replace(cfg, n_layers=1,
+                              layer_kinds=(int(models.LayerKind.MAMBA),))
+    p = models.init_model(one, seed=SEED, device=dev,
+                          packed=True)["mamba"][0]
+    cache = models.init_cache(one, 8, 512, device=dev)["ssm"]
+    layer = {k: v[0] for k, v in cache.items()}
+    h8, h128 = rand(8, 1, cfg.d_model), rand(1, 128, cfg.d_model)
+    blank = {k: v[:, :1].clone()[0] for k, v in cache.items()}
+    dec = device_ms(lambda: ssm.mamba_block(p, cfg, h8, cache=layer,
+                                            sparsity=cfg.mlp_sparsity))
+    pre = device_ms(lambda: ssm.mamba_block(p, cfg, h128, cache=blank,
+                                            sparsity=cfg.mlp_sparsity))
+    L = cfg.n_layers
+    log(f"[hybrid {cfg.name}] per layer, device ms by graph replay: SSD scan "
+        f"of a 128-row prompt (chunk {chunk}) {scan:.5f} (x {L} layers = "
+        f"{scan * L:.4f}); recurrent update of 8 slots {upd:.5f} (bound "
+        f"{b:.5f}, {by}; x {L} = {upd * L:.4f}); one mamba layer, decode of "
+        f"8 slots {dec:.5f}, prefill of 128 rows {pre:.5f}")
+
+
+def hybrid_serve(cfg, dev, counters) -> dict:
+    """Phase 11 (a): ``cfg`` at its published widths and depth, bf16,
+    random weights from the seed, each layer packed as it is drawn
+    (``init_model(packed=True)``), phase 4's serve and stream through the
+    Engine: a cold graph serve, then :func:`graph_turns`.  Gates: budgets
+    and syncs (``serve_prompts``); every ``out_proj`` and shared-MLP
+    projection a 2:4 pack, every ``in_proj`` dense; only nm_spmm (and
+    zamba2's two attention kernels, on their tensor-core routes) launch,
+    nm_spmm :func:`hybrid_packs` times per forward, flash once per shared
+    slot and prefill, paged once per shared slot and decode step; the
+    recurrent state at the same addresses from before the first serve to
+    after the last.  Then one replayed decode chunk under the profiler
+    and :func:`ssm_times`.  Returns the cold serve's launches."""
+    import gc
+
+    from repro_torch import models
+    from repro_torch.core.sparsity import NMPack
+    from repro_torch.models.hybrid import shared_slots
+    from repro_torch.serving import Engine
+    tag = f"hybrid {cfg.name}"
+    t0 = time.perf_counter()
+    params = models.init_model(cfg, seed=SEED, device=dev, packed=True)
+    torch.cuda.synchronize()
+    n_shared = len(shared_slots(cfg))
+    outs = [m["out_proj"] for m in params["mamba"]]
+    ins = [m["in_proj"] for m in params["mamba"]]
+    mlp = list(params["shared"]["mlp"].values()) if n_shared else []
+    if not all(isinstance(w, NMPack) for w in outs + mlp) or any(
+            isinstance(w, NMPack) for w in ins):
+        raise AssertionError(f"{tag}: out_proj and the shared MLP must be "
+                             "2:4 packs and in_proj dense")
+
+    def gb(ws):
+        return round(sum(w.values.numel() * 2 + w.idx.numel() * 4
+                         if isinstance(w, NMPack) else w.numel() * 2
+                         for w in ws) / 1e9, 3)
+
+    log(f"[{tag}] {cfg.n_layers} layers d_model={cfg.d_model} d_inner="
+        f"{cfg.d_inner} ssm heads {cfg.n_ssm_heads}x{cfg.ssm_head_dim} "
+        f"state {cfg.ssm_state}, shared slots {shared_slots(cfg)} "
+        f"(heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}), vocab {cfg.vocab_size}, {cfg.dtype}: random init + "
+        f"pack layer by layer in {time.perf_counter() - t0:.1f} s; GB: "
+        f"in_proj (dense) {gb(ins)}, out_proj {gb(outs)}, shared MLP "
+        f"{gb(mlp)}, embedding {gb([params['embed']])}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    eng = Engine(cfg, spec_config(), params, device=dev)
+    eng._ensure_device_state()
+    state = models.cache_leaves(models.recurrent_state(eng._cache))
+    ptrs = [t.data_ptr() for t in state]
+    log(f"[{tag}] recurrent state {[tuple(t.shape) for t in state]} fp32, "
+        f"{sum(t.numel() * 4 for t in state) / 1e9:.3f} GB")
+    prompts = phase4_prompts(cfg.vocab_size)
+    cold = serve_prompts(eng, prompts, counters)
+    _, rep, launches = cold
+    path = {"nm_spmm"} | ({"paged_attention", "flash_attention"}
+                          if n_shared else set())
+    if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+        raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                             f"launch and no other: {launches}")
+    if n_shared:
+        check_routes(tag, launches, "mma")
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    want = {"flash_attention": n_shared * rep["prefills"],
+            "paged_attention": n_shared * steps,
+            "nm_spmm": hybrid_packs(cfg) * (rep["prefills"] + steps)}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{tag}: launches {launches}, want {want} for "
+                             f"{rep['prefills']} prefills and {steps} steps")
+    log(f"[{tag}] {json.dumps(rep)}")
+    turns = graph_turns(eng, prompts, counters, cold, tag)
+    warm = [ms for name, _, (_, r, _) in turns if name == "graph warm"
+            for ms in r["chunk_ms"]]
+    profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+    if [t.data_ptr() for t in models.cache_leaves(
+            models.recurrent_state(eng._cache))] != ptrs:
+        raise AssertionError(f"{tag}: the recurrent state moved")
+    log(f"[{tag}] the recurrent state kept its {len(ptrs)} addresses "
+        "through all serves")
+    ssm_times(cfg, dev)
+    del eng, params, outs, ins, mlp, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_small(cfg):
+    """``cfg`` in fp32 cut to 2 layers, or for zamba2 to its first 4
+    (``zamba_kinds(38, 6)[:4]``: the shared block runs before layer 3)."""
+    from repro_torch.models.hybrid import shared_slots
+    layers = 4 if shared_slots(cfg) else 2
+    return dataclasses.replace(cfg, n_layers=layers,
+                               layer_kinds=cfg.layer_kinds[:layers],
+                               dtype="float32")
+
+
+def hybrid_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+            for n in (5, 17, 26, 32, 9, 30, 12, 21)]
+
+
+def hybrid_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 11 (b): :func:`hybrid_small` on the card against one-sequence
+    greedy decoding on the CPU path (phase 5's rule at the first split),
+    eight requests on four slots: monolithic in two waves of four (the
+    second wave must start every slot's recurrent state from zero), and
+    paged (per-slot prefills).  nm_spmm launches :func:`hybrid_packs`
+    times per forward; on the monolithic layout both waves are one
+    prefill call each."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    small = hybrid_small(cfg)
+    tag = f"hybrid fidelity {cfg.name}"
+    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+    cpu_params = _to(params, "cpu")
+    prompts = hybrid_prompts(small.vocab_size)
+    wants = [greedy(cpu_params, small, p, 16, 32, 160) for p in prompts]
+    for page_size in (0, 16):
+        scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32,
+                           page_size=page_size, decode_chunk=8,
+                           max_new_tokens=16, eos_token=-1)
+        eng = Engine(small, scfg, params, device=dev)
+        zero_counts(counters)
+        got = eng.generate(prompts[:4]) + eng.generate(prompts[4:])
+        launches = launch_counts(counters)
+        st = eng.stats()
+        calls = 8 if page_size else 2
+        steps = len(st.chunk_s) * scfg.decode_chunk
+        if launches["nm_spmm"] != hybrid_packs(small) * (calls + steps):
+            raise AssertionError(f"{tag}: nm_spmm {launches['nm_spmm']} for "
+                                 f"{calls} prefill calls and {steps} steps")
+        splits = []
+        for i, (g, (want, gaps, _)) in enumerate(zip(got, wants)):
+            split = first_split(g, want)
+            splits.append(split)
+            if len(g) != 16 or (split is not None
+                                and gaps[split] >= GAP_TOL):
+                raise AssertionError(f"{tag} request {i}: card {g} vs CPU "
+                                     f"{want}")
+        log(f"[{tag}] {small.n_layers} layers fp32, "
+            f"{'paged' if page_size else 'monolithic, two waves'}: first "
+            f"splits against the CPU {splits}, min CPU top-2 gap "
+            f"{min(min(w[1]) for w in wants):.3e}; launches {launches}")
+
+
+def hybrid_spec(cfg, dev, counters) -> dict:
+    """Phase 11 (c): zamba2 at :func:`hybrid_small`'s 4 layers in fp32,
+    ``spec_k = 3`` with a draft from another seed (rejected almost
+    always, so every step rolls the recurrent state back): on one engine
+    a cold graph serve and :func:`graph_turns` (warm graph turns equal to
+    the eager ones exactly); the tokens equal the plain loop's; one
+    verify block per shared slot and step."""
+    from repro_torch import models
+    from repro_torch.models.hybrid import shared_slots
+    from repro_torch.serving import Engine, ServeConfig
+    small = hybrid_small(cfg)
+    tag = f"hybrid spec {cfg.name}"
+    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+    garbage = models.init_model(small, seed=SEED + 2, device=dev,
+                                packed=True)
+    kw = dict(slots=4, max_len=160, prompt_pad=32, page_size=16,
+              decode_chunk=8, max_new_tokens=16, eos_token=-1)
+    prompts = hybrid_prompts(small.vocab_size)
+    plain, _, _ = serve_prompts(Engine(small, ServeConfig(**kw), params,
+                                       device=dev), prompts, counters)
+    eng = Engine(small, ServeConfig(**kw, spec_k=SPEC_K), params,
+                 draft_params=garbage, device=dev)
+    turns = graph_turns(eng, prompts, counters,
+                        serve_prompts(eng, prompts, counters), tag)
+    outs, rep, launches = turns[0][2]
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    n_shared = len(shared_slots(small))
+    if launches["paged_attention Q>1"] != n_shared * steps:
+        raise AssertionError(f"{tag}: {launches['paged_attention Q>1']} "
+                             f"verify blocks for {steps} steps")
+    if outs != plain or rep["acceptance_rate"] >= 0.5:
+        raise AssertionError(f"{tag}: tokens equal to the plain loop's: "
+                             f"{outs == plain}; acceptance "
+                             f"{rep['acceptance_rate']:.4f}")
+    log(f"[{tag}] garbage draft: acceptance {rep['acceptance_rate']:.4f} "
+        f"({rep['accepted']} of {rep['drafted']}), every request's tokens "
+        "equal to the plain loop's")
+    return launches
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -2013,6 +2312,8 @@ def main() -> int:
         check_flash_attention(fcfg, dev)
     for mcfg in moe_configs():
         check_moe_kernels(mcfg, dev)
+    for hcfg in hybrid_configs():
+        check_hybrid_kernels(hcfg, dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -2056,7 +2357,8 @@ def main() -> int:
     timed("7 prefix sharing", t0)
 
     t0 = time.perf_counter()
-    got = speculation(cfg, dev, counters)
+    got = speculation(dataclasses.replace(cfg, n_layers=SPEC_LAYERS,
+                                          layer_kinds=()), dev, counters)
     for name in ("nm_spmm", "paged_attention", "flash_attention"):
         launches[name] += got[name]
     spec_vs_cpu(small, dev, counters)
@@ -2079,6 +2381,18 @@ def main() -> int:
     for mcfg in moe_configs():
         moe_vs_cpu(mcfg, dev, counters)
     timed("10 qwen2-moe-a2.7b and dbrx-132b", t0)
+
+    t0 = time.perf_counter()
+    for hcfg in hybrid_configs():
+        got = hybrid_serve(hcfg, dev, counters)
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += got[name]
+    for hcfg in hybrid_configs():
+        hybrid_vs_cpu(hcfg, dev, counters)
+    got = hybrid_spec(hybrid_configs()[1], dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    timed("11 mamba2-130m and zamba2-1.2b", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

@@ -2,9 +2,10 @@
 ``config()`` (full size) and ``reduced()`` (smoke size).
 
 Ported: qwen3-0.6b, stablelm-12b (untied head, head_dim 160),
-qwen2-vl-72b (M-RoPE, embeds input), and the MoE pair qwen2-moe-a2.7b and
-dbrx-132b.  The other architectures of the JAX registry come with their
-model families (ROADMAP queue 1 items 11c-11e).
+qwen2-vl-72b (M-RoPE, embeds input), the MoE pair qwen2-moe-a2.7b and
+dbrx-132b, and the SSM/hybrid pair mamba2-130m and zamba2-1.2b.  The
+other architectures of the JAX registry come with their model families
+(ROADMAP queue 1 items 11d-11e).
 """
 
 from __future__ import annotations
@@ -14,11 +15,12 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCHS = ["qwen3_0_6b", "stablelm_12b", "qwen2_vl_72b", "qwen2_moe_a2_7b",
-         "dbrx_132b"]
+         "dbrx_132b", "mamba2_130m", "zamba2_1_2b"]
 
 ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "stablelm-12b": "stablelm_12b",
            "qwen2-vl-72b": "qwen2_vl_72b",
-           "qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "dbrx-132b": "dbrx_132b"}
+           "qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "dbrx-132b": "dbrx_132b",
+           "mamba2-130m": "mamba2_130m", "zamba2-1.2b": "zamba2_1_2b"}
 
 
 def _module(arch: str):
@@ -26,7 +28,7 @@ def _module(arch: str):
     if name not in ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: {ARCHS}; "
-            "ROADMAP queue 1 items 11c-11e)")
+            "ROADMAP queue 1 items 11d-11e)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

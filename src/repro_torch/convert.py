@@ -6,8 +6,10 @@ arrays: every pack becomes the dict of its fields (``NMPack``:
 ``values, idx, K, N, n, m, g``; ``BlockSparsePack``: ``values, indices,
 counts, K, N, bk, bn, max_nnz``; ``CombinedPack``: those plus ``gidx, n,
 m``; ``LookaheadPack``: ``enc, scale, K, N``), and the ``layers``
-subtree keeps its leading layer axis (the JAX model scans over it).  The
-output is the port's tree: ``layers`` becomes a list of per-layer dicts,
+and ``mamba`` subtrees keep their leading layer axis (the JAX models scan
+over them).  The output is the port's tree: ``layers`` and ``mamba``
+(the hybrid family's trunk, packs included) become lists of per-layer
+dicts, the hybrid ``shared`` block converts as it is,
 packs become the port's pack classes, arrays become tensors on
 ``device`` in their own dtype — so both sides compute the same thing.
 A layer of a stacked block or combined pack keeps the padding slots the
@@ -93,7 +95,7 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
-        if k == "layers":
+        if k in ("layers", "mamba"):
             out[k] = [_convert(v, device, (l,)) for l in range(_lead(v)[0])]
         else:
             out[k] = _convert(v, device)

@@ -1,15 +1,25 @@
-"""Model API of the port — the JAX package's serving surface for the
-decoder-only ("lm") family: gated LMs with a tied or untied head (qwen3,
-stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl), and
-routed experts in place of the MLP (qwen2-moe, dbrx; ``models/moe.py``).
+"""Model API of the port — the JAX package's serving surface for two
+families:
+
+  * ``"lm"``: gated decoder-only LMs with a tied or untied head (qwen3,
+    stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl), and
+    routed experts in place of the MLP (qwen2-moe, dbrx;
+    ``models/moe.py``);
+  * ``"hybrid"``: the Mamba-2 trunk with or without zamba2's shared
+    attention block (mamba2, zamba2; ``models/hybrid.py``,
+    ``models/ssm.py``), whose cache is ``{"ssm": {"conv", "ssm"}, "kv":
+    ...}`` (no ``"kv"`` for mamba2).
 
 ``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
 ``decode_block``, plus the cache helpers the serving loops use
 (``blank_slot_cache``, ``merge_cache_slot``, ``copy_page``,
-``set_page_table``, ``page_view``, ``unpage_view``).  Caches are updated
-in place; the helpers return the cache for call-site parity with the JAX
-API.  The hybrid (mamba) and encoder-decoder families and the gemma
-features are ROADMAP queue 1 items 11c-11e.
+``set_page_table``, ``page_view``, ``unpage_view``), which recurse over
+nested caches as the JAX ones do, and the recurrent-state helpers of
+speculative rollback (``recurrent_state``, ``set_recurrent_state``,
+``select_recurrent``, ``where_slot``).  Caches are updated in place; the
+helpers return the cache for call-site parity with the JAX API.  The
+encoder-decoder family and the gemma features are ROADMAP queue 1 items
+11d-11e.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TR
 from repro_torch.models.attention import (init_kv_cache, init_paged_kv_cache,
                                           paged_max_pages)
@@ -30,7 +41,9 @@ Params = Dict[str, Any]
 __all__ = ["LayerKind", "ModelConfig", "family", "expert_rows", "init_model",
            "init_cache", "prefill", "decode_step", "decode_block",
            "blank_slot_cache", "merge_cache_slot", "copy_page",
-           "set_page_table", "page_view", "unpage_view", "paged_max_pages"]
+           "set_page_table", "page_view", "unpage_view", "paged_max_pages",
+           "recurrent_state", "set_recurrent_state", "select_recurrent",
+           "where_slot", "cache_leaves"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -49,13 +62,14 @@ def expert_rows(cfg: ModelConfig, tokens: int) -> Optional[int]:
 
 def _check_ported(cfg: ModelConfig) -> None:
     f = family(cfg)
-    if f != "lm" or not cfg.mlp_gated or cfg.embed_scale \
-            or cfg.post_norm or cfg.input_mode not in ("tokens", "embeds"):
+    if f == "encdec" or not cfg.mlp_gated or cfg.embed_scale \
+            or cfg.post_norm or cfg.input_mode not in ("tokens", "embeds") \
+            or (f == "hybrid" and cfg.input_mode != "tokens"):
         raise NotImplementedError(
-            f"{cfg.name}: only gated decoder-only LMs are ported (tied or "
-            "untied head, M-RoPE, embeds input, routed experts); SSM/hybrid "
-            "is ROADMAP queue 1 item 11c, enc-dec 11d and the gemma features "
-            "(post-norms, scaled embeds, ungated MLPs) 11e")
+            f"{cfg.name}: only gated decoder-only LMs (tied or untied head, "
+            "M-RoPE, embeds input, routed experts) and the SSM/hybrid "
+            "family are ported; enc-dec is ROADMAP queue 1 item 11d and the "
+            "gemma features (post-norms, scaled embeds, ungated MLPs) 11e")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -68,6 +82,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if family(cfg) == "hybrid":
+        return HY.init_hybrid_lm(cfg, gen, device, packed=packed)
     return TR.init_lm(cfg, gen, device, packed=packed)
 
 
@@ -76,9 +92,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                num_pages: int = 0, device="cuda") -> Params:
     """Serving cache: paged when ``page_size > 0`` (``num_pages``
     allocatable pages plus the null page; 0 → full capacity), else
-    monolithic ``(n_layers, batch, max_len, Hk, D)``."""
+    monolithic ``(n_layers, batch, max_len, Hk, D)``.  The hybrid
+    family's is ``{"ssm": ..., "kv": ...}``: the fp32 recurrent state of
+    every layer and the KV of the shared slots only
+    (``hybrid.init_hybrid_cache``)."""
     _check_ported(cfg)
     device = resolve_device(device)
+    if family(cfg) == "hybrid":
+        return HY.init_hybrid_cache(cfg, batch, max_len, dtype=dtype,
+                                    page_size=page_size, num_pages=num_pages,
+                                    device=device)
     if page_size:
         return init_paged_kv_cache(cfg, batch, max_len, page_size, num_pages,
                                    dtype=dtype, device=device)
@@ -90,6 +113,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Prompt ``batch["embeds"] (B, L, d)`` (an ``input_mode="embeds"``
     config) or ``batch["tokens"] (B, L)`` → (last-position logits,
     cache)."""
+    if family(cfg) == "hybrid":
+        return HY.hybrid_prefill(params, cfg, batch["tokens"], cache)
     return TR.lm_prefill(params, cfg, batch.get("embeds", batch.get("tokens")),
                          cache)
 
@@ -99,64 +124,140 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One token per slot in at per-slot ``pos (B,)``, next-token logits
     out."""
+    if family(cfg) == "hybrid":
+        return HY.hybrid_decode_step(params, cfg, token, cache, pos)
     return TR.lm_decode_step(params, cfg, token, cache, pos)
 
 
 def decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 cache: Params, pos) -> Tuple[torch.Tensor, Params]:
-    """Multi-token decode-shaped forward of the ``lm`` family — the
-    speculative *verify* step: ``tokens (B, T)`` written at per-slot
-    positions ``pos (B,)`` (ragged offsets; causal attention within the
-    block) on either cache layout and scored in one forward, logits for
-    every block position ``(B, T, vocab_padded)``.  A host int ``pos``
-    is one offset for every slot (the prefix-sharing suffix prefill, on
-    the paged cache)."""
-    return TR.lm_decode_block(params, cfg, tokens, cache, pos)
+                 cache: Params, pos, collect_states: bool = False):
+    """Multi-token decode-shaped forward — the speculative *verify* step:
+    ``tokens (B, T)`` written at per-slot positions ``pos (B,)`` (ragged
+    offsets; causal attention within the block) on either cache layout
+    and scored in one forward, logits for every block position ``(B, T,
+    vocab_padded)``.  A host int ``pos`` is one offset for every slot
+    (the prefix-sharing suffix prefill of the ``lm`` family, on the paged
+    cache).
+
+    Returns ``(logits, cache)``; with ``collect_states``, ``(logits,
+    cache, snapshots)``: ``None`` for the ``lm`` family (its rollback is
+    position masking), and for the hybrid family the recurrent state
+    after each block position (:func:`select_recurrent`)."""
+    if family(cfg) == "hybrid":
+        logits, cache, snaps = HY.hybrid_decode_block(
+            params, cfg, tokens, cache, pos, collect=collect_states)
+    else:
+        logits, cache = TR.lm_decode_block(params, cfg, tokens, cache, pos)
+        snaps = None
+    return (logits, cache, snaps) if collect_states else (logits, cache)
 
 
-def _is_paged(cache: Params) -> bool:
-    return "ptab" in cache
+# --- recurrent (non-positional) cache state -------------------------------
+#
+# KV caches roll back by position: rows past a slot's position are dead
+# by masking.  The hybrid family's conv/SSM state is order-dependent:
+# these helpers snapshot it before a drafted block, restore it for the
+# verify forward and select the snapshot of the accepted prefix after.
+
+def recurrent_state(cache: Params) -> Optional[Params]:
+    """The order-dependent part of a serving cache, ``{"conv", "ssm"}``
+    (the cache's own tensors), or ``None`` for a purely positional
+    family."""
+    if isinstance(cache, dict) and "ssm" in cache:
+        return cache["ssm"]
+    return None
+
+
+def set_recurrent_state(cache: Params, state: Optional[Params]) -> Params:
+    """Copy ``state`` into the cache's recurrent tensors, in place."""
+    if state is not None:
+        for k, t in cache["ssm"].items():
+            t.copy_(state[k])
+    return cache
+
+
+def select_recurrent(snapshots: Params, idx: torch.Tensor) -> Params:
+    """Per-slot snapshots: leaves ``(nl, B, T, ...)`` × ``idx (B,)`` →
+    ``(nl, B, ...)``, the state after block position ``idx[b]``."""
+    def pick(leaf):
+        slots = torch.arange(leaf.shape[1], device=leaf.device)
+        return leaf[:, slots, idx.long()]
+
+    return {k: pick(v) for k, v in snapshots.items()}
+
+
+def where_slot(mask: torch.Tensor, a: Params, b: Params) -> Params:
+    """Per-slot select between two state trees whose leaves carry the
+    batch on axis 1: slot ``i`` takes ``a`` where ``mask[i]``, else
+    ``b``."""
+    def sel(la, lb):
+        return torch.where(mask.reshape((1, -1) + (1,) * (la.dim() - 2)),
+                           la, lb)
+
+    return {k: sel(a[k], b[k]) for k in a}
+
+
+# --- cache helpers (recursing over nested caches) ---------------------------
+
+def _is_paged(tree: Any) -> bool:
+    return isinstance(tree, dict) and "ptab" in tree
+
+
+def cache_leaves(cache: Any) -> list:
+    """Every tensor of a (nested) cache, in key order."""
+    if isinstance(cache, dict):
+        return [t for v in cache.values() for t in cache_leaves(v)]
+    return [cache]
 
 
 def blank_slot_cache(cache: Params, batch: int = 1) -> Params:
     """The scratch cache a per-slot prefill fills before
-    :func:`merge_cache_slot`: a zeroed batch-``batch`` copy (monolithic),
-    or the shared pools with an all-null batch-``batch`` table (paged)."""
+    :func:`merge_cache_slot`: a zeroed batch-``batch`` copy of every
+    monolithic subtree (batch on axis 1 of every leaf; the recurrent
+    state too), and for a paged subtree the shared pools with an
+    all-null batch-``batch`` table."""
     if _is_paged(cache):
         nl, _, mp = cache["ptab"].shape
         return {"kp": cache["kp"], "vp": cache["vp"],
                 "ptab": torch.zeros((nl, batch, mp), dtype=torch.int32,
                                     device=cache["ptab"].device)}
-    return {k: torch.zeros(v.shape[:1] + (batch,) + v.shape[2:],
-                           dtype=v.dtype, device=v.device)
-            for k, v in cache.items()}
+    if isinstance(cache, dict):
+        return {k: blank_slot_cache(v, batch) for k, v in cache.items()}
+    return torch.zeros(cache.shape[:1] + (batch,) + cache.shape[2:],
+                       dtype=cache.dtype, device=cache.device)
 
 
 def merge_cache_slot(cache: Params, slot_cache: Params, slot: int) -> Params:
-    """Write a batch-1 scratch cache into slot ``slot``: the page-table row
-    (paged — the pool writes already landed), or every row (monolithic)."""
+    """Write a batch-1 scratch cache into slot ``slot``: a paged subtree's
+    page-table row (the pool writes already landed), every row of a
+    monolithic one."""
     if _is_paged(cache):
         cache["ptab"][:, slot] = slot_cache["ptab"][:, 0]
-    else:
+    elif isinstance(cache, dict):
         for k in cache:
-            cache[k][:, slot] = slot_cache[k][:, 0]
+            merge_cache_slot(cache[k], slot_cache[k], slot)
+    else:
+        cache[:, slot] = slot_cache[:, 0]
     return cache
 
 
 def copy_page(cache: Params, src: int, dst: int) -> Params:
-    """Copy physical page ``src`` onto ``dst`` in every layer's pools, in
-    place: the copy-on-write half of prefix sharing.  Rows past the
-    divergence are overwritten by the suffix prefill or masked by the
+    """Copy physical page ``src`` onto ``dst`` in every paged subtree's
+    pools, in place: the copy-on-write half of prefix sharing.  Rows past
+    the divergence are overwritten by the suffix prefill or masked by the
     slot's length."""
     if _is_paged(cache):
         cache["kp"][:, dst] = cache["kp"][:, src]
         cache["vp"][:, dst] = cache["vp"][:, src]
+    elif isinstance(cache, dict):
+        for v in cache.values():
+            copy_page(v, src, dst)
     return cache
 
 
 def set_page_table(cache: Params, table) -> Params:
     """Broadcast ``table (B, max_pages)`` into the page table of every
-    layer.
+    layer of every paged subtree (a no-op without one).
 
     A tensor on the cache's device is copied device to device — what a
     captured decode chunk does with the table the engine staged into a
@@ -167,16 +268,24 @@ def set_page_table(cache: Params, table) -> Params:
         if not (isinstance(table, torch.Tensor) and table.device == pt.device):
             table = torch.as_tensor(table, dtype=torch.int32).to(pt.device)
         pt.copy_(table.reshape(1, *pt.shape[1:]).expand_as(pt))
+    elif isinstance(cache, dict):
+        for v in cache.values():
+            set_page_table(v, table)
     return cache
 
 
 def page_view(cache: Params, view_pages: Optional[int]) -> Params:
     """Narrow every page table to its first ``view_pages`` logical pages
-    (a view: writes land in the shared pools)."""
-    if view_pages is None or not _is_paged(cache):
+    (a view: writes land in the shared pools; other leaves are the
+    cache's own)."""
+    if view_pages is None:
         return cache
-    return {"kp": cache["kp"], "vp": cache["vp"],
-            "ptab": cache["ptab"][..., :view_pages]}
+    if _is_paged(cache):
+        return {"kp": cache["kp"], "vp": cache["vp"],
+                "ptab": cache["ptab"][..., :view_pages]}
+    if isinstance(cache, dict):
+        return {k: page_view(v, view_pages) for k, v in cache.items()}
+    return cache
 
 
 def unpage_view(new_cache: Params, full_cache: Params) -> Params:

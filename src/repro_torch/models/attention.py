@@ -80,19 +80,21 @@ def paged_max_pages(max_len: int, page_size: int) -> int:
 
 def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                         page_size: int, num_pages: int = 0, *,
+                        n_layers: Optional[int] = None,
                         dtype: torch.dtype = torch.bfloat16,
                         device) -> Params:
     """Paged cache: pool ``(nl, num_pages + 1, ps, Hk, D)`` (page 0 is
-    the null page) and an all-null table ``(nl, B, max_pages)``.
-    ``num_pages=0`` sizes the pool at full capacity."""
+    the null page) and an all-null table ``(nl, B, max_pages)``, ``nl``
+    = ``n_layers`` (default ``cfg.n_layers``).  ``num_pages=0`` sizes the
+    pool at full capacity."""
+    nl = n_layers if n_layers is not None else cfg.n_layers
     mp = paged_max_pages(max_len, page_size)
     if num_pages <= 0:
         num_pages = batch * mp
-    pool = (cfg.n_layers, num_pages + 1, page_size, cfg.n_kv_heads,
-            cfg.head_dim)
+    pool = (nl, num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"kp": torch.zeros(pool, dtype=dtype, device=device),
             "vp": torch.zeros(pool, dtype=dtype, device=device),
-            "ptab": torch.zeros((cfg.n_layers, batch, mp), dtype=torch.int32,
+            "ptab": torch.zeros((nl, batch, mp), dtype=torch.int32,
                                 device=device)}
 
 

@@ -1,11 +1,12 @@
 """Model configuration — the JAX package's :class:`ModelConfig`, field for
 field, so a config built on either side describes the same model.
 
-The port serves the decoder-only ("lm") family so far, with a tied or
-untied head, M-RoPE (``mrope_sections``), embeds input (``input_mode``)
-and routed experts (the MoE fields); the fields of the SSM and
-encoder-decoder families and the gemma features are carried for parity
-and rejected by ``models.init_model`` (ROADMAP queue 1 items 11c-11e).
+The port serves the decoder-only ("lm") family, with a tied or untied
+head, M-RoPE (``mrope_sections``), embeds input (``input_mode``) and
+routed experts (the MoE fields), and the SSM/hybrid family (the SSM
+fields, ``MAMBA`` and ``SHARED_ATTN`` layers); the fields of the
+encoder-decoder family and the gemma features are carried for parity and
+rejected by ``models.init_model`` (ROADMAP queue 1 items 11d-11e).
 """
 
 from __future__ import annotations
@@ -117,6 +118,14 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or self.d_inner // self.ssm_head_dim
+
+    @property
     def vocab_padded(self) -> int:
         """Vocab rounded up to a 512 multiple (the JAX package's padding)."""
         return math.ceil(self.vocab_size / 512) * 512
@@ -125,3 +134,11 @@ class ModelConfig:
     def uses_mamba(self) -> bool:
         return any(k in (LayerKind.MAMBA, LayerKind.SHARED_ATTN)
                    for k in self.layer_kinds)
+
+
+def zamba_kinds(n_layers: int, shared_every: int = 6) -> Tuple[int, ...]:
+    """zamba2: mamba backbone with the shared attention block applied
+    every ``shared_every`` layers (starting at the first slot)."""
+    return tuple(int(LayerKind.SHARED_ATTN)
+                 if i % shared_every == shared_every // 2
+                 else int(LayerKind.MAMBA) for i in range(n_layers))

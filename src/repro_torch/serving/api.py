@@ -155,7 +155,8 @@ class Engine:
     def _cache_nbytes(self) -> int:
         if self._cache is None:
             return 0
-        return sum(t.numel() * t.element_size() for t in self._cache.values())
+        return sum(t.numel() * t.element_size()
+                   for t in MZ.cache_leaves(self._cache))
 
     def stats(self) -> EngineStats:
         d = self._stats

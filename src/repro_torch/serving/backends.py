@@ -153,7 +153,10 @@ class PagedBackend(_BackendBase):
     decref'd, not freed: refcount zero keeps them warm in the index, and
     they rejoin the free list only through eviction.  With the flag off
     every path reduces to the plain allocator (same free-list order,
-    same stats).
+    same stats).  The accounting is per slot, whatever the number of
+    paged KV layers: zamba2 pages the KV of its 6 shared slots only,
+    and mamba2 has no KV, so its tables reach no pool (the JAX backend
+    counts pages the same way).
     """
 
     paged = True

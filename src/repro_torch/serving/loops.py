@@ -150,12 +150,18 @@ def build_prefill_wave_step(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
 
     Rewrites the whole decode state in place; ``valid`` marks the slots
     that got a request.  Only used while no slot is live (it rewrites
-    every slot's cache rows)."""
+    every slot's cache rows).  A recurrent state (the hybrid family) is
+    zeroed first, in place, so every slot's prompt starts from zero state
+    as a per-slot prefill's blank scratch does — not from what the
+    retired requests left (the JAX wave step seeds its prefill from the
+    live cache there; ROADMAP queue 3)."""
     V = cfg.vocab_size
 
     def step(params, tokens, cache, state: State, valid: np.ndarray,
              budgets: np.ndarray, temps: torch.Tensor,
              generator: Optional[torch.Generator]):
+        for t in (MZ.recurrent_state(cache) or {}).values():
+            t.zero_()
         logits, cache = MZ.prefill(params, cfg, {"tokens": tokens}, cache)
         dev = logits.device
         first = sample_token_slots(logits[:, :V], temps, generator)
@@ -330,17 +336,25 @@ def _spec_step(params, dparams, cfg: ModelConfig, scfg: ServeConfig, vcache,
          as the plain loop would; the next carry is the verify's token
          at the first rejection (or the bonus token).
 
-    Rejected rows need no undo: ``pos`` advances by the committed count
-    only, so they are dead by masking.  Returns the next ``(tok, pos,
-    done, left)``, the step's ``(B, K + 1)`` tokens and emit mask
-    (column 0 the carry token, then the drafts) and the step's drafted
-    and accepted counts (0-d tensors)."""
+    Rejected KV rows need no undo: ``pos`` advances by the committed
+    count only, so they are dead by masking.  A recurrent state (the
+    hybrid family) is order-dependent, so it rolls back by copies into
+    its own storage (what a captured chunk holds): a snapshot before the
+    drafts, copied back after them for the verify block, which collects
+    the state after each block position; then each live slot takes the
+    state after its last committed position and each frozen slot its
+    pre-block state.  Returns the next ``(tok, pos, done, left)``, the
+    step's ``(B, K + 1)`` tokens and emit mask (column 0 the carry token,
+    then the drafts) and the step's drafted and accepted counts (0-d
+    tensors)."""
     K, V, T = scfg.spec_k, cfg.vocab_size, scfg.temperature
     emit0 = ~done & (left > 0)
     left = left - emit0.to(left.dtype)
     done = done | (emit0 & ((tok == scfg.eos_token) | (left == 0)
                             | (pos + 1 + K >= scfg.max_len)))
     alive = ~done
+    rec = MZ.recurrent_state(vcache)
+    rec0 = None if rec is None else {k: t.clone() for k, t in rec.items()}
     drafts, dlogits = [], []
     dtok = tok
     for i in range(K):
@@ -351,7 +365,14 @@ def _spec_step(params, dparams, cfg: ModelConfig, scfg: ServeConfig, vcache,
         dlogits.append(lg)
     dT = torch.stack(drafts, 1)                              # (B, K)
     block = torch.cat([tok[:, None], dT], 1)                 # (B, K + 1)
-    vlg, _ = MZ.decode_block(params, cfg, block, vcache, pos)
+    if rec0 is None:
+        vlg, _ = MZ.decode_block(params, cfg, block, vcache, pos)
+    else:
+        # the drafts advanced the recurrent state: restore it, the
+        # verify block consumes the carry token and the drafts itself
+        MZ.set_recurrent_state(vcache, rec0)
+        vlg, _, snaps = MZ.decode_block(params, cfg, block, vcache, pos,
+                                        collect_states=True)
     vlg = vlg[:, :, :V]
     acc, j, carry = accept_drafts(vlg, dT, dlogits, T, generator)
     # commit the accepted drafts: the budget and EOS cut them short
@@ -367,6 +388,10 @@ def _spec_step(params, dparams, cfg: ModelConfig, scfg: ServeConfig, vcache,
     done = done | (alive & ((emit_d & eos_hit).any(1) | (left == 0)))
     pos = torch.where(alive, pos + 1 + n_emit, pos)
     nxt = torch.where(~done, carry, tok)
+    if rec0 is not None:
+        # the state after the carry token and the n_emit committed drafts
+        MZ.set_recurrent_state(vcache, MZ.where_slot(
+            alive, MZ.select_recurrent(snaps, n_emit), rec0))
     drafted = torch.where(alive, K, 0).sum()
     accepted = torch.where(alive, j, 0).sum()
     return (nxt, pos, done, left, block,
@@ -464,7 +489,7 @@ COUNTED = tuple((mod, "launches") for mod in (
 
 
 def _cache_ptrs(cache) -> Tuple[int, ...]:
-    return tuple(t.data_ptr() for t in cache.values())
+    return tuple(t.data_ptr() for t in MZ.cache_leaves(cache))
 
 
 class DecodeChunk:

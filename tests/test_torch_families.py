@@ -15,10 +15,12 @@ Auto axes, weights carried over with ``convert.params_from_numpy``):
 * Engine parity: greedy transcripts and ``sync_count`` equal the JAX
   ``Engine`` and ``conftest.reference_decode``, both layouts, both tiny
   configs, plus speculation (self and 2:4 pack draft) on the untied one;
-* ``_check_ported`` still refuses the SSM/hybrid, enc-dec and gemma
-  configs of the JAX registry; the MoE configs pass it (their own suite is
+* ``_check_ported`` still refuses the enc-dec and gemma configs of the
+  JAX registry; the MoE configs pass it (their own suite is
   ``test_torch_moe.py``), while their speculation and prefix sharing stay
-  refused.
+  refused; the SSM/hybrid configs pass it (their suites are
+  ``test_torch_ssm.py`` and ``test_torch_hybrid.py``), while their prefix
+  sharing stays refused.
 """
 
 import dataclasses
@@ -120,8 +122,9 @@ def test_registry_names_the_ported_archs():
     assert not cfg.tie_embeddings and cfg.head_dim == cfg.d_model // 32
     assert TC.get("qwen2-vl-72b").mrope_sections == (16, 24, 24)
     assert TC.get("dbrx-132b") == to_port(JC.get("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="11c-11e"):
-        TC.get("mamba2-130m")
+    assert TC.get("zamba2-1.2b") == to_port(JC.get("zamba2-1.2b"))
+    with pytest.raises(NotImplementedError, match="11d-11e"):
+        TC.get("seamless-m4t-large-v2")
 
 
 # --- M-RoPE ----------------------------------------------------------------------
@@ -353,15 +356,20 @@ def test_pack_draft_shares_the_untied_head(untied_dense):
 #: the MoE family: ported (ROADMAP queue 1 item 11b), its speculation and
 #: prefix sharing not yet (item 16)
 MOE = ("qwen2_moe_a2_7b", "dbrx_132b")
+#: the SSM/hybrid family: ported (item 11c), prefix sharing refused as in
+#: the JAX engine (its recurrent state lies outside the page pool)
+HYBRID = ("mamba2_130m", "zamba2_1_2b")
 REFUSED = [a for a in JC.list_archs()
            if a not in ("qwen3_0_6b", *PORTED, *MOE)]
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED + list(MOE)))
 def test_check_ported_refuses_the_other_families(arch):
-    """SSM/hybrid, enc-dec and gemma stay refused, with the message naming
-    their ROADMAP items.  The MoE archs pass ``_check_ported``, and what
-    stays refused for them is speculation and prefix sharing."""
+    """Enc-dec and gemma stay refused, with the message naming their
+    ROADMAP items.  The MoE archs pass ``_check_ported``, and what stays
+    refused for them is speculation and prefix sharing; the SSM/hybrid
+    archs pass it, a CPU ``init_model``/``init_cache`` serves a prefill,
+    and what stays refused is prefix sharing."""
     cfg = to_port(JC.get_reduced(arch))
     if arch in MOE:
         TM._check_ported(cfg)
@@ -371,7 +379,19 @@ def test_check_ported_refuses_the_other_families(arch):
                 TEngine(cfg, TServeConfig(**SERVE, page_size=8, **kw),
                         params, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="11c.*11d.*11e"):
+    if arch in HYBRID:
+        TM._check_ported(cfg)
+        params = TM.init_model(cfg, device="cpu")
+        cache = TM.init_cache(cfg, 1, 16, page_size=8, device="cpu")
+        logits, _ = TM.prefill(params, cfg, {"tokens": torch.ones(
+            (1, 4), dtype=torch.int32)}, cache)
+        assert torch.isfinite(logits).all()
+        with pytest.raises(ValueError, match="'hybrid' family"):
+            TEngine(cfg, TServeConfig(**SERVE, page_size=8,
+                                      prefix_cache=True), params,
+                    device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="11d.*11e"):
         TM.init_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 16, device="cpu")

@@ -952,3 +952,83 @@ def test_moe_graph_serve_equals_eager(cuda, arch):
     per = 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
     assert want[2][nm_mod.__name__] == per * cfg.n_layers * (
         st.prefills + steps)
+
+
+# --- the SSM/hybrid family ---------------------------------------------------
+
+def _zamba_config(dtype, layers=4):
+    """zamba2-1.2b's ``sparse()`` cut to its first ``layers`` layers
+    (``zamba_kinds(38, 6)[:4]``: the shared block runs before layer 3):
+    published widths, 2:4 ``out_proj`` and shared MLP."""
+    import dataclasses
+
+    from repro_torch.configs import zamba2_1_2b
+    cfg = zamba2_1_2b.sparse()
+    return dataclasses.replace(cfg, n_layers=layers,
+                               layer_kinds=cfg.layer_kinds[:layers],
+                               dtype=dtype)
+
+
+def _recurrent_ptrs(eng):
+    from repro_torch import models
+    return [t.data_ptr() for t in
+            models.cache_leaves(models.recurrent_state(eng._cache))]
+
+
+@pytest.mark.parametrize("page_size", [0, 8], ids=["mono", "paged"])
+def test_hybrid_graph_serve_equals_eager(cuda, page_size):
+    """A 4-layer bf16 zamba2 at published widths through the captured
+    chunk graphs gives the eager serve's tokens, ``sync_count`` and
+    launches, cold and warm; the recurrent state keeps its addresses
+    across both serves; nm_spmm launches 4 + 3 times per forward, flash
+    once per prefill and paged once per decode step (the one shared
+    slot)."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = _zamba_config("bfloat16")
+    params = models.init_model(cfg, seed=0, device=cuda, packed=True)
+    scfg = ServeConfig(**dict(GRAPH_SERVE, page_size=page_size))
+    eager = Engine(cfg, scfg, params, device=cuda)
+    eager._backend._graphs = False
+    want = _serve(eager)
+    graph, seen = Engine(cfg, scfg, params, device=cuda), {}
+    cold = _serve(graph)
+    ptrs = _recurrent_ptrs(graph)
+    assert cold[:3] == want[:3]
+    assert len(_check_graph_runs(cold[3], seen)) >= 1
+    warm = _serve(graph)
+    assert warm[:3] == want[:3]
+    assert _recurrent_ptrs(graph) == ptrs
+    st = want[3]
+    steps = len(st.chunk_s) * scfg.decode_chunk
+    # one flash launch per prefill call (a monolithic wave is one call
+    # for all its slots)
+    calls = want[2][flash_mod.__name__]
+    assert calls == st.prefills if page_size else 0 < calls < st.prefills
+    assert want[2][nm_mod.__name__] == (cfg.n_layers + 3) * (calls + steps)
+    assert want[2][paged_mod.__name__] == (steps if page_size else 0)
+    assert all(len(t) == 24 for t in want[0])
+
+
+def test_hybrid_garbage_draft_rollback_equals_the_plain_loop(cuda):
+    """zamba2 at 4 layers in fp32, speculative with a draft from another
+    seed (rejected almost always: every step rolls the recurrent state
+    back): the tokens equal the plain loop's, and the graph serve equals
+    the eager one (tokens, syncs, drafted, accepted, launches)."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = _zamba_config("float32")
+    params = models.init_model(cfg, seed=0, device=cuda, packed=True)
+    garbage = models.init_model(cfg, seed=42, device=cuda, packed=True)
+    want = _serve(Engine(cfg, ServeConfig(**GRAPH_SERVE), params,
+                         device=cuda))[0]
+    spec = ServeConfig(**dict(GRAPH_SERVE, spec_k=3))
+    runs = []
+    for graphs in (False, True):
+        eng = Engine(cfg, spec, params, draft_params=garbage, device=cuda)
+        eng._backend._graphs = graphs
+        tokens, syncs, launches, st = _serve(eng)
+        runs.append((tokens, syncs, launches, st.drafted, st.accepted))
+        assert tokens == want
+        assert st.accepted < 0.5 * st.drafted
+    assert runs[0] == runs[1]

@@ -18,7 +18,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.configs.stablelm_12b",
-        "repro_torch.configs.qwen2_vl_72b"} <= set(names), names
+        "repro_torch.configs.qwen2_vl_72b",
+        "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b",
+        "repro_torch.models.ssm", "repro_torch.models.hybrid"} <= set(names), \
+    names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]
