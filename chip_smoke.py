@@ -45,6 +45,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      zamba2-1.2b layer (``out_proj`` 4096 → 2048 and the shared MLP's
      2048 ↔ 8192), timed over enough copies to stream from HBM, and both
      attention kernels at zamba2's heads (D = 64, 32 over 32, G = 1);
+     and at phase 12's: nm_spmm at one seamless-m4t-large-v2 MLP
+     (1024 → 8192 → 1024, also at M = 512, an encoder's rows), both
+     attention kernels at its heads (D = 64, 16 over 16), and flash
+     without the causal mask (``NONCAUSAL_SHAPES``: the encoder at L =
+     512 and 300, a prompt's cross-attention of 128 rows over 512 source
+     rows, 8 queries over 6 keys) in bf16 and fp32, each against
+     ``mha_ref(causal=False)`` and timed beside SDPA without a mask;
   4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
      format on all seven projections: ``sparse()`` (2:4, g=128) and
@@ -184,6 +191,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      layers speculative (``spec_k = 3``) with a draft from another seed:
      a rollback of the recurrent state at nearly every step, the plain
      loop's tokens, warm graph turns equal to the eager ones.
+ 12. the encoder-decoder family: seamless-m4t-large-v2 (24 encoder and
+     24 decoder layers, d_model 1024, 16 heads of 64 over 16, an ungated
+     MLP of 8192, vocab 256206, tied) at published widths and depth,
+     bf16, random weights from a seed, each layer packed as it is drawn:
+     ``sparse()``'s 2:4 packs on every ``w_in`` and ``w_out``, attention
+     dense.  (a) Phase 4's serve and stream (the Engine feeds tokens, so
+     each prefill encodes the null source of ``max_len`` = 512 frames):
+     a cold graph serve, then phase 4's turns.  Gates: budgets and
+     syncs; turns equal; only nm_spmm and both attention kernels launch,
+     on the tensor-core routes, per prefill flash once per encoder layer
+     and twice per decoder layer (self causal, cross non-causal; the
+     non-causal count checked apart) and nm_spmm twice per layer of both
+     stacks, per step nm_spmm twice and paged once per decoder layer
+     (``encdec_launches``); the cross K/V keep their addresses through
+     all serves.  Printed: the turns' metrics and the profile of a
+     replayed chunk.  (b) One prefill of two random sources of 300
+     frames under 128-token prompts: launches, finite logits moved by
+     the source, and its time eager and as device time, the encoder
+     apart.  (c) At 2 + 2 layers in fp32 against the CPU path: the
+     Engine's greedy tokens (monolithic in two waves, paged; phase 5's
+     rule), model-level logits with a random source (prefill, 4 decode
+     steps, a T = 4 block) within ``FID_ATOL``, and ``spec_k = 3`` with
+     a draft from another seed: the plain loop's tokens, warm graph
+     turns equal to the eager ones.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -843,7 +874,8 @@ def pack_summary(params) -> str:
 #: the wrappers' counts of a kind of their launches, and the tag of each
 #: in :func:`launch_counts`: verify blocks (paged Q > 1) and the
 #: tensor-core route (both attention kernels)
-SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma"}
+SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma",
+              "noncausal_launches": "non-causal"}
 
 
 def zero_counts(counters) -> None:
@@ -1218,7 +1250,7 @@ def card_vs_cpu(cfg, dev, zero_tiles: bool = False) -> None:
                                  f"{want}")
 
 
-# --- phase 6: the paper layer -------------------------------------------------
+# --- phase 6: the paper layer ------------------------------------------------
 
 def check_cnns(dev) -> None:
     """Each TinyML CNN at width 1.0: init on the CPU from the seed,
@@ -1311,7 +1343,7 @@ def paper_layer(dev, counters) -> dict:
     return launches
 
 
-# --- phase 7: prefix sharing ---------------------------------------------------
+# --- phase 7: prefix sharing -------------------------------------------------
 
 PAGE = 16                          # phase 7's page and prompt bucket
 HEAD_ROWS = 64                     # the registered head: 4 pages
@@ -2256,6 +2288,355 @@ def hybrid_spec(cfg, dev, counters) -> dict:
     return launches
 
 
+# --- phase 12: the encoder-decoder family ------------------------------------
+
+#: phase 3's non-causal flash calls at seamless's heads: (what, Lq, Lk) —
+#: the encoder of a per-slot prefill (512 frames, the Engine's null
+#: source) and of phase 12 (b)'s 300 frames, a prompt's cross-attention
+#: over the source, and more queries than source rows
+NONCAUSAL_SHAPES = (("encoder L=512", 512, 512), ("encoder L=300", 300, 300),
+                    ("cross Lq=128 Lk=512", 128, 512),
+                    ("cross Lq=8 Lk=6", 8, 6))
+FID_ATOL = 1e-3                    # phase 12 (c): fp32 logits, card vs CPU
+
+
+def encdec_config():
+    """Phase 12's configuration: seamless-m4t-large-v2 ``sparse()`` at
+    full width and depth."""
+    from repro_torch.configs import seamless_m4t_large_v2
+    return seamless_m4t_large_v2.sparse()
+
+
+def check_noncausal_flash(cfg, dev) -> None:
+    """Phase 3 at seamless's heads: the flash kernel without the causal
+    mask at each of ``NONCAUSAL_SHAPES``, bf16 (tensor-core route) and
+    fp32 (FMA route), held against ``mha_ref(causal=False)`` and timed
+    beside SDPA without a mask and the bound."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.bfloat16, torch.float32):
+        err = 0.0
+        for what, Lq, Lk in NONCAUSAL_SHAPES:
+            q, k, v = [torch.randn((1, h, n, D), generator=gen, device=dev)
+                       .to(dtype) for h, n in ((H, Lq), (Hk, Lk), (Hk, Lk))]
+            name = f"{str(dtype)[6:]} B=1 H={H} Hk={Hk} D={D} non-causal " \
+                f"{what}"
+            log_attn_plan("flash_attention", name,
+                          K.plan(1, H, Hk, Lq, Lk, D, dtype))
+            err = max(err, check_close(
+                f"flash_attention {name}",
+                K.flash_attention(q, k, v, causal=False),
+                ref.mha_ref(q.float(), k.float(), v.float(), causal=False)))
+            kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+            b, by = bound_ms((2 * H * Lq + 2 * Hk * Lk) * D
+                             * q.element_size(), 4.0 * H * D * Lq * Lk,
+                             BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                             else FP32_FLOPS_PER_S)
+            row = dict(**timings(
+                lambda: K.flash_attention(q, k, v, causal=False),
+                lambda: ref.mha_ref(q, k, v, causal=False),
+                lambda: sdpa(q, kr, vr), 1), bound_ms=b, bound_by=by)
+            log(f"[kernels] flash_attention {name} (SDPA without a mask): "
+                f"{json.dumps(row)}")
+        log(f"[kernels] flash_attention non-causal {str(dtype)[6:]} H={H} "
+            f"Hk={Hk} D={D}: max abs err {err:.3e} against the plain "
+            "version")
+
+
+def check_encdec_kernels(cfg, dev) -> None:
+    """Phase 3 at seamless: nm_spmm at one layer's MLP (``w_in`` 1024 →
+    8192, ``w_out`` 8192 → 1024), also at M = 512 (an encoder's rows),
+    timed over enough copies to stream from HBM; paged attention at its
+    heads (16 over 16, D = 64); flash causal (the prompt's
+    self-attention) and non-causal (:func:`check_noncausal_flash`)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    projections = [("w_in", d, ff), ("w_out", ff, d)]
+    check_nm_spmm(cfg, dev, copies=max(1, math.ceil(128e6 / (2 * d * ff))),
+                  projections=projections, sweep=SWEEP_M + (512,),
+                  timed=TIMED_M + (512,))
+    check_paged_attention(cfg, dev)
+    check_flash_attention(cfg, dev)
+    check_noncausal_flash(cfg, dev)
+
+
+def encdec_launches(cfg, prefills: int, steps: int) -> dict:
+    """Each kernel's launches for ``prefills`` prefill calls and ``steps``
+    decode steps of ``cfg`` on the paged layout: per prefill flash once
+    per encoder layer and twice per decoder layer (self, causal; cross,
+    non-causal), nm_spmm twice per layer of both stacks; per step nm_spmm
+    twice and paged once per decoder layer."""
+    E, L = cfg.n_encoder_layers, cfg.n_layers
+    return {"nm_spmm": 2 * (E + L) * prefills + 2 * L * steps,
+            "flash_attention": (E + 2 * L) * prefills,
+            "flash_attention non-causal": (E + L) * prefills,
+            "paged_attention": L * steps}
+
+
+def check_launches(tag: str, launches: dict, want: dict) -> None:
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+
+
+def encdec_serve(cfg, dev, counters) -> dict:
+    """Phase 12 (a) and (b): ``cfg`` at its published widths and depth,
+    bf16, random weights from the seed, each layer packed as it is drawn
+    (``init_model(packed=True)``), phase 4's serve and stream through the
+    Engine: a cold graph serve, then :func:`graph_turns`.  Gates: budgets
+    and syncs (``serve_prompts``); every ``w_in``/``w_out`` a 2:4 pack and
+    every attention projection dense; only nm_spmm and both attention
+    kernels launch, on their tensor-core routes, as
+    :func:`encdec_launches` counts; the cross K/V at the same addresses
+    from before the first serve to after the last.  Then one replayed
+    decode chunk under the profiler, and :func:`source_prefill`.  Returns
+    the cold serve's launches."""
+    import gc
+
+    from repro_torch import models
+    from repro_torch.core.sparsity import NMPack
+    from repro_torch.serving import Engine
+    tag = f"encdec {cfg.name}"
+    t0 = time.perf_counter()
+    params = models.init_model(cfg, seed=SEED, device=dev, packed=True)
+    torch.cuda.synchronize()
+    layers = params["encoder"] + params["decoder"]
+    mlps = [w for layer in layers for w in layer["mlp"].values()]
+    attns = [w for layer in layers for k in ("attn", "self_attn",
+                                             "cross_attn")
+             if k in layer for w in layer[k].values()]
+    if len(mlps) != 2 * len(layers) or not all(
+            isinstance(w, NMPack) for w in mlps) or any(
+            isinstance(w, NMPack) for w in attns):
+        raise AssertionError(f"{tag}: every w_in/w_out must be a 2:4 pack "
+                             "and every attention projection dense")
+
+    def gb(ws):
+        return round(sum(w.values.numel() * 2 + w.idx.numel() * 4
+                         if isinstance(w, NMPack) else w.numel() * 2
+                         for w in ws) / 1e9, 3)
+
+    log(f"[{tag}] {cfg.n_encoder_layers} + {cfg.n_layers} layers d_model="
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+        f"d_ff {cfg.d_ff} (ungated), vocab {cfg.vocab_size} (padded "
+        f"{cfg.vocab_padded}), {cfg.dtype}: random init + pack layer by "
+        f"layer in {time.perf_counter() - t0:.1f} s; GB: MLPs (2:4) "
+        f"{gb(mlps)}, attention (dense) {gb(attns)}, embedding "
+        f"{gb([params['embed']])}; {torch.cuda.memory_allocated() / 1e9:.3f}"
+        " GB allocated")
+    eng = Engine(cfg, spec_config(), params, device=dev)
+    eng._ensure_device_state()
+    cross = models.cache_leaves(eng._cache["cross"])
+    ptrs = [t.data_ptr() for t in cross]
+    log(f"[{tag}] cross K/V {[tuple(t.shape) for t in cross]} "
+        f"{cross[0].dtype}, {sum(t.numel() * 2 for t in cross) / 1e9:.3f} "
+        "GB; each per-slot prefill encodes the null source of "
+        f"{cross[0].shape[2]} frames")
+    prompts = phase4_prompts(cfg.vocab_size)
+    cold = serve_prompts(eng, prompts, counters)
+    _, rep, launches = cold
+    path = {"nm_spmm", "paged_attention", "flash_attention"}
+    if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+        raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                             f"launch and no other: {launches}")
+    check_routes(tag, launches, "mma")
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    check_launches(tag, launches,
+                   encdec_launches(cfg, rep["prefills"], steps))
+    log(f"[{tag}] {json.dumps(rep)}")
+    turns = graph_turns(eng, prompts, counters, cold, tag)
+    warm = [ms for name, _, (_, r, _) in turns if name == "graph warm"
+            for ms in r["chunk_ms"]]
+    profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+    if [t.data_ptr() for t in models.cache_leaves(
+            eng._cache["cross"])] != ptrs:
+        raise AssertionError(f"{tag}: the cross K/V moved")
+    log(f"[{tag}] the cross K/V kept their {len(ptrs)} addresses through "
+        "all serves")
+    del eng, cross
+    gc.collect()
+    torch.cuda.empty_cache()
+    source_prefill(params, cfg, dev, counters)
+    del params, layers, mlps, attns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def source_prefill(params, cfg, dev, counters) -> None:
+    """Phase 12 (b): one prefill of B = 2 random sources of 300 frames
+    (no multiple of a tile) under 128-token prompts at full width:
+    launches as :func:`encdec_launches` counts for one call, logits
+    finite and moved by the source (against the null source of the same
+    length); timed as issued eagerly and as device time (CUDA-graph
+    replay), the encoder alone too."""
+    from repro_torch import models
+    from repro_torch.models import encdec
+    tag = f"encdec {cfg.name}"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B, Ls, Lt = 2, 300, 128
+    src = torch.randn((B, Ls, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    tokens = torch.randint(1, cfg.vocab_size, (B, Lt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache = models.init_cache(cfg, B, 512, src_len=Ls, page_size=16,
+                              device=dev)
+    models.set_page_table(cache, np.arange(1, B * 32 + 1, dtype=np.int32)
+                          .reshape(B, 32))
+
+    def run(batch):
+        return models.prefill(params, cfg, batch, cache)[0]
+
+    null = run({"tokens": tokens})
+    zero_counts(counters)
+    got = run({"src": src, "tokens": tokens})
+    torch.cuda.synchronize()
+    launches = launch_counts(counters)
+    check_launches(f"{tag} source prefill", launches,
+                   encdec_launches(cfg, 1, 0))
+    moved = (got - null).abs().max().item()
+    if not torch.isfinite(got).all() or moved <= 0.1:
+        raise AssertionError(f"{tag}: source prefill logits finite "
+                             f"{bool(torch.isfinite(got).all())}, moved by "
+                             f"the source {moved:.3e}")
+    batch = {"src": src, "tokens": tokens}
+    times = {"prefill_eager_ms": cuda_ms(lambda: run(batch), reps=5),
+             "prefill_device_ms": device_ms(lambda: run(batch), reps=3),
+             "encode_eager_ms": cuda_ms(
+                 lambda: encdec.encode(params, cfg, src), reps=5),
+             "encode_device_ms": device_ms(
+                 lambda: encdec.encode(params, cfg, src), reps=3)}
+    log(f"[{tag}] source prefill B={B} frames={Ls} prompt={Lt}: logits "
+        f"finite, moved by the source up to {moved:.3f} against the null "
+        f"source; launches {launches}; {json.dumps(times)}")
+
+
+def encdec_small(cfg):
+    """``cfg`` in fp32 cut to 2 encoder and 2 decoder layers."""
+    return dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2,
+                               layer_kinds=(), dtype="float32")
+
+
+def encdec_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 12 (c): :func:`encdec_small` on the card against the CPU path.
+    The Engine's greedy tokens against one-sequence greedy decoding on the
+    CPU (phase 5's rule at the first split), eight requests on four
+    slots, monolithic in two waves of four and paged, nm_spmm launching
+    as :func:`encdec_launches` counts; then model-level logits with a
+    random source of 40 frames under 32-token prompts (prefill, 4 decode
+    steps, a T = 4 verify block, paged) within ``FID_ATOL`` of the
+    CPU's."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    small = encdec_small(cfg)
+    tag = f"encdec fidelity {cfg.name}"
+    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+    cpu_params = _to(params, "cpu")
+    prompts = hybrid_prompts(small.vocab_size)
+    wants = [greedy(cpu_params, small, p, 16, 32, 160) for p in prompts]
+    for page_size in (0, 16):
+        scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32,
+                           page_size=page_size, decode_chunk=8,
+                           max_new_tokens=16, eos_token=-1)
+        eng = Engine(small, scfg, params, device=dev)
+        zero_counts(counters)
+        got = eng.generate(prompts[:4]) + eng.generate(prompts[4:])
+        launches = launch_counts(counters)
+        calls = 8 if page_size else 2
+        steps = len(eng.stats().chunk_s) * scfg.decode_chunk
+        want = encdec_launches(small, calls, steps)
+        if not page_size:
+            want["paged_attention"] = 0
+        check_launches(tag, launches, want)
+        splits = []
+        for i, (g, (w, gaps, _)) in enumerate(zip(got, wants)):
+            split = first_split(g, w)
+            splits.append(split)
+            if len(g) != 16 or (split is not None
+                                and gaps[split] >= GAP_TOL):
+                raise AssertionError(f"{tag} request {i}: card {g} vs CPU "
+                                     f"{w}")
+        log(f"[{tag}] {small.n_encoder_layers} + {small.n_layers} layers "
+            f"fp32, {'paged' if page_size else 'monolithic, two waves'}: "
+            f"first splits against the CPU {splits}, min CPU top-2 gap "
+            f"{min(min(w[1]) for w in wants):.3e}; launches {launches}")
+    gen = np.random.default_rng(SEED + 2)
+    B = 2
+    src = gen.normal(size=(B, 40, small.d_model)).astype(np.float32)
+    tokens = gen.integers(1, small.vocab_size, (B, 32)).astype(np.int32)
+    block = gen.integers(1, small.vocab_size, (B, 4)).astype(np.int32)
+    table = np.arange(1, B * 10 + 1, dtype=np.int32).reshape(B, 10)
+    logits = {}
+    for where, p in (("cpu", cpu_params), ("card", params)):
+        d = "cpu" if where == "cpu" else dev
+        cache = models.init_cache(small, B, 160, src_len=40, page_size=16,
+                                  dtype=torch.float32, device=d)
+        models.set_page_table(cache, table)
+        lg, cache = models.prefill(p, small, {
+            "src": torch.from_numpy(src).to(d),
+            "tokens": torch.from_numpy(tokens).to(d)}, cache)
+        out = [lg]
+        pos = torch.tensor([32, 32], dtype=torch.int32, device=d)
+        tok = torch.from_numpy(tokens[:, -1]).to(d)
+        for t in range(4):
+            lg, cache = models.decode_step(p, small, tok, cache, pos + t)
+            out.append(lg)
+            tok = torch.from_numpy(block[:, t]).to(d)
+        lg, cache = models.decode_block(p, small, torch.from_numpy(
+            block).to(d), cache, pos + 4)
+        out.append(lg)
+        logits[where] = [t.float().cpu() for t in out]
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(logits["card"], logits["cpu"])]
+    if max(errs) > FID_ATOL:
+        raise AssertionError(f"{tag}: logits card vs CPU max abs err "
+                             f"{errs} > {FID_ATOL}")
+    log(f"[{tag}] random source (B={B}, 40 frames, 32-token prompts), "
+        "paged: prefill, 4 decode steps and a T = 4 block, fp32 logits "
+        f"max abs err card vs CPU {[f'{e:.2e}' for e in errs]} (tolerance "
+        f"{FID_ATOL})")
+
+
+def encdec_spec(cfg, dev, counters) -> dict:
+    """Phase 12 (c), speculation: :func:`encdec_small` on the paged
+    layout, ``spec_k = 3`` with a draft from another seed (rejected
+    almost always: every step verifies a block and keeps its first
+    token): on one engine a cold graph serve and :func:`graph_turns`
+    (warm graph turns equal to the eager ones exactly); the tokens equal
+    the plain loop's on the card; one verify block per decoder layer and
+    step."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    small = encdec_small(cfg)
+    tag = f"encdec spec {cfg.name}"
+    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+    garbage = models.init_model(small, seed=SEED + 2, device=dev,
+                                packed=True)
+    kw = dict(slots=4, max_len=160, prompt_pad=32, page_size=16,
+              decode_chunk=8, max_new_tokens=16, eos_token=-1)
+    prompts = hybrid_prompts(small.vocab_size)
+    plain, _, _ = serve_prompts(Engine(small, ServeConfig(**kw), params,
+                                       device=dev), prompts, counters)
+    eng = Engine(small, ServeConfig(**kw, spec_k=SPEC_K), params,
+                 draft_params=garbage, device=dev)
+    turns = graph_turns(eng, prompts, counters,
+                        serve_prompts(eng, prompts, counters), tag)
+    outs, rep, launches = turns[0][2]
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    if launches["paged_attention Q>1"] != small.n_layers * steps:
+        raise AssertionError(f"{tag}: {launches['paged_attention Q>1']} "
+                             f"verify blocks for {steps} steps")
+    if outs != plain or rep["acceptance_rate"] >= 0.5:
+        raise AssertionError(f"{tag}: tokens equal to the plain loop's: "
+                             f"{outs == plain}; acceptance "
+                             f"{rep['acceptance_rate']:.4f}")
+    log(f"[{tag}] garbage draft: acceptance {rep['acceptance_rate']:.4f} "
+        f"({rep['accepted']} of {rep['drafted']}), every request's tokens "
+        "equal to the plain loop's")
+    return launches
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -2314,6 +2695,7 @@ def main() -> int:
         check_moe_kernels(mcfg, dev)
     for hcfg in hybrid_configs():
         check_hybrid_kernels(hcfg, dev)
+    check_encdec_kernels(encdec_config(), dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -2393,6 +2775,15 @@ def main() -> int:
     for name in ("nm_spmm", "paged_attention", "flash_attention"):
         launches[name] += got[name]
     timed("11 mamba2-130m and zamba2-1.2b", t0)
+
+    t0 = time.perf_counter()
+    ecfg = encdec_config()
+    got = encdec_serve(ecfg, dev, counters)
+    encdec_vs_cpu(ecfg, dev, counters)
+    for more in (got, encdec_spec(ecfg, dev, counters)):
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += more[name]
+    timed("12 seamless-m4t-large-v2", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

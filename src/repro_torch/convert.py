@@ -5,11 +5,12 @@ The input is the JAX parameter tree flattened to nested dicts of numpy
 arrays: every pack becomes the dict of its fields (``NMPack``:
 ``values, idx, K, N, n, m, g``; ``BlockSparsePack``: ``values, indices,
 counts, K, N, bk, bn, max_nnz``; ``CombinedPack``: those plus ``gidx, n,
-m``; ``LookaheadPack``: ``enc, scale, K, N``), and the ``layers``
-and ``mamba`` subtrees keep their leading layer axis (the JAX models scan
-over them).  The output is the port's tree: ``layers`` and ``mamba``
-(the hybrid family's trunk, packs included) become lists of per-layer
-dicts, the hybrid ``shared`` block converts as it is,
+m``; ``LookaheadPack``: ``enc, scale, K, N``), and the layer stacks
+(``STACKS``) keep their leading layer axis (the JAX models scan over
+them).  The output is the port's tree: ``layers``, ``mamba`` (the hybrid
+family's trunk) and the enc-dec ``encoder`` and ``decoder`` become lists
+of per-layer dicts, packs included, the hybrid ``shared`` block converts
+as it is,
 packs become the port's pack classes, arrays become tensors on
 ``device`` in their own dtype — so both sides compute the same thing.
 A layer of a stacked block or combined pack keeps the padding slots the
@@ -51,6 +52,8 @@ def _pack_class(node: Any) -> Optional[type]:
     return _PACKS.get(frozenset(node)) if isinstance(node, dict) else None
 
 
+#: the subtrees the JAX models stack over layers
+STACKS = ("layers", "mamba", "encoder", "decoder")
 #: the expert projections of an MoE layer's ``moe`` subtree
 _EXPERTS = ("w_in", "w_gate", "w_out")
 
@@ -95,7 +98,7 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
-        if k in ("layers", "mamba"):
+        if k in STACKS:
             out[k] = [_convert(v, device, (l,)) for l in range(_lead(v)[0])]
         else:
             out[k] = _convert(v, device)

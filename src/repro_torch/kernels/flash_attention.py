@@ -1,9 +1,10 @@
-"""Fused causal attention (flash-style), hand-written for Hopper.
+"""Fused attention (flash-style), hand-written for Hopper.
 
 ``flash_attention(q, k, v)`` — ``q (B, H, Lq, D)``, ``k/v (B, Hk, Lk,
-D)`` — with causal masking, sliding windows, tanh soft-capping, GQA and
-the suffix offset ``Lk - Lq``.  On a CUDA tensor it launches
-``csrc/flash_attention.cu`` (the port of
+D)`` — causal or bidirectional (``causal=False``: every query sees every
+key, whatever ``Lq`` and ``Lk``), with sliding windows, tanh
+soft-capping, GQA and the suffix offset ``Lk - Lq``.  On a CUDA tensor
+it launches ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention.py``; the source's head says what bounds
 it and how it is laid out): bfloat16 at D = 64, 128 or 160 runs on the
 tensor cores, float32 (and bfloat16 at D = 32 or 256) on CUDA-core FMAs,
@@ -26,10 +27,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
 #: Those of them with fewer queries than keys (a prompt's suffix over a
-#: shared prefix).
+#: shared prefix, or a prompt's cross-attention over a longer source).
 suffix_launches = 0
 #: Those of them on the tensor-core route.
 mma_launches = 0
+#: Those of them without the causal mask (an encoder's attention, a
+#: prompt's cross-attention over a source).
+noncausal_launches = 0
 
 
 #: ``plan(B, H, Hk, Lq, Lk, D, dtype)``: route, tile and grid of a call.
@@ -53,10 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """``q (B, H, Lq, D), k/v (B, Hk, Lk, D) -> (B, H, Lq, D)``; queries
-    are the last ``Lq`` positions of the keys.  Rows with no key in
-    reach give zeros on the card."""
-    global launches, suffix_launches, mma_launches
+    """``q (B, H, Lq, D), k/v (B, Hk, Lk, D) -> (B, H, Lq, D)``; under
+    ``causal`` the queries are the last ``Lq`` positions of the keys.
+    Rows with no key in reach give zeros on the card."""
+    global launches, suffix_launches, mma_launches, noncausal_launches
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
@@ -98,4 +102,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         suffix_launches += 1
     if p["route"] == "mma":
         mma_launches += 1
+    if not causal:
+        noncausal_launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Model API of the port — the JAX package's serving surface for two
+"""Model API of the port — the JAX package's serving surface for three
 families:
 
   * ``"lm"``: gated decoder-only LMs with a tied or untied head (qwen3,
@@ -8,7 +8,12 @@ families:
   * ``"hybrid"``: the Mamba-2 trunk with or without zamba2's shared
     attention block (mamba2, zamba2; ``models/hybrid.py``,
     ``models/ssm.py``), whose cache is ``{"ssm": {"conv", "ssm"}, "kv":
-    ...}`` (no ``"kv"`` for mamba2).
+    ...}`` (no ``"kv"`` for mamba2);
+  * ``"encdec"``: the encoder-decoder backbone of seamless-m4t
+    (``models/encdec.py``), whose cache is ``{"self": ..., "cross":
+    {"k", "v"}}`` and whose ``prefill`` takes the source frames as
+    ``batch["src"]``, or a null (all-zero) source sized to the cross
+    cache when the batch holds tokens only (what the ``Engine`` feeds).
 
 ``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
 ``decode_block``, plus the cache helpers the serving loops use
@@ -18,8 +23,7 @@ nested caches as the JAX ones do, and the recurrent-state helpers of
 speculative rollback (``recurrent_state``, ``set_recurrent_state``,
 ``select_recurrent``, ``where_slot``).  Caches are updated in place; the
 helpers return the cache for call-site parity with the JAX API.  The
-encoder-decoder family and the gemma features are ROADMAP queue 1 items
-11d-11e.
+gemma features are ROADMAP queue 1 item 11e.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TR
 from repro_torch.models.attention import (init_kv_cache, init_paged_kv_cache,
@@ -62,14 +67,18 @@ def expert_rows(cfg: ModelConfig, tokens: int) -> Optional[int]:
 
 def _check_ported(cfg: ModelConfig) -> None:
     f = family(cfg)
-    if f == "encdec" or not cfg.mlp_gated or cfg.embed_scale \
-            or cfg.post_norm or cfg.input_mode not in ("tokens", "embeds") \
-            or (f == "hybrid" and cfg.input_mode != "tokens"):
+    if f == "encdec":
+        # seamless: an ungated MLP, frames into the encoder
+        ok = not cfg.mlp_gated and cfg.input_mode == "embeds"
+    else:
+        ok = cfg.mlp_gated and cfg.input_mode in ("tokens", "embeds") \
+            and (f != "hybrid" or cfg.input_mode == "tokens")
+    if not ok or cfg.embed_scale or cfg.post_norm:
         raise NotImplementedError(
             f"{cfg.name}: only gated decoder-only LMs (tied or untied head, "
-            "M-RoPE, embeds input, routed experts) and the SSM/hybrid "
-            "family are ported; enc-dec is ROADMAP queue 1 item 11d and the "
-            "gemma features (post-norms, scaled embeds, ungated MLPs) 11e")
+            "M-RoPE, embeds input, routed experts), the SSM/hybrid family "
+            "and the ungated enc-dec family are ported; the gemma features "
+            "(post-norms, scaled embeds) are ROADMAP queue 1 item 11e")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -82,12 +91,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if family(cfg) == "encdec":
+        return ED.init_encdec(cfg, gen, device, packed=packed)
     if family(cfg) == "hybrid":
         return HY.init_hybrid_lm(cfg, gen, device, packed=packed)
     return TR.init_lm(cfg, gen, device, packed=packed)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               src_len: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16, page_size: int = 0,
                num_pages: int = 0, device="cuda") -> Params:
     """Serving cache: paged when ``page_size > 0`` (``num_pages``
@@ -95,9 +107,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     monolithic ``(n_layers, batch, max_len, Hk, D)``.  The hybrid
     family's is ``{"ssm": ..., "kv": ...}``: the fp32 recurrent state of
     every layer and the KV of the shared slots only
-    (``hybrid.init_hybrid_cache``)."""
+    (``hybrid.init_hybrid_cache``).  The enc-dec family's is ``{"self":
+    ..., "cross": ...}``: the decoder's self KV (paged or not) and the
+    monolithic cross K/V of ``src_len`` source rows (default
+    ``max_len``, what the ``Engine`` serves)."""
     _check_ported(cfg)
     device = resolve_device(device)
+    if family(cfg) == "encdec":
+        return ED.init_encdec_cache(cfg, batch, max_len, src_len or max_len,
+                                    dtype=dtype, page_size=page_size,
+                                    num_pages=num_pages, device=device)
     if family(cfg) == "hybrid":
         return HY.init_hybrid_cache(cfg, batch, max_len, dtype=dtype,
                                     page_size=page_size, num_pages=num_pages,
@@ -112,7 +131,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Params) -> Tuple[torch.Tensor, Params]:
     """Prompt ``batch["embeds"] (B, L, d)`` (an ``input_mode="embeds"``
     config) or ``batch["tokens"] (B, L)`` → (last-position logits,
-    cache)."""
+    cache).  The enc-dec family encodes ``batch["src"] (B, src_len, d)``
+    and prefills the decoder with ``batch["tokens"]``; without a
+    ``"src"`` (the ``Engine``'s token prompts) it encodes the JAX
+    package's null source, zeros sized to the cross cache."""
+    if family(cfg) == "encdec":
+        src = batch.get("src")
+        if src is None:
+            ck = cache["cross"]["k"]
+            src = torch.zeros((batch["tokens"].shape[0], ck.shape[2],
+                               cfg.d_model), dtype=ck.dtype, device=ck.device)
+        return ED.encdec_prefill(params, cfg, src, batch["tokens"], cache)
     if family(cfg) == "hybrid":
         return HY.hybrid_prefill(params, cfg, batch["tokens"], cache)
     return TR.lm_prefill(params, cfg, batch.get("embeds", batch.get("tokens")),
@@ -124,6 +153,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One token per slot in at per-slot ``pos (B,)``, next-token logits
     out."""
+    if family(cfg) == "encdec":
+        return ED.encdec_decode_step(params, cfg, token, cache, pos)
     if family(cfg) == "hybrid":
         return HY.hybrid_decode_step(params, cfg, token, cache, pos)
     return TR.lm_decode_step(params, cfg, token, cache, pos)
@@ -140,15 +171,19 @@ def decode_block(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache).
 
     Returns ``(logits, cache)``; with ``collect_states``, ``(logits,
-    cache, snapshots)``: ``None`` for the ``lm`` family (its rollback is
-    position masking), and for the hybrid family the recurrent state
-    after each block position (:func:`select_recurrent`)."""
-    if family(cfg) == "hybrid":
+    cache, snapshots)``: ``None`` for the ``lm`` and ``encdec`` families
+    (their rollback is position masking), and for the hybrid family the
+    recurrent state after each block position (:func:`select_recurrent`).
+    """
+    snaps = None
+    if family(cfg) == "encdec":
+        logits, cache = ED.encdec_decode_block(params, cfg, tokens, cache,
+                                               pos)
+    elif family(cfg) == "hybrid":
         logits, cache, snaps = HY.hybrid_decode_block(
             params, cfg, tokens, cache, pos, collect=collect_states)
     else:
         logits, cache = TR.lm_decode_block(params, cfg, tokens, cache, pos)
-        snaps = None
     return (logits, cache, snaps) if collect_states else (logits, cache)
 
 

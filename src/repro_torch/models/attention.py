@@ -31,7 +31,13 @@ Which kernel runs where:
   * monolithic decode writes the ``Lq`` rows at each slot's own ``pos``
     (the start clamped so the block fits, as ``dynamic_update_slice``
     clamps it) and is plain masked attention over the cache with
-    ``kv_len = pos + Lq`` (as the JAX ``_sdpa`` does).
+    ``kv_len = pos + Lq`` (as the JAX ``_sdpa`` does);
+  * :func:`bidirectional_attention` (no cache: an encoder's attention)
+    calls the flash kernel with ``causal=False``;
+  * :func:`cross_attention` over a source's cached keys and values calls
+    the flash kernel non-causal for a prompt's rows, and is plain
+    unmasked fp32 attention at decode (as the JAX ``_sdpa`` over the
+    cross cache).
 """
 
 from __future__ import annotations
@@ -115,11 +121,13 @@ def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _sdpa_cache(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, kv_len: torch.Tensor,
+                v: torch.Tensor, kv_len: Optional[torch.Tensor],
                 window: Optional[int]) -> torch.Tensor:
     """Plain masked attention of ``q (B, Lq, H, D)`` over a whole cache
     ``(B, S, Hk, D)`` with per-slot valid lengths ``kv_len (B,)`` — the
-    JAX ``_sdpa`` in fp32, for monolithic decode."""
+    JAX ``_sdpa`` in fp32, for monolithic decode.  ``kv_len=None`` masks
+    nothing: every row is valid and every query sees it (cross-attention
+    over a source)."""
     B, Lq, H, D = q.shape
     Lk, Hk = k.shape[1], k.shape[2]
     g = H // Hk
@@ -129,23 +137,70 @@ def _sdpa_cache(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qh, kh) * D ** -0.5
     if cfg.attn_softcap is not None:
         logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
-    kvl = kv_len.long()
-    qpos = kvl[:, None] - Lq + torch.arange(Lq, device=q.device)  # (B, Lq)
-    kpos = torch.arange(Lk, device=q.device)
-    mask = (kpos <= qpos[..., None]) & (kpos < kvl[:, None, None])
-    if window is not None:
-        mask &= kpos > qpos[..., None] - window
-    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    if kv_len is not None:
+        kvl = kv_len.long()
+        qpos = kvl[:, None] - Lq + torch.arange(Lq, device=q.device)
+        kpos = torch.arange(Lk, device=q.device)
+        mask = (kpos <= qpos[..., None]) & (kpos < kvl[:, None, None])
+        if window is not None:
+            mask &= kpos > qpos[..., None] - window
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
     out = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(logits, -1), vh)
     return out.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
+
+
+def _heads(t: torch.Tensor) -> torch.Tensor:
+    """``(B, L, H, D)`` → the kernels' contiguous ``(B, H, L, D)``."""
+    return t.transpose(1, 2).contiguous()
+
+
+def bidirectional_attention(params: Params, cfg: ModelConfig,
+                            x: torch.Tensor, positions: torch.Tensor, *,
+                            sparsity: SparsityConfig = DENSE
+                            ) -> torch.Tensor:
+    """Cache-less attention of ``x (B, L, d)`` over itself, every query
+    over every key, on the flash kernel (``causal=False``): project →
+    rope → attention → out projection.  The encoder's attention, the JAX
+    ``attention(..., causal=False)`` without a cache (no window: encoder
+    layers are not local)."""
+    B, Lq = x.shape[:2]
+    q, k, v = _project_qkv(params, cfg, x, sparsity)
+    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    out = dispatch.attention(_heads(q), _heads(k), _heads(v), causal=False,
+                             softcap=cfg.attn_softcap)
+    return apply_linear(out.transpose(1, 2).reshape(B, Lq, cfg.q_dim),
+                        params["wo"], sparsity)
+
+
+def cross_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, *, kernel: bool,
+                    sparsity: SparsityConfig = DENSE) -> torch.Tensor:
+    """Attention of ``x (B, Lq, d)`` over a source's cached keys and
+    values ``k/v (B, Ls, Hk, D)``: no rope, no mask (every source row is
+    valid to every query).  ``kernel`` runs the flash kernel, non-causal,
+    on k/v read back in ``x``'s dtype (a prompt's rows at prefill); else
+    plain fp32 attention over the cache, the JAX ``_sdpa`` (decode and
+    the verify block)."""
+    B, Lq = x.shape[:2]
+    q = apply_linear(x, params["wq"], sparsity)
+    q = q.reshape(B, Lq, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    if kernel:
+        out = dispatch.attention(_heads(q), _heads(k.to(q.dtype)),
+                                 _heads(v.to(q.dtype)), causal=False,
+                                 softcap=cfg.attn_softcap).transpose(1, 2)
+    else:
+        out = _sdpa_cache(cfg, q, k, v, None, None)
+    return apply_linear(out.reshape(B, Lq, cfg.q_dim), params["wo"], sparsity)
 
 
 def _flash_prefill(cfg: ModelConfig, q, k, v, cache_dtype, window):
     """Causal attention over the fresh prompt rows; k/v are rounded to
     the cache dtype first, as reading them back from the cache would."""
-    kh = k.to(cache_dtype).to(q.dtype).transpose(1, 2).contiguous()
-    vh = v.to(cache_dtype).to(q.dtype).transpose(1, 2).contiguous()
-    out = dispatch.attention(q.transpose(1, 2).contiguous(), kh, vh,
+    out = dispatch.attention(_heads(q), _heads(k.to(cache_dtype).to(q.dtype)),
+                             _heads(v.to(cache_dtype).to(q.dtype)),
                              causal=True, window=window,
                              softcap=cfg.attn_softcap)
     return out.transpose(1, 2)
@@ -161,11 +216,10 @@ def _flash_suffix(cfg: ModelConfig, q, kp, vp, pt, kv_len: int, window):
 
     def view(pool):
         rows = pool[table].reshape(B, -1, *pool.shape[2:])[:, :kv_len]
-        return rows.to(q.dtype).transpose(1, 2).contiguous()
+        return _heads(rows.to(q.dtype))
 
-    out = dispatch.attention(q.transpose(1, 2).contiguous(), view(kp),
-                             view(vp), causal=True, window=window,
-                             softcap=cfg.attn_softcap)
+    out = dispatch.attention(_heads(q), view(kp), view(vp), causal=True,
+                             window=window, softcap=cfg.attn_softcap)
     return out.transpose(1, 2)
 
 

@@ -3,10 +3,11 @@ field, so a config built on either side describes the same model.
 
 The port serves the decoder-only ("lm") family, with a tied or untied
 head, M-RoPE (``mrope_sections``), embeds input (``input_mode``) and
-routed experts (the MoE fields), and the SSM/hybrid family (the SSM
-fields, ``MAMBA`` and ``SHARED_ATTN`` layers); the fields of the
-encoder-decoder family and the gemma features are carried for parity and
-rejected by ``models.init_model`` (ROADMAP queue 1 items 11d-11e).
+routed experts (the MoE fields), the SSM/hybrid family (the SSM
+fields, ``MAMBA`` and ``SHARED_ATTN`` layers) and the encoder-decoder
+family (``is_encoder_decoder``, ``n_encoder_layers``, an ungated MLP);
+the gemma features are carried for parity and rejected by
+``models.init_model`` (ROADMAP queue 1 item 11e).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Shared building blocks: rmsnorm, rotary embeddings, embed/unembed and
-the gated MLP.
+the MLP, gated or plain.
 
 Cast points follow the JAX package: rmsnorm and rope compute in fp32 and
-cast back to the input dtype; silu runs in fp32.  Every projection goes
+cast back to the input dtype; silu and gelu run in fp32.  Every projection goes
 through ``core.sparse_linear.apply_linear``.
 """
 
@@ -93,16 +93,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_mlp(d: int, ff: int, dtype: torch.dtype,
-             generator: torch.Generator, device) -> Params:
-    return {"w_in": init_linear(d, ff, dtype, generator, device),
-            "w_out": init_linear(ff, d, dtype, generator, device),
-            "w_gate": init_linear(d, ff, dtype, generator, device)}
+             generator: torch.Generator, device, gated: bool = True
+             ) -> Params:
+    p = {"w_in": init_linear(d, ff, dtype, generator, device),
+         "w_out": init_linear(ff, d, dtype, generator, device)}
+    if gated:
+        p["w_gate"] = init_linear(d, ff, dtype, generator, device)
+    return p
 
 
 def mlp(params: Params, x: torch.Tensor,
-        sparsity: SparsityConfig = DENSE) -> torch.Tensor:
-    """Gated MLP: ``w_out(silu(w_gate x) * w_in x)``."""
+        sparsity: SparsityConfig = DENSE, gated: bool = True
+        ) -> torch.Tensor:
+    """Gated MLP ``w_out(silu(w_gate x) * w_in x)``, or with ``gated=False``
+    the plain ``w_out(gelu(w_in x))`` (the tanh form, ``jax.nn.gelu``'s
+    default)."""
     h = apply_linear(x, params["w_in"], sparsity)
-    g = apply_linear(x, params["w_gate"], sparsity)
-    h = F.silu(g.float()).to(h.dtype) * h
+    if gated:
+        g = apply_linear(x, params["w_gate"], sparsity)
+        h = F.silu(g.float()).to(h.dtype) * h
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     return apply_linear(h, params["w_out"], sparsity)

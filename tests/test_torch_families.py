@@ -15,12 +15,12 @@ Auto axes, weights carried over with ``convert.params_from_numpy``):
 * Engine parity: greedy transcripts and ``sync_count`` equal the JAX
   ``Engine`` and ``conftest.reference_decode``, both layouts, both tiny
   configs, plus speculation (self and 2:4 pack draft) on the untied one;
-* ``_check_ported`` still refuses the enc-dec and gemma configs of the
-  JAX registry; the MoE configs pass it (their own suite is
-  ``test_torch_moe.py``), while their speculation and prefix sharing stay
-  refused; the SSM/hybrid configs pass it (their suites are
-  ``test_torch_ssm.py`` and ``test_torch_hybrid.py``), while their prefix
-  sharing stays refused.
+* ``_check_ported`` still refuses the gemma configs of the JAX registry;
+  the MoE configs pass it (their own suite is ``test_torch_moe.py``),
+  while their speculation and prefix sharing stay refused; the SSM/hybrid
+  configs and the enc-dec seamless pass it (their suites are
+  ``test_torch_ssm.py``, ``test_torch_hybrid.py`` and
+  ``test_torch_encdec.py``), while their prefix sharing stays refused.
 """
 
 import dataclasses
@@ -123,8 +123,10 @@ def test_registry_names_the_ported_archs():
     assert TC.get("qwen2-vl-72b").mrope_sections == (16, 24, 24)
     assert TC.get("dbrx-132b") == to_port(JC.get("dbrx-132b"))
     assert TC.get("zamba2-1.2b") == to_port(JC.get("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="11d-11e"):
-        TC.get("seamless-m4t-large-v2")
+    assert TC.get("seamless-m4t-large-v2") == \
+        to_port(JC.get("seamless-m4t-large-v2"))
+    with pytest.raises(NotImplementedError, match="11e"):
+        TC.get("gemma2-27b")
 
 
 # --- M-RoPE ----------------------------------------------------------------------
@@ -356,20 +358,22 @@ def test_pack_draft_shares_the_untied_head(untied_dense):
 #: the MoE family: ported (ROADMAP queue 1 item 11b), its speculation and
 #: prefix sharing not yet (item 16)
 MOE = ("qwen2_moe_a2_7b", "dbrx_132b")
-#: the SSM/hybrid family: ported (item 11c), prefix sharing refused as in
-#: the JAX engine (its recurrent state lies outside the page pool)
+#: the SSM/hybrid family (item 11c) and the enc-dec family (item 11d):
+#: ported, prefix sharing refused as in the JAX engine (their per-request
+#: state lies outside the page pool)
 HYBRID = ("mamba2_130m", "zamba2_1_2b")
+ENCDEC = ("seamless_m4t_large_v2",)
 REFUSED = [a for a in JC.list_archs()
            if a not in ("qwen3_0_6b", *PORTED, *MOE)]
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED + list(MOE)))
 def test_check_ported_refuses_the_other_families(arch):
-    """Enc-dec and gemma stay refused, with the message naming their
-    ROADMAP items.  The MoE archs pass ``_check_ported``, and what stays
-    refused for them is speculation and prefix sharing; the SSM/hybrid
-    archs pass it, a CPU ``init_model``/``init_cache`` serves a prefill,
-    and what stays refused is prefix sharing."""
+    """Gemma stays refused, with the message naming its ROADMAP item.
+    The MoE archs pass ``_check_ported``, and what stays refused for them
+    is speculation and prefix sharing; the SSM/hybrid archs and the
+    enc-dec seamless pass it, a CPU ``init_model``/``init_cache`` serves
+    a prefill, and what stays refused is prefix sharing."""
     cfg = to_port(JC.get_reduced(arch))
     if arch in MOE:
         TM._check_ported(cfg)
@@ -379,19 +383,19 @@ def test_check_ported_refuses_the_other_families(arch):
                 TEngine(cfg, TServeConfig(**SERVE, page_size=8, **kw),
                         params, device="cpu")
         return
-    if arch in HYBRID:
+    if arch in HYBRID + ENCDEC:
         TM._check_ported(cfg)
         params = TM.init_model(cfg, device="cpu")
         cache = TM.init_cache(cfg, 1, 16, page_size=8, device="cpu")
         logits, _ = TM.prefill(params, cfg, {"tokens": torch.ones(
             (1, 4), dtype=torch.int32)}, cache)
         assert torch.isfinite(logits).all()
-        with pytest.raises(ValueError, match="'hybrid' family"):
+        with pytest.raises(ValueError, match=f"'{TM.family(cfg)}' family"):
             TEngine(cfg, TServeConfig(**SERVE, page_size=8,
                                       prefix_cache=True), params,
                     device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="11d.*11e"):
+    with pytest.raises(NotImplementedError, match="11e"):
         TM.init_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 16, device="cpu")

@@ -1032,3 +1032,67 @@ def test_hybrid_garbage_draft_rollback_equals_the_plain_loop(cuda):
         assert tokens == want
         assert st.accepted < 0.5 * st.drafted
     assert runs[0] == runs[1]
+
+
+# --- the enc-dec family (seamless-m4t-large-v2) ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Lq,Lk", [(8, 6), (128, 512), (300, 300), (37, 200)])
+def test_flash_attention_non_causal_d64_g1(cuda, Lq, Lk, dtype):
+    """Non-causal flash at seamless's heads (16 over 16, D = 64): more
+    queries than keys (a negative suffix offset), fewer (the prompt's
+    cross-attention over the source) and as many (the encoder); bf16 on
+    the tensor-core route, fp32 on the FMA route."""
+    run_flash(*flash_inputs(40 + Lq, Lq, Lk, 16, 16, 64, dtype),
+              "mma" if dtype == torch.bfloat16 else "fma", causal=False)
+
+
+def _seamless_config(dtype, layers=2):
+    """seamless-m4t-large-v2's ``sparse()`` at published widths, cut to
+    ``layers`` encoder and decoder layers: 2:4 MLPs, dense attention."""
+    import dataclasses
+
+    from repro_torch.configs import seamless_m4t_large_v2
+    return dataclasses.replace(seamless_m4t_large_v2.sparse(),
+                               n_layers=layers, n_encoder_layers=layers,
+                               layer_kinds=(), dtype=dtype)
+
+
+@pytest.mark.parametrize("page_size", [0, 8], ids=["mono", "paged"])
+def test_encdec_graph_serve_equals_eager(cuda, page_size):
+    """A 2 + 2-layer bf16 seamless at published widths through the
+    captured chunk graphs gives the eager serve's tokens, ``sync_count``
+    and launches, cold and warm; the cross K/V keep their addresses.
+    Per prefill call flash launches once per encoder layer and twice per
+    decoder layer (self and cross), nm_spmm twice per layer of both
+    stacks; per decode step nm_spmm twice per decoder layer and paged
+    once (paged layout)."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = _seamless_config("bfloat16")
+    params = models.init_model(cfg, seed=0, device=cuda, packed=True)
+    scfg = ServeConfig(**dict(GRAPH_SERVE, page_size=page_size))
+    eager = Engine(cfg, scfg, params, device=cuda)
+    eager._backend._graphs = False
+    want = _serve(eager)
+    graph, seen = Engine(cfg, scfg, params, device=cuda), {}
+    cold = _serve(graph)
+    ptrs = [t.data_ptr() for t in models.cache_leaves(graph._cache["cross"])]
+    assert cold[:3] == want[:3]
+    assert len(_check_graph_runs(cold[3], seen)) >= 1
+    warm = _serve(graph)
+    assert warm[:3] == want[:3]
+    assert [t.data_ptr() for t in
+            models.cache_leaves(graph._cache["cross"])] == ptrs
+    st = want[3]
+    steps = len(st.chunk_s) * scfg.decode_chunk
+    per_call = cfg.n_encoder_layers + 2 * cfg.n_layers
+    calls, rest = divmod(want[2][flash_mod.__name__], per_call)
+    assert rest == 0
+    assert calls == st.prefills if page_size else 0 < calls < st.prefills
+    assert want[2][nm_mod.__name__] == \
+        2 * (cfg.n_encoder_layers + cfg.n_layers) * calls \
+        + 2 * cfg.n_layers * steps
+    assert want[2][paged_mod.__name__] == \
+        (cfg.n_layers * steps if page_size else 0)
+    assert all(len(t) == 24 for t in want[0])
