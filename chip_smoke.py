@@ -52,7 +52,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      512 and 300, a prompt's cross-attention of 128 rows over 512 source
      rows, 8 queries over 6 keys) in bf16 and fp32, each against
      ``mha_ref(causal=False)`` and timed beside SDPA without a mask;
-  4. serve qwen3-0.6b at full width, 28 layers, bf16, random weights from
+     and at phase 13's (``check_gemma_kernels``): nm_spmm at one gated
+     MLP of gemma2-27b (4608 ↔ 36864) and of gemma3-1b (1152 ↔ 6912),
+     both attention kernels at their heads (32 over 16 at D = 128; 4
+     over 1 at D = 256, bf16 on the FMA route), the paged kernel in bf16
+     and with fp32 q, Q = 1 and 4, with a sliding window whose mask
+     bites (gemma2: 256 rows over lens up to 512, softcap 50; gemma3:
+     512 over lens up to 1024) and without it (the global layers), timed
+     beside SDPA under the same window mask (SDPA has no softcap), and
+     flash with the window and softcap at the served prompts (gemma2:
+     128 rows; gemma3: 640 rows, window 512, and without the window);
+  4. serve qwen3-0.6b at full width, 28 layers (the other formats than
+     2:4 cut to ``FORMAT_LAYERS``), bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
      format on all seven projections: ``sparse()`` (2:4, g=128) and
      ``combined`` with 16 requests of 16–128 tokens and 64 new tokens
@@ -131,8 +142,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      key; the warm means against (a).  Then the model at 2 layers in
      fp32 with a ``pack`` draft in each format against the CPU path's
      greedy tokens (phase 5's rule): the FMA route's verify block;
-  9. stablelm-12b (40 layers, d_model 5120, 32 heads of 160 over 8 kv
-     heads, d_ff 13824, vocab 100352, an untied head) and qwen2-vl-72b
+  9. stablelm-12b (cut to ``STABLELM_LAYERS`` of its 40 layers, d_model
+     5120, 32 heads of 160 over 8 kv heads, d_ff 13824, vocab 100352, an
+     untied head) and qwen2-vl-72b
      (d_model 8192, 64 heads of 128 over 8, d_ff 29568, vocab 152064,
      M-RoPE (16, 24, 24), cut to ``QWEN2_VL_LAYERS`` of its 80 layers:
      80 dense bf16 layers do not fit the card before packing) at their
@@ -148,11 +160,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      prefill's logits bitwise.  Then both at 2 layers in fp32 against
      the CPU path (phase 5's rule), both attention kernels on the FMA
      route;
- 10. the MoE family: qwen2-moe-a2.7b (24 layers, d_model 2048, 16 heads
-     of 128 over 16, 60 experts top-4 of d_expert 1408 and 4 shared,
-     vocab 151936, tied) and dbrx-132b (d_model 6144, 48 heads of 128
-     over 8, 16 experts top-4 of d_expert 10752, vocab 100352, cut to
-     ``DBRX_LAYERS`` of its 40 layers: 40 packed layers are ~134 GB)
+ 10. the MoE family: qwen2-moe-a2.7b (d_model 2048, 16 heads of 128
+     over 16, 60 experts top-4 of d_expert 1408 and 4 shared, vocab
+     151936, tied; cut to ``QWEN2_MOE_LAYERS`` of its 24 layers so that
+     phase 13 fits the time limit) and dbrx-132b (d_model 6144, 48 heads
+     of 128 over 8, 16 experts top-4 of d_expert 10752, vocab 100352,
+     cut to ``DBRX_LAYERS`` of its 40 layers: 40 packed layers are ~134
+     GB)
      at published widths, bf16, random weights from a seed, each layer
      packed as it is drawn (one dense layer is the only transient),
      ``sparse()``'s 2:4 packs on the routed (and qwen2-moe's shared)
@@ -167,12 +181,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      layers in fp32: the Engine's tokens on the card against the same
      batch decoded on the CPU path (``batched_greedy``; phase 5's rule
      at the first split).
- 11. the SSM/hybrid family: mamba2-130m (24 Mamba-2 layers, d_model
-     768, 24 SSD heads of 64, state 128, vocab 50280, tied) and
-     zamba2-1.2b (38 layers, d_model 2048, 64 SSD heads of 64, state 64,
-     one shared attention block of 32 heads of 64 and a gated MLP of
-     8192 before layers 3, 9, 15, 21, 27 and 33, vocab 32000, tied) at
-     published widths and depth, bf16, random weights from a seed, each
+ 11. the SSM/hybrid family: mamba2-130m (cut to ``MAMBA2_LAYERS`` of
+     its 24 Mamba-2 layers, d_model 768, 24 SSD heads of 64, state 128,
+     vocab 50280, tied) and zamba2-1.2b (cut to ``ZAMBA2_LAYERS`` of its
+     38 layers, d_model 2048, 64 SSD heads of 64, state 64, one shared
+     attention block of 32 heads of 64 and a gated MLP of 8192 before
+     layers 3 and 9 of those, vocab 32000, tied) at published widths,
+     bf16, random weights from a seed, each
      layer packed as it is drawn: ``sparse()``'s 2:4 packs on
      ``out_proj`` and the shared MLP, ``in_proj`` dense (its width is no
      multiple of 128), through phase 4's serve and stream: a cold graph
@@ -191,10 +206,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      layers speculative (``spec_k = 3``) with a draft from another seed:
      a rollback of the recurrent state at nearly every step, the plain
      loop's tokens, warm graph turns equal to the eager ones.
- 12. the encoder-decoder family: seamless-m4t-large-v2 (24 encoder and
-     24 decoder layers, d_model 1024, 16 heads of 64 over 16, an ungated
-     MLP of 8192, vocab 256206, tied) at published widths and depth,
-     bf16, random weights from a seed, each layer packed as it is drawn:
+ 12. the encoder-decoder family: seamless-m4t-large-v2 (cut to
+     ``SEAMLESS_LAYERS`` of its 24 encoder and 24 decoder layers each,
+     d_model 1024, 16 heads of 64 over 16, an ungated MLP of 8192, vocab
+     256206, tied) at published widths, bf16, random weights from a seed, each layer packed as it is drawn:
      ``sparse()``'s 2:4 packs on every ``w_in`` and ``w_out``, attention
      dense.  (a) Phase 4's serve and stream (the Engine feeds tokens, so
      each prefill encodes the null source of ``max_len`` = 512 frames):
@@ -215,6 +230,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      steps, a T = 4 block) within ``FID_ATOL``, and ``spec_k = 3`` with
      a draft from another seed: the plain loop's tokens, warm graph
      turns equal to the eager ones.
+ 13. the gemma pair: gemma2-27b (46 layers, 23 of them local with a
+     window of 4096, d_model 4608, 32 heads of 128 over 16, d_ff 36864,
+     vocab 256000 tied, attention softcap 50, final softcap 30) and
+     gemma3-1b (26 layers, 22 local with a window of 512, d_model 1152,
+     4 heads of 256 over 1, qk-norm, d_ff 6912, vocab 262144 tied), both
+     with post-norms and scaled embeddings, at published widths and
+     depth, bf16, random weights from a seed, each layer packed as it is
+     drawn: ``sparse()``'s 2:4 packs on the MLPs, attention dense.
+     (a) gemma2 through phase 4's serve and stream (``max_len`` 512:
+     the window never masks, the softcaps and post-norms do their work):
+     a cold graph serve, then phase 4's turns and a profiled replayed
+     chunk.  (b) gemma3 the same, then ``LONG_SERVE``: 8 prompts of
+     384–600 tokens padded to 640 rows and 256 new tokens each, so every
+     local layer's window masks.  Gates: budgets and syncs; turns equal;
+     only nm_spmm and both attention kernels launch, nm_spmm 3 times per
+     layer and forward, flash once per layer and prefill, paged once per
+     layer and step, the local layers' launches with the window (the
+     wrappers' ``window_launches``: local layers × prefills and × steps);
+     gemma2's attention on the tensor-core routes, gemma3's (D = 256,
+     bf16) on the FMA routes.  (c) Each cut to 2 layers (one local, one
+     global) in fp32 with a 32-row window and an untied head (random
+     weights under the tied, scaled head repeat the last prompt token):
+     the Engine's greedy tokens against the CPU path past the window
+     (phase 5's rule), model-level logits (prefill, 4 decode steps, a T
+     = 4 block) within ``FID_ATOL``, and a garbage-draft speculative
+     serve equal to the plain loop.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -459,21 +500,27 @@ PAGED_CASES = (("mixed", 1, torch.bfloat16), ("serve", 1, torch.bfloat16),
                ("mixed", 4, torch.float32), ("mixed", 16, torch.bfloat16))
 
 
-def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
+def check_paged_attention(cfg, dev, copies: int = 12, cases=PAGED_CASES,
+                          mp: int = 32, lens_of=None, window=None,
+                          softcap=None) -> dict:
     """Decode attention at B = 8 slots over a 256-page pool of 16-row
-    pages, a 32-page (512-row) view, held against the plain version at
-    each of ``PAGED_CASES``: mixed lens with one dead slot (its rows must
-    be exactly zero, two calls bitwise equal) and the serve's own lens,
-    129..192, one query per slot, bf16 and fp32 q (the tensor-core and
-    the FMA route); verify blocks of Q = 4 (bf16 and fp32 q) and Q = 16.
-    Each is timed over
-    ``copies`` pools, so the live rows (5.7 MB a pool) stream from HBM
-    rather than the 50 MB L2, as one layer's do in a decode step, beside
-    SDPA over the gathered view under the same causal mask."""
+    pages, an ``mp``-page view (default 32: 512 rows), held against the
+    plain version at each of ``cases`` (default ``PAGED_CASES``): mixed
+    lens with one dead slot (its rows must be exactly zero, two calls
+    bitwise equal) and the serve's own lens, 129..192, one query per
+    slot, bf16 and fp32 q (the tensor-core and the FMA route); verify
+    blocks of Q = 4 (bf16 and fp32 q) and Q = 16.  With a ``window``
+    and a ``softcap`` (gemma's local layers) every call takes them.
+    Each is timed over ``copies`` pools, so the live rows (5.7 MB a pool
+    at qwen3's heads) stream from HBM rather than the 50 MB L2, as one
+    layer's do in a decode step, beside SDPA over the gathered view under
+    the same causal (and window) mask; SDPA has no softcap, so its time
+    is without one.  The bound counts the rows each query reaches, the
+    window's rows only under a window."""
     from repro_torch.kernels import paged_attention as K
     from repro_torch.kernels import ref
-    B, H, Hk, D, ps, P, mp = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
-        16, 257, 32
+    B, H, Hk, D, ps, P = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        16, 257
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED)
     ptab = torch.from_numpy(np.stack([rng.permutation(np.arange(1, P))[:mp]
@@ -483,26 +530,30 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
                    .to(torch.bfloat16) for _ in range(2))
              for _ in range(copies)]
     kp, vp = pools[0]
-    lens_of = {"mixed": [0, 1, 17, 64, 130, 256, 400, 512],
-               "serve": sorted(rng.integers(129, 193, size=B).tolist())}
+    lens_of = lens_of or {
+        "mixed": [0, 1, 17, 64, 130, 256, 400, 512],
+        "serve": sorted(rng.integers(129, 193, size=B).tolist())}
+    kw = dict(window=window, softcap=softcap)
+    extra = "".join(f" {k}={v}" for k, v in kw.items() if v is not None)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     views = {}                       # the gathered (B, H, L, D) view
     err, rows = {}, {}
-    for what, Q, dtype in PAGED_CASES:
+    for what, Q, dtype in cases:
         lens_l = lens_of[what]
         lens_np = np.asarray(lens_l, np.int32)
         lens = torch.from_numpy(lens_np).to(dev)
         shape = (B, H, D) if Q == 1 else (B, Q, H, D)
         q = torch.randn(shape, generator=gen, device=dev).to(dtype)
         name = f"{str(dtype)[6:]} B={B} H={H} Hk={Hk} D={D} Q={Q} " \
-            f"lens={what}"
+            f"lens={what}{extra}"
         log_attn_plan("paged_attention", name,
                       K.plan(B, H, Hk, Q, mp, D, (q.dtype, kp.dtype), ps))
-        got = K.paged_attention(q, kp, vp, ptab, lens)
+        got = K.paged_attention(q, kp, vp, ptab, lens, **kw)
         err[name] = check_close(
             f"paged_attention {name}", got,
-            ref.paged_attention_ref(q, kp, vp, ptab, lens))
-        if not torch.equal(got, K.paged_attention(q, kp, vp, ptab, lens)):
+            ref.paged_attention_ref(q, kp, vp, ptab, lens, **kw))
+        if not torch.equal(got, K.paged_attention(q, kp, vp, ptab, lens,
+                                                  **kw)):
             raise AssertionError(f"paged_attention {name}: two calls differ")
         if lens_l[0] == 0 and (got[0] != 0).any():
             raise AssertionError(f"paged_attention {name}: the lens == 0 "
@@ -512,24 +563,30 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
                              .transpose(1, 2).repeat_interleave(H // Hk, 1)
                              .to(dtype).contiguous() for t in kv]
                             for kv in pools]
-        # query i sees the keys before lens - (Q - 1 - i)
-        reach = np.clip(lens_np[:, None] - (Q - 1 - np.arange(Q)), 0,
-                        mp * ps)                             # (B, Q)
-        mask = (torch.arange(mp * ps, device=dev)[None, None, :]
-                < torch.from_numpy(reach).to(dev)[:, :, None])[:, None]
+        # query i at lens - Q + i sees the keys up to it (and after it
+        # less the window): keys [first, reach) of the view
+        qpos = lens_np[:, None] - Q + np.arange(Q)              # (B, Q)
+        reach = np.clip(qpos + 1, 0, mp * ps)
+        first = np.clip(qpos - window + 1 if window else 0 * qpos, 0, reach)
+        kpos = torch.arange(mp * ps, device=dev)[None, None, :]
+        mask = ((kpos < torch.from_numpy(reach).to(dev)[:, :, None])
+                & (kpos >= torch.from_numpy(first).to(dev)[:, :, None])
+                )[:, None]
         qs = (q[:, None] if Q == 1 else q).transpose(1, 2)  # (B, H, Q, D)
-        live = int(np.minimum(lens_np, mp * ps).sum())
-        pages = int(sum(-(-int(n) // ps) for n in np.minimum(lens_np,
-                                                                mp * ps)))
+        lo, hi = first.min(1), reach.max(1)                 # rows read
+        live = int(np.maximum(hi - lo, 0).sum())
+        pages = int(sum(-(-int(h) // ps) - int(l) // ps
+                        for l, h in zip(lo, hi) if h > l))
         nbytes = 2 * q.numel() * q.element_size() + live * Hk * D * 2 * 2 \
             + pages * 4 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * H * D * int(reach.sum()),
+        b, by = bound_ms(nbytes, 4.0 * H * D * int((reach - first).sum()),
                          BF16_FLOPS_PER_S if dtype == torch.bfloat16
                          else FP32_FLOPS_PER_S)
         rows[what, Q, dtype] = dict(
-            **timings(lambda: [K.paged_attention(q, k, v, ptab, lens)
+            **timings(lambda: [K.paged_attention(q, k, v, ptab, lens, **kw)
                                for k, v in pools],
-                      lambda: [ref.paged_attention_ref(q, k, v, ptab, lens)
+                      lambda: [ref.paged_attention_ref(q, k, v, ptab, lens,
+                                                       **kw)
                                for k, v in pools],
                       lambda: [sdpa(qs, k, v, attn_mask=mask)
                                for k, v in views[dtype]], copies),
@@ -538,12 +595,13 @@ def check_paged_attention(cfg, dev, copies: int = 12) -> dict:
             f"{json.dumps(rows[what, Q, dtype])}")
     log("[kernels] paged_attention max abs err against the plain version: "
         + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
-        + "; the lens == 0 rows zero; two calls bitwise equal")
+        + "; the lens == 0 rows zero; two calls bitwise equal"
+        + ("; SDPA timed without the softcap" if softcap else ""))
     return dict(name="paged_attention",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:107",
                 max_abs_err=max(err.values()),
-                **rows[PAGED_CASES[0]])
+                **rows[cases[0]])
 
 
 def check_flash_attention(cfg, dev) -> dict:
@@ -872,10 +930,11 @@ def pack_summary(params) -> str:
 
 
 #: the wrappers' counts of a kind of their launches, and the tag of each
-#: in :func:`launch_counts`: verify blocks (paged Q > 1) and the
-#: tensor-core route (both attention kernels)
+#: in :func:`launch_counts`: verify blocks (paged Q > 1), the tensor-core
+#: route and the launches with a sliding window (both attention kernels)
 SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma",
-              "noncausal_launches": "non-causal"}
+              "noncausal_launches": "non-causal",
+              "window_launches": "window"}
 
 
 def zero_counts(counters) -> None:
@@ -1689,18 +1748,35 @@ def spec_vs_cpu(cfg, dev, counters) -> None:
 
 # --- phase 9: stablelm-12b and qwen2-vl-72b ---------------------------------
 
-#: qwen2-vl-72b's depth on the card: a dense bf16 init of all 80 layers
-#: (~141 GB) exceeds the card's 80 GB, and the port packs after init
-QWEN2_VL_LAYERS = 16
+#: The depths of phases 4 (the other formats) and 9-12 on the card.  At
+#: their earlier depths (qwen3 28, stablelm 40, qwen2-vl 16, qwen2-moe 12,
+#: dbrx 8, mamba2 24, zamba2 38, seamless 24 + 24) phases 2-12 took 971 s
+#: of a run whose host issued eager steps ~1.3x slower than the run
+#: before, so phase 13 (~190-250 s) was cut by the 1200 s limit: the
+#: eager turns are host-bound and scale with the layers.  Widths stay
+#: published; qwen2-vl-72b and dbrx-132b also could not fit the card at
+#: full depth (a dense bf16 init of qwen2-vl's 80 layers is ~141 GB,
+#: dbrx's 40 packed layers ~134 GB).
+FORMAT_LAYERS = 14
+STABLELM_LAYERS = 10
+QWEN2_VL_LAYERS = 8
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` cut to its first ``n_layers`` layers (an enc-dec config
+    to as many encoder layers too)."""
+    enc = {"n_encoder_layers": n_layers} if cfg.is_encoder_decoder else {}
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               layer_kinds=cfg.layer_kinds[:n_layers], **enc)
 
 
 def family_configs() -> list:
-    """Phase 9's configurations: stablelm-12b ``sparse()`` at full depth
-    and qwen2-vl-72b ``sparse()`` cut to ``QWEN2_VL_LAYERS`` layers."""
+    """Phase 9's configurations: stablelm-12b ``sparse()`` cut to
+    ``STABLELM_LAYERS`` and qwen2-vl-72b ``sparse()`` to
+    ``QWEN2_VL_LAYERS`` layers."""
     from repro_torch.configs import qwen2_vl_72b, stablelm_12b
-    return [stablelm_12b.sparse(),
-            dataclasses.replace(qwen2_vl_72b.sparse(),
-                                n_layers=QWEN2_VL_LAYERS, layer_kinds=())]
+    return [cut_depth(stablelm_12b.sparse(), STABLELM_LAYERS),
+            cut_depth(qwen2_vl_72b.sparse(), QWEN2_VL_LAYERS)]
 
 
 def check_routes(tag: str, launches: dict, route: str) -> None:
@@ -1809,20 +1885,22 @@ def family_vs_cpu(cfg, dev, counters) -> None:
 
 # --- phase 10: the MoE family ------------------------------------------------
 
-#: dbrx-132b's depth on the card: its 40 layers of 2:4 experts are ~134 GB
-DBRX_LAYERS = 8
+#: phase 10's depths (see ``FORMAT_LAYERS``): qwen2-moe's eager step is
+#: ~230 ms at 12 layers (183 nm_spmm launches a layer and step)
+QWEN2_MOE_LAYERS = 6
+DBRX_LAYERS = 4
 #: rows each expert takes in phase 10's serve: C at 8 decode slots
 #: (qwen2-moe 1, dbrx 3) and in a 128-row prompt (11, 40)
 EXPERT_M = (1, 3, 11, 40)
 
 
 def moe_configs() -> list:
-    """Phase 10's configurations: qwen2-moe-a2.7b ``sparse()`` at full
-    depth and dbrx-132b ``sparse()`` cut to ``DBRX_LAYERS`` layers."""
+    """Phase 10's configurations: qwen2-moe-a2.7b ``sparse()`` cut to
+    ``QWEN2_MOE_LAYERS`` and dbrx-132b ``sparse()`` to ``DBRX_LAYERS``
+    layers."""
     from repro_torch.configs import dbrx_132b, qwen2_moe_a2_7b
-    return [qwen2_moe_a2_7b.sparse(),
-            dataclasses.replace(dbrx_132b.sparse(), n_layers=DBRX_LAYERS,
-                                layer_kinds=())]
+    return [cut_depth(qwen2_moe_a2_7b.sparse(), QWEN2_MOE_LAYERS),
+            cut_depth(dbrx_132b.sparse(), DBRX_LAYERS)]
 
 
 def expert_projections(cfg):
@@ -2023,11 +2101,18 @@ def moe_vs_cpu(cfg, dev, counters) -> None:
 
 # --- phase 11: the SSM/hybrid family -----------------------------------------
 
+#: phase 11's depths (see ``FORMAT_LAYERS``): zamba2's first 13 layers
+#: hold two of its shared-attention slots (before layers 3 and 9)
+MAMBA2_LAYERS = 8
+ZAMBA2_LAYERS = 13
+
+
 def hybrid_configs() -> list:
     """Phase 11's configurations: mamba2-130m and zamba2-1.2b ``sparse()``
-    at full width and depth."""
+    at full width, cut to ``MAMBA2_LAYERS`` and ``ZAMBA2_LAYERS``."""
     from repro_torch.configs import mamba2_130m, zamba2_1_2b
-    return [mamba2_130m.sparse(), zamba2_1_2b.sparse()]
+    return [cut_depth(mamba2_130m.sparse(), MAMBA2_LAYERS),
+            cut_depth(zamba2_1_2b.sparse(), ZAMBA2_LAYERS)]
 
 
 def hybrid_packs(cfg) -> int:
@@ -2103,7 +2188,7 @@ def ssm_times(cfg, dev) -> None:
 
 
 def hybrid_serve(cfg, dev, counters) -> dict:
-    """Phase 11 (a): ``cfg`` at its published widths and depth, bf16,
+    """Phase 11 (a): ``cfg`` at its published widths, bf16,
     random weights from the seed, each layer packed as it is drawn
     (``init_model(packed=True)``), phase 4's serve and stream through the
     Engine: a cold graph serve, then :func:`graph_turns`.  Gates: budgets
@@ -2248,18 +2333,17 @@ def hybrid_vs_cpu(cfg, dev, counters) -> None:
             f"{min(min(w[1]) for w in wants):.3e}; launches {launches}")
 
 
-def hybrid_spec(cfg, dev, counters) -> dict:
-    """Phase 11 (c): zamba2 at :func:`hybrid_small`'s 4 layers in fp32,
-    ``spec_k = 3`` with a draft from another seed (rejected almost
-    always, so every step rolls the recurrent state back): on one engine
-    a cold graph serve and :func:`graph_turns` (warm graph turns equal to
-    the eager ones exactly); the tokens equal the plain loop's; one
-    verify block per shared slot and step."""
+def garbage_spec(small, dev, counters, tag: str, attn_layers: int
+                 ) -> dict:
+    """The fp32 model ``small`` on the paged layout, ``spec_k = 3`` with a
+    draft from another seed (rejected almost always: every step verifies
+    a block and keeps its first token): on one engine a cold graph serve
+    and :func:`graph_turns` (warm graph turns equal to the eager ones
+    exactly); the tokens equal the plain loop's on the card; one verify
+    block per attention layer (``attn_layers``) and step.  Returns the
+    cold serve's launches."""
     from repro_torch import models
-    from repro_torch.models.hybrid import shared_slots
     from repro_torch.serving import Engine, ServeConfig
-    small = hybrid_small(cfg)
-    tag = f"hybrid spec {cfg.name}"
     params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
     garbage = models.init_model(small, seed=SEED + 2, device=dev,
                                 packed=True)
@@ -2274,8 +2358,7 @@ def hybrid_spec(cfg, dev, counters) -> dict:
                         serve_prompts(eng, prompts, counters), tag)
     outs, rep, launches = turns[0][2]
     steps = rep["chunks"] * eng.scfg.decode_chunk
-    n_shared = len(shared_slots(small))
-    if launches["paged_attention Q>1"] != n_shared * steps:
+    if launches["paged_attention Q>1"] != attn_layers * steps:
         raise AssertionError(f"{tag}: {launches['paged_attention Q>1']} "
                              f"verify blocks for {steps} steps")
     if outs != plain or rep["acceptance_rate"] >= 0.5:
@@ -2286,6 +2369,16 @@ def hybrid_spec(cfg, dev, counters) -> dict:
         f"({rep['accepted']} of {rep['drafted']}), every request's tokens "
         "equal to the plain loop's")
     return launches
+
+
+def hybrid_spec(cfg, dev, counters) -> dict:
+    """Phase 11 (c): zamba2 at :func:`hybrid_small`'s 4 layers in fp32
+    through :func:`garbage_spec`: every step rolls the recurrent state
+    back; one verify block per shared slot and step."""
+    from repro_torch.models.hybrid import shared_slots
+    small = hybrid_small(cfg)
+    return garbage_spec(small, dev, counters, f"hybrid spec {cfg.name}",
+                        len(shared_slots(small)))
 
 
 # --- phase 12: the encoder-decoder family ------------------------------------
@@ -2300,11 +2393,15 @@ NONCAUSAL_SHAPES = (("encoder L=512", 512, 512), ("encoder L=300", 300, 300),
 FID_ATOL = 1e-3                    # phase 12 (c): fp32 logits, card vs CPU
 
 
+#: phase 12's depth (see ``FORMAT_LAYERS``): encoder and decoder layers
+SEAMLESS_LAYERS = 8
+
+
 def encdec_config():
     """Phase 12's configuration: seamless-m4t-large-v2 ``sparse()`` at
-    full width and depth."""
+    full width, cut to ``SEAMLESS_LAYERS`` + ``SEAMLESS_LAYERS``."""
     from repro_torch.configs import seamless_m4t_large_v2
-    return seamless_m4t_large_v2.sparse()
+    return cut_depth(seamless_m4t_large_v2.sparse(), SEAMLESS_LAYERS)
 
 
 def check_noncausal_flash(cfg, dev) -> None:
@@ -2381,7 +2478,7 @@ def check_launches(tag: str, launches: dict, want: dict) -> None:
 
 
 def encdec_serve(cfg, dev, counters) -> dict:
-    """Phase 12 (a) and (b): ``cfg`` at its published widths and depth,
+    """Phase 12 (a) and (b): ``cfg`` at its published widths,
     bf16, random weights from the seed, each layer packed as it is drawn
     (``init_model(packed=True)``), phase 4's serve and stream through the
     Engine: a cold graph serve, then :func:`graph_turns`.  Gates: budgets
@@ -2562,22 +2659,37 @@ def encdec_vs_cpu(cfg, dev, counters) -> None:
             f"first splits against the CPU {splits}, min CPU top-2 gap "
             f"{min(min(w[1]) for w in wants):.3e}; launches {launches}")
     gen = np.random.default_rng(SEED + 2)
+    src = gen.normal(size=(2, 40, small.d_model)).astype(np.float32)
+    logits_vs_cpu(small, params, cpu_params, dev, tag, 32,
+                  "random source (40 frames)", src=src)
+
+
+def logits_vs_cpu(small, params, cpu_params, dev, tag: str, prompt: int,
+                  what: str, **batch) -> None:
+    """Model-level fp32 logits of ``small`` on the card against the CPU
+    path on the same weights: a prefill of two random ``prompt``-token
+    prompts (plus ``batch``'s arrays, e.g. an enc-dec ``src``) into a
+    paged fp32 cache, 4 decode steps and a T = 4 verify block, every
+    logit within ``FID_ATOL``."""
+    from repro_torch import models
+    gen = np.random.default_rng(SEED + 4)
     B = 2
-    src = gen.normal(size=(B, 40, small.d_model)).astype(np.float32)
-    tokens = gen.integers(1, small.vocab_size, (B, 32)).astype(np.int32)
+    tokens = gen.integers(1, small.vocab_size, (B, prompt)).astype(np.int32)
     block = gen.integers(1, small.vocab_size, (B, 4)).astype(np.int32)
     table = np.arange(1, B * 10 + 1, dtype=np.int32).reshape(B, 10)
+    extra = {"src_len": batch["src"].shape[1]} if "src" in batch else {}
     logits = {}
     for where, p in (("cpu", cpu_params), ("card", params)):
         d = "cpu" if where == "cpu" else dev
-        cache = models.init_cache(small, B, 160, src_len=40, page_size=16,
-                                  dtype=torch.float32, device=d)
+        cache = models.init_cache(small, B, 160, page_size=16,
+                                  dtype=torch.float32, device=d, **extra)
         models.set_page_table(cache, table)
         lg, cache = models.prefill(p, small, {
-            "src": torch.from_numpy(src).to(d),
-            "tokens": torch.from_numpy(tokens).to(d)}, cache)
+            "tokens": torch.from_numpy(tokens).to(d),
+            **{k: torch.from_numpy(v).to(d) for k, v in batch.items()}},
+            cache)
         out = [lg]
-        pos = torch.tensor([32, 32], dtype=torch.int32, device=d)
+        pos = torch.tensor([prompt] * B, dtype=torch.int32, device=d)
         tok = torch.from_numpy(tokens[:, -1]).to(d)
         for t in range(4):
             lg, cache = models.decode_step(p, small, tok, cache, pos + t)
@@ -2592,49 +2704,294 @@ def encdec_vs_cpu(cfg, dev, counters) -> None:
     if max(errs) > FID_ATOL:
         raise AssertionError(f"{tag}: logits card vs CPU max abs err "
                              f"{errs} > {FID_ATOL}")
-    log(f"[{tag}] random source (B={B}, 40 frames, 32-token prompts), "
-        "paged: prefill, 4 decode steps and a T = 4 block, fp32 logits "
-        f"max abs err card vs CPU {[f'{e:.2e}' for e in errs]} (tolerance "
-        f"{FID_ATOL})")
+    log(f"[{tag}] {what}, B={B}, {prompt}-token prompts, paged: prefill, "
+        "4 decode steps and a T = 4 block, fp32 logits max abs err card "
+        f"vs CPU {[f'{e:.2e}' for e in errs]} (tolerance {FID_ATOL})")
 
 
 def encdec_spec(cfg, dev, counters) -> dict:
-    """Phase 12 (c), speculation: :func:`encdec_small` on the paged
-    layout, ``spec_k = 3`` with a draft from another seed (rejected
-    almost always: every step verifies a block and keeps its first
-    token): on one engine a cold graph serve and :func:`graph_turns`
-    (warm graph turns equal to the eager ones exactly); the tokens equal
-    the plain loop's on the card; one verify block per decoder layer and
-    step."""
+    """Phase 12 (c), speculation: :func:`encdec_small` through
+    :func:`garbage_spec`, one verify block per decoder layer and step."""
+    small = encdec_small(cfg)
+    return garbage_spec(small, dev, counters, f"encdec spec {cfg.name}",
+                        small.n_layers)
+
+
+# --- phase 13: the gemma pair ------------------------------------------------
+
+#: phase 3's windowed paged calls at phase 13's heads: (lens case, Q, q
+#: dtype), bf16 and fp32 q, one query and a verify block
+WINDOW_CASES = (("past", 1, torch.bfloat16), ("past", 4, torch.bfloat16),
+                ("past", 1, torch.float32), ("past", 4, torch.float32))
+#: phase 3's paged calls per gemma config: (window, view pages, lens past
+#: it); gemma2's window is cut to 256 there so that its mask bites within
+#: phase 4's 512-row view (its own 4096 never masks in phase 13)
+GEMMA_PAGED = {"gemma2-27b": (256, 32, [0, 1, 100, 255, 256, 300, 450, 512]),
+               "gemma3-1b": (512, 64, [0, 1, 200, 511, 512, 600, 900, 1024])}
+#: phase 13 (b)'s serve past gemma3's 512-row window: 8 prompts of
+#: 384-600 tokens padded to 640 rows, 256 new tokens each, so the decode
+#: runs at positions 640..895 and every local layer's window masks
+LONG_SERVE = dict(slots=8, max_len=1024, prompt_pad=640, page_size=16,
+                  decode_chunk=16, max_new_tokens=256, eos_token=-1)
+GEMMA_WINDOW = 32                  # phase 13 (c): the 2-layer window
+
+
+def gemma_configs() -> list:
+    """Phase 13's configurations: gemma2-27b and gemma3-1b ``sparse()``
+    at full width and depth."""
+    from repro_torch.configs import gemma2_27b, gemma3_1b
+    return [gemma2_27b.sparse(), gemma3_1b.sparse()]
+
+
+def mlp_projections(cfg):
+    """(name, K, N) of one gated MLP of ``cfg``."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return [("w_in", d, ff), ("w_gate", d, ff), ("w_out", ff, d)]
+
+
+def check_flash_window(cfg, dev, L: int, window, softcap) -> None:
+    """One prompt's prefill at ``cfg``'s heads with a sliding ``window``
+    and a ``softcap``, bf16 and fp32, against the plain version; timed
+    beside SDPA under the same causal window mask (without the softcap:
+    SDPA has none), the bound counting the keys each query reaches."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(L, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - (window or L))
+    pairs = sum(min(i + 1, window or L) for i in range(L))
+    kw = dict(window=window, softcap=softcap)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((1, h, L, D), generator=gen, device=dev)
+                   .to(dtype) for h in (H, Hk, Hk))
+        what = (f"{str(dtype)[6:]} B=1 H={H} Hk={Hk} D={D} L={L} "
+                f"window={window} softcap={softcap}")
+        log_attn_plan("flash_attention", what,
+                      K.plan(1, H, Hk, L, L, D, q.dtype))
+        err = check_close(f"flash_attention {what}",
+                          K.flash_attention(q, k, v, **kw),
+                          ref.mha_ref(q.float(), k.float(), v.float(), **kw))
+        kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+        b, by = bound_ms((2 * H + 2 * Hk) * L * D * q.element_size(),
+                         4.0 * H * D * pairs,
+                         BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                         else FP32_FLOPS_PER_S)
+        row = dict(**timings(lambda: K.flash_attention(q, k, v, **kw),
+                             lambda: ref.mha_ref(q, k, v, **kw),
+                             lambda: sdpa(q, kr, vr, attn_mask=mask), 1),
+                   bound_ms=b, bound_by=by, max_abs_err=err)
+        log(f"[kernels] flash_attention {what} (SDPA under the window mask,"
+            f" no softcap): {json.dumps(row)}")
+
+
+def check_gemma_kernels(cfg, dev) -> None:
+    """Phase 3 at phase 13's shapes: nm_spmm at one gated MLP, the paged
+    kernel with the local layers' window (``GEMMA_PAGED``) and the
+    attention softcap, and without the window (the global layers), each
+    in ``WINDOW_CASES``; flash with the window and softcap at the served
+    prefills' rows (128, phase 4's prompt; for gemma3 also 640,
+    ``LONG_SERVE``'s, with the window and without)."""
+    window, mp, lens = GEMMA_PAGED[cfg.name]
+    check_nm_spmm(cfg, dev, copies=1, projections=mlp_projections(cfg),
+                  what="MLP")
+    copies = 12 if cfg.n_kv_heads > 1 else 24     # stream from HBM
+    for w in (window, None):
+        check_paged_attention(cfg, dev, copies=copies, cases=WINDOW_CASES,
+                              mp=mp, lens_of={"past": lens}, window=w,
+                              softcap=cfg.attn_softcap)
+    check_flash_window(cfg, dev, 128, cfg.window_size, cfg.attn_softcap)
+    if cfg.window_size < LONG_SERVE["max_len"]:
+        L = LONG_SERVE["prompt_pad"]
+        check_flash_window(cfg, dev, L, cfg.window_size, cfg.attn_softcap)
+        check_flash_window(cfg, dev, L, None, cfg.attn_softcap)
+
+
+def local_layers(cfg) -> int:
+    from repro_torch.models.config import LayerKind
+    return cfg.layer_kinds.count(int(LayerKind.ATTN_LOCAL))
+
+
+def gemma_launches(cfg, prefills: int, steps: int) -> dict:
+    """Each kernel's launches for ``prefills`` prefill calls and ``steps``
+    decode steps of ``cfg`` on the paged layout, 2:4 MLPs and dense
+    attention: nm_spmm three times per layer and forward, flash once per
+    layer and prefill, paged once per layer and step; the local layers'
+    launches carry the window."""
+    L, W = cfg.n_layers, local_layers(cfg)
+    return {"nm_spmm": 3 * L * (prefills + steps),
+            "flash_attention": L * prefills,
+            "flash_attention window": W * prefills,
+            "paged_attention": L * steps,
+            "paged_attention window": W * steps}
+
+
+def gemma_serve(cfg, dev, counters, params, scfg, prompts, what: str
+                ) -> dict:
+    """One of phase 13's serves: a cold graph serve of ``prompts`` under
+    ``scfg``, then :func:`graph_turns` and one profiled replayed chunk.
+    Gates: budgets and syncs (``serve_prompts``); only nm_spmm and both
+    attention kernels launch, as :func:`gemma_launches` counts, the
+    window on every local layer's launches; attention on the tensor
+    cores at D = 128 and on the FMA kernels at D = 256 (bf16, queue 2
+    item 2(b)).  Returns the cold serve's launches."""
+    import gc
+
+    from repro_torch.serving import Engine
+    tag = f"gemma {cfg.name} {what}"
+    route = "mma" if cfg.head_dim == 128 else "fma"
+    eng = Engine(cfg, scfg, params, device=dev)
+    cold = serve_prompts(eng, prompts, counters)
+    _, rep, launches = cold
+    path = {"nm_spmm", "paged_attention", "flash_attention"}
+    if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+        raise AssertionError(f"{tag}: the kernels of {sorted(path)} must "
+                             f"launch and no other: {launches}")
+    check_routes(tag, launches, route)
+    steps = rep["chunks"] * scfg.decode_chunk
+    check_launches(tag, launches,
+                   gemma_launches(cfg, rep["prefills"], steps))
+    log(f"[{tag}] {json.dumps(rep)}")
+    log(f"[{tag}] first request's tokens: {cold[0][0][:16]}; distinct "
+        f"tokens per request {[len(set(o)) for o in cold[0]]}")
+    turns = graph_turns(eng, prompts, counters, cold, tag)
+    warm = [ms for name, _, (_, r, _) in turns if name == "graph warm"
+            for ms in r["chunk_ms"]]
+    profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_prompts(vocab: int) -> list:
+    """Phase 13 (b)'s 8 prompts of 384-600 tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+            for n in rng.integers(384, 601, size=8)]
+
+
+def gemma_full(cfg, dev, counters) -> dict:
+    """Phase 13 (a) and (b): ``cfg`` at its published widths and depth,
+    bf16, random weights from the seed, each layer packed as it is drawn
+    (``init_model(packed=True)``: 2:4 MLPs, dense attention), phase 4's
+    serve and stream through :func:`gemma_serve`; for gemma3 also
+    ``LONG_SERVE``, whose decode runs past the local layers' window.
+    Returns the launches of the cold serves."""
+    import gc
+
+    from repro_torch import models
+    from repro_torch.core.sparsity import NMPack
+    tag = f"gemma {cfg.name}"
+    t0 = time.perf_counter()
+    params = models.init_model(cfg, seed=SEED, device=dev, packed=True)
+    torch.cuda.synchronize()
+    mlps = [w for layer in params["layers"] for w in layer["mlp"].values()]
+    attns = [w for layer in params["layers"]
+             for k, w in layer["attn"].items() if not k.endswith("_norm")]
+    if len(mlps) != 3 * cfg.n_layers or not all(
+            isinstance(w, NMPack) for w in mlps) or any(
+            isinstance(w, NMPack) for w in attns) or not all(
+            "ln_attn_post" in layer and "ln_mlp_post" in layer
+            for layer in params["layers"]):
+        raise AssertionError(f"{tag}: every MLP projection must be a 2:4 "
+                             "pack, every attention projection dense, and "
+                             "every layer must hold its post-norms")
+
+    def gb(ws):
+        return round(sum(w.values.numel() * 2 + w.idx.numel()
+                         * w.idx.element_size()
+                         if isinstance(w, NMPack) else w.numel() * 2
+                         for w in ws) / 1e9, 3)
+
+    log(f"[{tag}] {cfg.n_layers} layers ({local_layers(cfg)} local, window "
+        f"{cfg.window_size}) d_model={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}x{cfg.head_dim} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} tied, softcaps {cfg.attn_softcap}/"
+        f"{cfg.final_softcap}, qk_norm {cfg.qk_norm}, {cfg.dtype}: random "
+        f"init + pack layer by layer in {time.perf_counter() - t0:.1f} s; "
+        f"GB: MLPs (2:4) {gb(mlps)}, attention (dense) {gb(attns)}, "
+        f"embedding {gb([params['embed']])}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    launches = gemma_serve(cfg, dev, counters, params, spec_config(),
+                           phase4_prompts(cfg.vocab_size), "phase 4")
+    if cfg.window_size < LONG_SERVE["max_len"]:
+        from repro_torch.serving import ServeConfig
+        got = gemma_serve(cfg, dev, counters, params,
+                          ServeConfig(**LONG_SERVE),
+                          long_prompts(cfg.vocab_size), "past the window")
+        launches = {k: launches[k] + got[k] for k in launches}
+    del params, mlps, attns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gemma_small(cfg):
+    """``cfg`` in fp32 cut to 2 layers, one local and one global, with a
+    ``GEMMA_WINDOW``-row window and an untied head: with the tied head
+    and scaled embeddings, random weights make every transcript the last
+    prompt token repeated (the token's own row dominates its logits), so
+    tokens that the window or softcap got wrong would still agree, and a
+    garbage draft would be accepted."""
+    from repro_torch.models.config import LayerKind
+    return dataclasses.replace(
+        cfg, n_layers=2, dtype="float32", window_size=GEMMA_WINDOW,
+        tie_embeddings=False,
+        layer_kinds=(int(LayerKind.ATTN_LOCAL), int(LayerKind.ATTN_GLOBAL)))
+
+
+def gemma_vs_cpu(cfg, dev, counters) -> None:
+    """Phase 13 (c): :func:`gemma_small` on the card against the CPU path:
+    the Engine's greedy tokens against one-sequence greedy decoding on
+    the CPU (phase 5's rule at the first split), four requests padded to
+    48 rows so that the decode runs past the window, launches as
+    :func:`gemma_launches` counts on the FMA routes; then model-level
+    logits (B = 2, 48-token prompts: prefill, 4 decode steps, a T = 4
+    verify block, paged) within ``FID_ATOL`` of the CPU's."""
     from repro_torch import models
     from repro_torch.serving import Engine, ServeConfig
-    small = encdec_small(cfg)
-    tag = f"encdec spec {cfg.name}"
+    small = gemma_small(cfg)
+    tag = f"gemma fidelity {cfg.name}"
     params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
-    garbage = models.init_model(small, seed=SEED + 2, device=dev,
-                                packed=True)
-    kw = dict(slots=4, max_len=160, prompt_pad=32, page_size=16,
-              decode_chunk=8, max_new_tokens=16, eos_token=-1)
-    prompts = hybrid_prompts(small.vocab_size)
-    plain, _, _ = serve_prompts(Engine(small, ServeConfig(**kw), params,
-                                       device=dev), prompts, counters)
-    eng = Engine(small, ServeConfig(**kw, spec_k=SPEC_K), params,
-                 draft_params=garbage, device=dev)
-    turns = graph_turns(eng, prompts, counters,
-                        serve_prompts(eng, prompts, counters), tag)
-    outs, rep, launches = turns[0][2]
-    steps = rep["chunks"] * eng.scfg.decode_chunk
-    if launches["paged_attention Q>1"] != small.n_layers * steps:
-        raise AssertionError(f"{tag}: {launches['paged_attention Q>1']} "
-                             f"verify blocks for {steps} steps")
-    if outs != plain or rep["acceptance_rate"] >= 0.5:
-        raise AssertionError(f"{tag}: tokens equal to the plain loop's: "
-                             f"{outs == plain}; acceptance "
-                             f"{rep['acceptance_rate']:.4f}")
-    log(f"[{tag}] garbage draft: acceptance {rep['acceptance_rate']:.4f} "
-        f"({rep['accepted']} of {rep['drafted']}), every request's tokens "
-        "equal to the plain loop's")
-    return launches
+    cpu_params = _to(params, "cpu")
+    prompts = hybrid_prompts(small.vocab_size)[:4]
+    scfg = ServeConfig(slots=4, max_len=160, prompt_pad=48, page_size=16,
+                       decode_chunk=8, max_new_tokens=16, eos_token=-1)
+    wants = [greedy(cpu_params, small, p, 16, 48, 160) for p in prompts]
+    eng = Engine(small, scfg, params, device=dev)
+    zero_counts(counters)
+    got = eng.generate(prompts)
+    launches = launch_counts(counters)
+    check_routes(tag, launches, "fma")
+    check_launches(tag, launches, gemma_launches(
+        small, len(prompts), len(eng.stats().chunk_s) * scfg.decode_chunk))
+    splits = []
+    for i, (g, (w, gaps, _)) in enumerate(zip(got, wants)):
+        split = first_split(g, w)
+        splits.append(split)
+        if len(g) != 16 or (split is not None and gaps[split] >= GAP_TOL):
+            raise AssertionError(f"{tag} request {i}: card {g} vs CPU {w}")
+    if any(len(set(g)) < 2 for g in got):
+        raise AssertionError(f"{tag}: a constant transcript: {got}")
+    log(f"[{tag}] 2 layers (local window {GEMMA_WINDOW}, global) fp32, "
+        f"untied, paged: first splits against the CPU {splits}, min CPU "
+        "top-2 gap "
+        f"{min(min(w[1]) for w in wants):.3e}, distinct tokens "
+        f"{[len(set(g)) for g in got]}; launches {launches}")
+    logits_vs_cpu(small, params, cpu_params, dev, tag, 48,
+                  f"past the {GEMMA_WINDOW}-row window")
+
+
+def gemma_spec(cfg, dev, counters) -> dict:
+    """Phase 13 (c), speculation: :func:`gemma_small` through
+    :func:`garbage_spec` (past the window from position 33 on), one
+    verify block per layer and step."""
+    small = gemma_small(cfg)
+    return garbage_spec(small, dev, counters, f"gemma spec {cfg.name}",
+                        small.n_layers)
 
 
 def with_format(cfg, fmt: str):
@@ -2696,6 +3053,8 @@ def main() -> int:
     for hcfg in hybrid_configs():
         check_hybrid_kernels(hcfg, dev)
     check_encdec_kernels(encdec_config(), dev)
+    for gcfg in gemma_configs():
+        check_gemma_kernels(gcfg, dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -2712,8 +3071,9 @@ def main() -> int:
     timed("4 serve nm", t0)
     for fmt, (module, kernel, requests, max_new, profile) in serves.items():
         t0 = time.perf_counter()
-        got = serve_full_width(with_format(qwen3_0_6b.config(), fmt), dev,
-                               counters, {module} | attention,
+        fcfg = with_format(cut_depth(qwen3_0_6b.config(), FORMAT_LAYERS),
+                           fmt)
+        got = serve_full_width(fcfg, dev, counters, {module} | attention,
                                requests=requests, max_new=max_new,
                                zero_tiles=True, profile=profile)
         launches[kernel] = got[module]
@@ -2784,6 +3144,18 @@ def main() -> int:
         for name in ("nm_spmm", "paged_attention", "flash_attention"):
             launches[name] += more[name]
     timed("12 seamless-m4t-large-v2", t0)
+
+    t0 = time.perf_counter()
+    for gcfg in gemma_configs():
+        got = gemma_full(gcfg, dev, counters)
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += got[name]
+    for gcfg in gemma_configs():
+        gemma_vs_cpu(gcfg, dev, counters)
+        got = gemma_spec(gcfg, dev, counters)
+        for name in ("nm_spmm", "paged_attention", "flash_attention"):
+            launches[name] += got[name]
+    timed("13 gemma2-27b and gemma3-1b", t0)
 
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],

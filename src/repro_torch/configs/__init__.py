@@ -3,9 +3,10 @@
 
 Ported: qwen3-0.6b, stablelm-12b (untied head, head_dim 160),
 qwen2-vl-72b (M-RoPE, embeds input), the MoE pair qwen2-moe-a2.7b and
-dbrx-132b, the SSM/hybrid pair mamba2-130m and zamba2-1.2b, and the
-encoder-decoder seamless-m4t-large-v2.  The gemma pair comes with its
-features (ROADMAP queue 1 item 11e).
+dbrx-132b, the SSM/hybrid pair mamba2-130m and zamba2-1.2b, the
+encoder-decoder seamless-m4t-large-v2, and the gemma pair gemma2-27b and
+gemma3-1b (sliding windows, softcaps, post-norms, scaled embeds): every
+architecture of the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -15,21 +16,22 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCHS = ["qwen3_0_6b", "stablelm_12b", "qwen2_vl_72b", "qwen2_moe_a2_7b",
-         "dbrx_132b", "mamba2_130m", "zamba2_1_2b", "seamless_m4t_large_v2"]
+         "dbrx_132b", "mamba2_130m", "zamba2_1_2b", "seamless_m4t_large_v2",
+         "gemma2_27b", "gemma3_1b"]
 
 ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "stablelm-12b": "stablelm_12b",
            "qwen2-vl-72b": "qwen2_vl_72b",
            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "dbrx-132b": "dbrx_132b",
            "mamba2-130m": "mamba2_130m", "zamba2-1.2b": "zamba2_1_2b",
-           "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
+           "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+           "gemma2-27b": "gemma2_27b", "gemma3-1b": "gemma3_1b"}
 
 
 def _module(arch: str):
     name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ported: {ARCHS}; "
-            "ROADMAP queue 1 item 11e)")
+        raise ValueError(
+            f"unknown architecture {arch!r} (ported: {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

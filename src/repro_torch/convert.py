@@ -19,6 +19,8 @@ expert projections (``moe/w_in``, ``w_gate``, ``w_out``; the JAX tree
 stacks them ``(L, E, …)``) keep their expert axis as a dense ``(E, K, N)``
 tensor, or become a list of ``E`` packs — the forms
 ``core.sparse_linear.pack_params`` gives; ``router`` stays fp32.
+gemma's post-norms (``ln_attn_post``, ``ln_mlp_post``) are per-layer
+leaves like the other norms and carry over as they are.
 
 :func:`cnn_params_from_numpy` does the same for the TinyML CNNs of
 ``models/cnn.py``: conv kernels go from HWIO to the port's OIHW, every

@@ -4,7 +4,10 @@
 // per-sequence lengths lens (B,).  Query qi of sequence b sits at position
 // lens[b] - Q + qi and sees keys kpos < lens[b] - (Q - 1 - qi); lens is
 // clamped to the view (n_pages * ps rows), as the gathered view of the
-// plain version is; a row with no key gives zeros, not NaN.
+// plain version is; a row with no key gives zeros, not NaN.  Optional,
+// as in flash_attention.cu: a tanh softcap of the scaled logits
+// (softcap <= 0: none) and a sliding window (window <= 0: none), under
+// which query qpos sees only keys kpos > qpos - window.
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/paged_attention.py::paged_attention (pallas_call at
@@ -60,7 +63,14 @@
 // max and sums the ranks' rescaled accumulators in rank order, so two
 // calls are bitwise equal, and stores.  A part with no chunk publishes
 // max -1e30 and denominator 0 and still joins both cluster barriers (the
-// "started" one at entry and the one after the pushes).  D = 160
+// "started" one at entry and the one after the pushes).
+//   A window moves the walk's start: the chunks wholly before the window
+// of the tile's first (lowest) query are never loaded, and the parts
+// take the chunks from the first one it reaches, round-robin as before
+// (the split is still planned from the view, so under a short window
+// some parts walk nothing).  Each row masks keys outside its own reach
+// from below as from above, and the softcap is applied to the scaled
+// logits before the mask (flash_attention.cu does the same).  D = 160
 // (stablelm) needs no power of two: 10 k16 steps, 20 n8 tiles paired by
 // the x4 loads, 20 sixteen-byte pieces per staged row, 40 float4 units
 // per output row in the merge, and a warp's published state (10,368 B)
@@ -73,6 +83,8 @@
 // group -- onto each K/V row, each row masked at its own causal reach;
 // its 8 warps split the sequence's rows, UNROLL rows' loads in flight
 // per warp, and merge their softmax states in shared memory at the end.
+// Under a window the walk starts at the first key the block's lowest
+// query reaches.
 #include "tensor_core.cuh"
 
 namespace {
@@ -116,7 +128,8 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                     const bf16* __restrict__ vp, const int* __restrict__ ptab,
                     const int* __restrict__ lens, bf16* __restrict__ out,
                     int Q, int H, int Hk, int ps, int n_pages,
-                    int ptab_stride, float scale, int ring) {
+                    int ptab_stride, float scale, int window, float softcap,
+                    int ring) {
   using namespace repro;
   using namespace repro::tc;
   using PM = PagedMma<D>;
@@ -156,7 +169,11 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int view = n_pages * ps;
   // the keys the tile's last row reaches: the furthest of its rows
   const int len = max(0, min(lb - (Q - 1 - (r0 + R - 1) / G), view));
-  const int nch = (len + kChunk - 1) / kChunk;
+  // under a window, the first chunk the tile's first row reaches: the
+  // walk starts there, and nch counts the chunks from it
+  const int c0 = window > 0
+      ? min(max(0, lb - Q + r0 / G - window + 1), len) / kChunk : 0;
+  const int nch = (len + kChunk - 1) / kChunk - c0;
   __syncthreads();                          // the page-table row is staged
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -165,16 +182,18 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int V = split * WARPS, part = rank * WARPS + warp;
   const int mine = nch > part ? (nch - part + V - 1) / V : 0;
   bf16* my_ring = rings + warp * RING;
-  // key limit of rows gq and gq + 8: the verify block's causal reach
-  int limit[2];
+  // keys [first, limit) of rows gq and gq + 8: the verify block's
+  // causal reach, and under a window its start
+  int limit[2], first[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = gq + 8 * h;
     limit[h] = r < R ? min(lb - (Q - 1 - (r0 + r) / G), view) : 0;
+    first[h] = window > 0 ? lb - Q + (r0 + r) / G - window + 1 : 0;
   }
 
   auto load = [&](int slot, int j) {        // the warp's j-th chunk
-    const int row0 = (part + j * V) * kChunk;
+    const int row0 = (c0 + part + j * V) * kChunk;
     bf16* ks = my_ring + slot * 2 * PM::CH;
     bf16* vs = ks + PM::CH;
 #pragma unroll
@@ -211,7 +230,7 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     __syncwarp();
     const bf16* ks = my_ring + (j % ring) * 2 * PM::CH;
     const bf16* vs = ks + PM::CH;
-    const int key0 = (part + j * V) * kChunk;
+    const int key0 = (c0 + part + j * V) * kChunk;
 
     float s[2][4] = {};
 #pragma unroll
@@ -228,9 +247,12 @@ paged_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool ok = key0 + nt * 8 + 2 * t4 + (e & 1) < limit[e >> 1];
+        const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
+        const bool ok = key < limit[e >> 1] && key >= first[e >> 1];
+        float x = s[nt][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         valid |= (unsigned)ok << (nt * 4 + e);
-        s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
+        s[nt][e] = ok ? x : kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     float alpha[2];
@@ -367,8 +389,8 @@ template <int D, int WARPS>
 cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
                        const int* ptab, const int* lens, void* out, int B,
                        int Q, int H, int Hk, int ps, int n_pages,
-                       int ptab_stride, float scale, int split, int ring,
-                       cudaStream_t s) {
+                       int ptab_stride, float scale, int window,
+                       float softcap, int split, int ring, cudaStream_t s) {
   static size_t opted = 0;
   const int rows = Q * (H / Hk), tiles = (rows + kRows - 1) / kRows;
   return repro::tc::launch_cluster(
@@ -379,7 +401,7 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
       split, s,
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(vp), ptab, lens, static_cast<bf16*>(out), Q, H,
-      Hk, ps, n_pages, ptab_stride, scale, ring);
+      Hk, ps, n_pages, ptab_stride, scale, window, softcap, ring);
 }
 
 // ---- fp32: CUDA-core FMAs ---------------------------------------------------
@@ -393,7 +415,7 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                        const TKV* __restrict__ vp, const int* __restrict__ ptab,
                        const int* __restrict__ lens, TQ* __restrict__ out, int Q,
                        int H, int Hk, int ps, int n_pages, int ptab_stride,
-                       float scale) {
+                       float scale, int window, float softcap) {
   using namespace repro;
   constexpr int VPT = D / 32;
   constexpr int UNROLL = D <= 128 ? 8 : 4;   // rows a warp loads before use
@@ -410,8 +432,14 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   auto limit = [&](int g) {
     return min(lb - (Q - 1 - (r0 + g) / G), view);
   };
-  // the keys the tile's last row reaches: the furthest of its rows
+  // the first key row g sees under a window (0 without one)
+  auto first = [&](int g) {
+    return window > 0 ? lb - Q + (r0 + g) / G - window + 1 : 0;
+  };
+  // the keys the tile's last row reaches: the furthest of its rows; the
+  // walk starts at the first key its first row sees
   const int len = max(0, limit(NR - 1));
+  const int beg = max(0, first(0));
   int* pt = reinterpret_cast<int*>(smem_f + (size_t)kFmaWarps * NR * (D + 2));
   for (int i = threadIdx.x; i < (len + ps - 1) / ps; i += kFmaWarps * 32)
     pt[i] = ptab[(size_t)b * ptab_stride + i];
@@ -432,7 +460,7 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     }
   }
 
-  for (int row0 = warp; row0 < len; row0 += kFmaWarps * UNROLL) {
+  for (int row0 = beg + warp; row0 < len; row0 += kFmaWarps * UNROLL) {
     float kv[UNROLL][VPT], vv[UNROLL][VPT];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -450,8 +478,9 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 #pragma unroll
     for (int g = 0; g < kGMax; ++g) {
       if (g >= NR) break;
-      const int lim = limit(g);
+      const int lim = limit(g), fst = first(g);
       float s[UNROLL];
+      unsigned valid = 0;
       float mx = m_run[g];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -459,7 +488,11 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 #pragma unroll
         for (int j = 0; j < VPT; ++j) d += qv[g][j] * kv[u][j];
         d = warp_sum(d) * scale;
-        s[u] = row0 + u * kFmaWarps < lim ? d : kNegInf;
+        if (softcap > 0.f) d = tanhf(d / softcap) * softcap;
+        const int row = row0 + u * kFmaWarps;
+        const bool ok = row < lim && row >= fst;
+        valid |= (unsigned)ok << u;
+        s[u] = ok ? d : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
       const float alpha = expf(m_run[g] - mx);
@@ -468,7 +501,7 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
       for (int j = 0; j < VPT; ++j) acc[g][j] *= alpha;
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const float p = row0 + u * kFmaWarps < lim ? expf(s[u] - mx) : 0.f;
+        const float p = (valid >> u) & 1u ? expf(s[u] - mx) : 0.f;
         l += p;
 #pragma unroll
         for (int j = 0; j < VPT; ++j) acc[g][j] += p * vv[u][j];
@@ -511,7 +544,8 @@ template <typename TQ, typename TKV, int D>
 cudaError_t launch_fma(const void* q, const void* kp, const void* vp,
                        const int* ptab, const int* lens, void* out, int B,
                        int Q, int H, int Hk, int ps, int n_pages,
-                       int ptab_stride, float scale, cudaStream_t s) {
+                       int ptab_stride, float scale, int window,
+                       float softcap, cudaStream_t s) {
   auto kernel = paged_attention_fma<TQ, TKV, D>;
   const int rows = Q * (H / Hk), tiles = (rows + kGMax - 1) / kGMax;
   const size_t smem = sizeof(float) * kFmaWarps * std::min(rows, kGMax) *
@@ -521,7 +555,7 @@ cudaError_t launch_fma(const void* q, const void* kp, const void* vp,
   kernel<<<dim3(B, Hk, tiles), kFmaWarps * 32, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), ptab, lens, static_cast<TQ*>(out), Q, H, Hk,
-      ps, n_pages, ptab_stride, scale);
+      ps, n_pages, ptab_stride, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -529,13 +563,13 @@ template <typename TQ, typename TKV>
 cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
                      const int* ptab, const int* lens, void* out, int B, int Q,
                      int H, int Hk, int ps, int n_pages, int ptab_stride,
-                     float scale, cudaStream_t s) {
+                     float scale, int window, float softcap, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 160: return launch_fma<TQ, TKV, 160>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
-    case 256: return launch_fma<TQ, TKV, 256>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
+    case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
+    case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
+    case 160: return launch_fma<TQ, TKV, 160>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
+    case 256: return launch_fma<TQ, TKV, 256>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -544,7 +578,8 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
 
 // Both entry points: pools (P, ps, Hk, D) in kv_dtype; ptab rows
 // ptab_stride apart, n_pages of each row in view; lens (B,) int32; q and
-// out contiguous and 16-byte aligned, H % Hk == 0.  Anything else returns
+// out contiguous and 16-byte aligned, H % Hk == 0; window <= 0 means no
+// window, softcap <= 0 no softcap.  Anything else returns
 // cudaErrorInvalidValue without a launch; otherwise cudaGetLastError().
 
 // bf16 q (B, Q, H, D) and pools, D in {64, 128, 160}, one row tile of 16 query
@@ -555,7 +590,8 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
                                           const void* lens, void* out, int B,
                                           int Q, int H, int Hk, int D, int ps,
                                           int n_pages, int ptab_stride,
-                                          float scale, int warps, int split,
+                                          float scale, int window,
+                                          float softcap, int warps, int split,
                                           int ring, void* stream) {
   const int* pt = static_cast<const int*>(ptab);
   const int* ln = static_cast<const int*>(lens);
@@ -568,7 +604,8 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
 #define PAGED_MMA(DD, W)                                                     \
   if (D == DD && warps == W)                                                 \
     err = launch_mma<DD, W>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, \
-                            ptab_stride, scale, split, ring, s);
+                            ptab_stride, scale, window, softcap, split,    \
+                            ring, s);
   PAGED_MMA(64, 1) PAGED_MMA(64, 2) PAGED_MMA(64, 4)
   PAGED_MMA(128, 1) PAGED_MMA(128, 2) PAGED_MMA(128, 4)
   PAGED_MMA(160, 1) PAGED_MMA(160, 2) PAGED_MMA(160, 4)
@@ -585,7 +622,8 @@ extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
                                           const void* lens, void* out, int B,
                                           int Q, int H, int Hk, int D, int ps,
                                           int n_pages, int ptab_stride,
-                                          float scale, int q_dtype,
+                                          float scale, int window,
+                                          float softcap, int q_dtype,
                                           int kv_dtype, void* stream) {
   using namespace repro;
   const int* pt = static_cast<const int*>(ptab);
@@ -595,12 +633,12 @@ extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (q_dtype == kFloat32 && kv_dtype == kFloat32)
-    err = launch_d<float, float>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_d<float, float>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kFloat32 && kv_dtype == kBFloat16)
-    err = launch_d<float, bf16>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_d<float, bf16>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 32)
-    err = launch_fma<bf16, bf16, 32>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_fma<bf16, bf16, 32>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 256)
-    err = launch_fma<bf16, bf16, 256>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, s);
+    err = launch_fma<bf16, bf16, 256>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   return static_cast<int>(err);
 }

@@ -158,10 +158,12 @@ def _lookahead_run(x, pack, mode):
         lookahead_matmul(x, pack)
 
 
-def _paged_run(q, kv, mode):
+def _paged_run(q, kv, mode, window=None, softcap=None):
     if mode == "ref":
-        return ref.paged_attention_ref(q, kv.k, kv.v, kv.ptab, kv.lens)
-    return _paged_attention(q, kv.k, kv.v, kv.ptab, kv.lens)
+        return ref.paged_attention_ref(q, kv.k, kv.v, kv.ptab, kv.lens,
+                                       window=window, softcap=softcap)
+    return _paged_attention(q, kv.k, kv.v, kv.ptab, kv.lens, window=window,
+                            softcap=softcap)
 
 
 _REGISTRY: Dict[str, KernelEntry] = {e.name: e for e in (
@@ -197,12 +199,15 @@ def sparse_matmul(x: torch.Tensor, weight: Any) -> torch.Tensor:
     return _entry_for(kind).run(x, weight, resolve_mode(x.device))
 
 
-def paged_attention(q: torch.Tensor, kv: PagedKV) -> torch.Tensor:
+def paged_attention(q: torch.Tensor, kv: PagedKV, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """Decode attention against a paged KV cache: ``q (B, H, D)``, one
     query per sequence, or ``(B, Q, H, D)``, a verify block whose query
-    ``i`` sits at position ``kv.lens - Q + i`` and sees the keys before
-    it; the output has ``q``'s shape."""
-    return _paged_run(q, kv, resolve_mode(q.device))
+    ``i`` sits at position ``kv.lens - Q + i`` and sees the keys up to
+    it (the last ``window`` of them under a sliding window), its logits
+    soft-capped by ``softcap``; the output has ``q``'s shape."""
+    return _paged_run(q, kv, resolve_mode(q.device), window, softcap)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

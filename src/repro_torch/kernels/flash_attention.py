@@ -34,6 +34,8 @@ mma_launches = 0
 #: Those of them without the causal mask (an encoder's attention, a
 #: prompt's cross-attention over a source).
 noncausal_launches = 0
+#: Those of them with a sliding window (a local layer's prefill).
+window_launches = 0
 
 
 #: ``plan(B, H, Hk, Lq, Lk, D, dtype)``: route, tile and grid of a call.
@@ -60,7 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q (B, H, Lq, D), k/v (B, Hk, Lk, D) -> (B, H, Lq, D)``; under
     ``causal`` the queries are the last ``Lq`` positions of the keys.
     Rows with no key in reach give zeros on the card."""
-    global launches, suffix_launches, mma_launches, noncausal_launches
+    global launches, suffix_launches, mma_launches, noncausal_launches, \
+        window_launches
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
@@ -104,4 +107,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mma_launches += 1
     if not causal:
         noncausal_launches += 1
+    if window is not None:
+        window_launches += 1
     return out

@@ -11,7 +11,9 @@ it and how it is laid out), which walks only the pages a sequence owns
 and never materializes the gathered view: bfloat16 q and pools at D = 64,
 128 or 160 run on the tensor cores (split over a thread-block cluster),
 float32 q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as
-:func:`plan` says; both take a ``(B, Q, H, D)`` verify block of any ``Q``.
+:func:`plan` says; both take a ``(B, Q, H, D)`` verify block of any ``Q``,
+a sliding ``window`` and a tanh ``softcap`` of the logits (gemma's local
+layers and attention softcap).
 On a CPU tensor it runs the plain version ``ref.paged_attention_ref``.
 There is no fallback between them.
 """
@@ -35,6 +37,8 @@ launches = 0
 block_launches = 0
 #: Of those, the launches on the tensor-core route.
 mma_launches = 0
+#: Of those, the launches with a sliding window (a local layer's decode).
+window_launches = 0
 
 
 class PagedKV(NamedTuple):
@@ -67,12 +71,10 @@ plan = tiling.paged_plan
 def _fns():
     lib = _build.load("paged_attention")
     mma, fma = lib.paged_attention_mma_launch, lib.paged_attention_fma_launch
-    mma.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                    + [ctypes.c_float] + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p])
-    fma.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
+    head = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_float])
+    mma.argtypes = head + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fma.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     for f in (mma, fma):
         f.restype = ctypes.c_int
     return mma, fma
@@ -81,22 +83,28 @@ def _fns():
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, ptab: torch.Tensor,
                     lens: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """``q (B, H, D)`` or ``(B, Q, H, D)`` × pools ``(P, ps, Hk, D)`` ×
     ``ptab (B, np)`` → the shape of ``q``.
 
-    A ``(B, Q, H, D)`` block's query ``i`` sits at position ``lens - Q +
-    i`` and sees the keys before it and before the view's end (``np *
-    ps`` rows), as the gathered view of the plain version does.  ``ptab``
+    A ``(B, Q, H, D)`` block's query ``i`` sits at position ``qpos = lens
+    - Q + i`` and sees the keys up to it and before the view's end (``np
+    * ps`` rows), as the gathered view of the plain version does; with a
+    ``window``, only the keys after ``qpos - window``.  ``softcap`` caps
+    the scaled logits as ``tanh(s / softcap) * softcap`` before the
+    mask.  ``ptab``
     may be a column slice of a wider table (rows need not be contiguous,
     columns must be).  Rows with no key in reach (``lens == 0``) give
     zeros.  Both routes take any ``Q``: the ``Q * H / Hk`` query rows of
     a kv head run in row tiles of 16 (tensor cores) or 8 (FMA) rows
     (:func:`plan`).
     """
-    global launches, block_launches, mma_launches
+    global launches, block_launches, mma_launches, window_launches
     if q.device.type == "cpu":
-        return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale)
+        return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale,
+                                       window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if q.dim() not in (3, 4):
@@ -126,6 +134,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if ptab.device != q.device or ptab.stride(1) != 1:
         raise ValueError(f"ptab must lie on {q.device} with unit column "
                          "stride")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
     s = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     if B == 0:
@@ -134,16 +146,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             ptab.data_ptr(), lens.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (*ptrs, B, Q, H, Hk, D, ps, ptab.shape[1], ptab.stride(0), s,
+            window or -1, softcap or 0.0)
     if p["route"] == "mma":
-        err = mma(*ptrs, B, Q, H, Hk, D, ps, ptab.shape[1], ptab.stride(0),
-                  s, p["warps"], p["split"], p["ring"], stream)
+        err = mma(*args, p["warps"], p["split"], p["ring"], stream)
     else:
-        err = fma(*ptrs, B, Q, H, Hk, D, ps, ptab.shape[1], ptab.stride(0),
-                  s, DTYPES[q.dtype], DTYPES[k_pool.dtype], stream)
+        err = fma(*args, DTYPES[q.dtype], DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention")
     launches += 1
     if Q > 1:
         block_launches += 1
     if p["route"] == "mma":
         mma_launches += 1
+    if window is not None:
+        window_launches += 1
     return out

@@ -70,14 +70,19 @@ def lookahead_matmul_ref(x: torch.Tensor, pack: LookaheadPack
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, ptab: torch.Tensor,
                         lens: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None, *,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
     """Decode attention against a paged KV cache.
 
     ``q (B, H, D)`` — one query per sequence — or ``(B, Q, H, D)``, a
-    decode-shaped block whose query ``i`` sits at position
-    ``lens - Q + i``; ``k_pool/v_pool (P, ps, Hk, D)``; ``ptab (B, np)``
-    page table; ``lens (B,)`` valid rows including the block.  Fully
-    masked rows (``lens == 0``) give zeros.
+    decode-shaped block whose query ``i`` sits at position ``qpos = lens
+    - Q + i`` and sees the keys ``kpos <= qpos`` (and ``kpos > qpos -
+    window`` under a sliding ``window``); ``k_pool/v_pool (P, ps, Hk,
+    D)``; ``ptab (B, np)`` page table; ``lens (B,)`` valid rows including
+    the block.  The logits are scaled, then soft-capped as ``tanh(s /
+    softcap) * softcap``, then masked, as the JAX ``_sdpa`` does over the
+    gathered view.  Fully masked rows (``lens == 0``) give zeros.
     """
     squeeze = q.dim() == 3
     if squeeze:
@@ -95,8 +100,13 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         v = v.repeat_interleave(H // Hk, dim=1)
     s = scale if scale is not None else D ** -0.5
     logits = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * s
-    qlens = lens.long()[:, None] - (Q - 1 - torch.arange(Q, device=q.device))
-    mask = torch.arange(L, device=q.device)[None, None, :] < qlens[:, :, None]
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = lens.long()[:, None] - Q + torch.arange(Q, device=q.device)
+    kpos = torch.arange(L, device=q.device)[None, None, :]
+    mask = kpos <= qpos[:, :, None]                             # (B, Q, L)
+    if window is not None:
+        mask &= kpos > qpos[:, :, None] - window
     mask = mask[:, None]                                        # (B,1,Q,L)
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)

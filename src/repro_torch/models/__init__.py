@@ -2,9 +2,10 @@
 families:
 
   * ``"lm"``: gated decoder-only LMs with a tied or untied head (qwen3,
-    stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl), and
+    stablelm), M-RoPE and precomputed-embedding prompts (qwen2-vl),
     routed experts in place of the MLP (qwen2-moe, dbrx;
-    ``models/moe.py``);
+    ``models/moe.py``), and gemma's local/global layers with sliding
+    windows, softcaps, post-norms and scaled embeds (gemma2, gemma3);
   * ``"hybrid"``: the Mamba-2 trunk with or without zamba2's shared
     attention block (mamba2, zamba2; ``models/hybrid.py``,
     ``models/ssm.py``), whose cache is ``{"ssm": {"conv", "ssm"}, "kv":
@@ -22,8 +23,7 @@ families:
 nested caches as the JAX ones do, and the recurrent-state helpers of
 speculative rollback (``recurrent_state``, ``set_recurrent_state``,
 ``select_recurrent``, ``where_slot``).  Caches are updated in place; the
-helpers return the cache for call-site parity with the JAX API.  The
-gemma features are ROADMAP queue 1 item 11e.
+helpers return the cache for call-site parity with the JAX API.
 """
 
 from __future__ import annotations
@@ -73,12 +73,11 @@ def _check_ported(cfg: ModelConfig) -> None:
     else:
         ok = cfg.mlp_gated and cfg.input_mode in ("tokens", "embeds") \
             and (f != "hybrid" or cfg.input_mode == "tokens")
-    if not ok or cfg.embed_scale or cfg.post_norm:
+    if not ok:
         raise NotImplementedError(
             f"{cfg.name}: only gated decoder-only LMs (tied or untied head, "
-            "M-RoPE, embeds input, routed experts), the SSM/hybrid family "
-            "and the ungated enc-dec family are ported; the gemma features "
-            "(post-norms, scaled embeds) are ROADMAP queue 1 item 11e")
+            "M-RoPE, embeds input, routed experts, gemma's features), the "
+            "SSM/hybrid family and the ungated enc-dec family are ported")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",

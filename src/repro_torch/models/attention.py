@@ -27,7 +27,9 @@ Which kernel runs where:
     kernel with ``lens = pos + Lq`` over the page-table view, instead of
     JAX's gathered view (the kernel's query ``i`` sees the keys before
     ``lens - (Lq - 1 - i)`` and before the view's end, as that view
-    does);
+    does, and on a local layer only the last ``window_size`` of them);
+  * every route takes the layer's sliding window (a local layer) and
+    the config's ``attn_softcap`` (gemma);
   * monolithic decode writes the ``Lq`` rows at each slot's own ``pos``
     (the start clamped so the block fits, as ``dynamic_update_slice``
     clamps it) and is plain masked attention over the cache with
@@ -290,16 +292,13 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
         elif prefill:
             out = _flash_prefill(cfg, q, k, v, kp.dtype, window)
         else:
-            if cfg.attn_softcap is not None or window is not None:
-                raise NotImplementedError(
-                    "paged decode with softcap or a sliding window is not "
-                    "ported yet (ROADMAP queue 2 item 2)")
             kv = PagedKV(kp, vp, pt, (cache_pos + Lq).to(torch.int32))
+            kw = dict(window=window, softcap=cfg.attn_softcap)
             if Lq == 1:
-                out = dispatch.paged_attention(q[:, 0].contiguous(),
-                                               kv)[:, None]
+                out = dispatch.paged_attention(q[:, 0].contiguous(), kv,
+                                               **kw)[:, None]
             else:
-                out = dispatch.paged_attention(q.contiguous(), kv)
+                out = dispatch.paged_attention(q.contiguous(), kv, **kw)
     else:
         ck, cv = cache["k"], cache["v"]
         if prefill:

@@ -3,11 +3,12 @@ field, so a config built on either side describes the same model.
 
 The port serves the decoder-only ("lm") family, with a tied or untied
 head, M-RoPE (``mrope_sections``), embeds input (``input_mode``) and
-routed experts (the MoE fields), the SSM/hybrid family (the SSM
-fields, ``MAMBA`` and ``SHARED_ATTN`` layers) and the encoder-decoder
-family (``is_encoder_decoder``, ``n_encoder_layers``, an ungated MLP);
-the gemma features are carried for parity and rejected by
-``models.init_model`` (ROADMAP queue 1 item 11e).
+routed experts (the MoE fields), the gemma features (``post_norm``,
+``embed_scale``, attention and final softcaps, ``ATTN_LOCAL`` layers
+with a sliding window, laid out by :func:`interleave_kinds`), the
+SSM/hybrid family (the SSM fields, ``MAMBA`` and ``SHARED_ATTN`` layers)
+and the encoder-decoder family (``is_encoder_decoder``,
+``n_encoder_layers``, an ungated MLP).
 """
 
 from __future__ import annotations
@@ -135,6 +136,16 @@ class ModelConfig:
     def uses_mamba(self) -> bool:
         return any(k in (LayerKind.MAMBA, LayerKind.SHARED_ATTN)
                    for k in self.layer_kinds)
+
+
+def interleave_kinds(n_layers: int, local: int, global_: int,
+                     window_first: bool = True) -> Tuple[int, ...]:
+    """gemma-style ``local:global`` repeating pattern (e.g. 5:1)."""
+    pat = ([int(LayerKind.ATTN_LOCAL)] * local
+           + [int(LayerKind.ATTN_GLOBAL)] * global_)
+    if not window_first:
+        pat = pat[::-1]
+    return tuple((pat * math.ceil(n_layers / len(pat)))[:n_layers])
 
 
 def zamba_kinds(n_layers: int, shared_every: int = 6) -> Tuple[int, ...]:

@@ -145,7 +145,7 @@ def _dec_cached(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     prefill = isinstance(cache_pos, int)
     positions = ((cache_pos + block)[None].expand(B, T) if prefill
                  else cache_pos[:, None] + block)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.embed_scale)
     self_c, cross = cache["self"], cache["cross"]
     for l, p in enumerate(params["decoder"]):
         h = L.rmsnorm(p["ln_self"], x, cfg.norm_eps)

@@ -116,7 +116,7 @@ def hybrid_hidden(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
     prefill, ``(B,)`` at decode.  (The cache-less forward of training,
     the JAX ``hybrid_apply``/``hybrid_loss``, comes with ROADMAP queue 1
     item 14.)"""
-    x = L.embed(params["embed"], inputs)
+    x = L.embed(params["embed"], inputs, cfg.embed_scale)
     slots = shared_slots(cfg)
     ssm, kv = cache["ssm"], cache.get("kv")
     conv_seq: list = []

@@ -4,10 +4,13 @@ per-layer params.
 Params are ``{"embed": (V_pad, d), "layers": [per-layer dict, ...],
 "ln_final": {"scale"}}``, plus ``"unembed": (V_pad, d)`` for an untied
 head (``tie_embeddings=False``, stablelm); a per-layer dict holds
-``ln_attn``, ``ln_mlp``, ``attn`` (``wq/wk/wv/wo`` + qk-norm scales) and
+``ln_attn``, ``ln_mlp``, ``attn`` (``wq/wk/wv/wo`` + qk-norm scales),
+under ``post_norm`` (gemma) ``ln_attn_post`` and ``ln_mlp_post``, and
 ``mlp`` (``w_in/w_gate/w_out``), or for an MoE config (``n_experts``)
 ``moe`` (``router``, the expert stacks, optional ``shared``; see
-``models/moe.py``).  Projections may be dense tensors or packs —
+``models/moe.py``).  gemma's local layers (``ATTN_LOCAL``) attend over
+a sliding window, and its token embeddings are scaled by ``sqrt(d)``
+(``embed_scale``).  Projections may be dense tensors or packs —
 ``apply_linear`` dispatches on the type.  The cache keeps the JAX
 package's stacked ``(n_layers, ...)`` leaves; layer ``l`` works on views
 of slice ``l``.  Under M-RoPE (qwen2-vl) the positions are broadcast to
@@ -34,6 +37,9 @@ def init_layer(cfg: ModelConfig, dtype: torch.dtype,
     p = {"ln_attn": L.init_rmsnorm(cfg.d_model, device),
          "ln_mlp": L.init_rmsnorm(cfg.d_model, device),
          "attn": init_attention(cfg, dtype, generator, device)}
+    if cfg.post_norm:
+        p["ln_attn_post"] = L.init_rmsnorm(cfg.d_model, device)
+        p["ln_mlp_post"] = L.init_rmsnorm(cfg.d_model, device)
     if cfg.n_experts:
         p["moe"] = M.init_moe(cfg, dtype, generator, device)
     else:
@@ -78,16 +84,23 @@ def block(p: Params, cfg: ModelConfig, x: torch.Tensor,
           ) -> torch.Tensor:
     """Pre-norm block: ``x + attn(norm(x))``, then ``x + mlp(norm(x))``,
     the MoE block in place of the MLP under ``cfg.n_experts`` (its aux
-    loss dropped: nothing here trains)."""
+    loss dropped: nothing here trains); under ``cfg.post_norm`` each
+    sub-block's output is normed again before its residual add."""
     h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     attn_out, _ = attention(p["attn"], cfg, h, positions, cache, cache_pos,
                             is_local=kind == int(LayerKind.ATTN_LOCAL),
                             sparsity=cfg.attn_sparsity)
+    if cfg.post_norm:
+        attn_out = L.rmsnorm(p["ln_attn_post"], attn_out, cfg.norm_eps)
     x = x + attn_out
     h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
     if cfg.n_experts:
-        return x + M.moe_block(p["moe"], cfg, h)[0]
-    return x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity)
+        mlp_out = M.moe_block(p["moe"], cfg, h)[0]
+    else:
+        mlp_out = L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity)
+    if cfg.post_norm:
+        mlp_out = L.rmsnorm(p["ln_mlp_post"], mlp_out, cfg.norm_eps)
+    return x + mlp_out
 
 
 def _forward(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
@@ -99,7 +112,7 @@ def _forward(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
     if cfg.input_mode == "embeds" and inputs.dim() == 3:
         x = inputs.to(L.DTYPES[cfg.dtype])
     else:
-        x = L.embed(params["embed"], inputs)
+        x = L.embed(params["embed"], inputs, cfg.embed_scale)
     if cfg.mrope_sections is not None:
         positions = positions[..., None].expand(*positions.shape, 3)
     for l, p in enumerate(params["layers"]):

@@ -480,12 +480,13 @@ def build_spec_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
 #: replay advances by what its capture recorded (a replay makes no Python
 #: call): every wrapper's ``launches``, ``paged_attention``'s count of
 #: verify-block (Q > 1) launches and the attention wrappers' counts of
-#: tensor-core-route launches.
+#: tensor-core-route and sliding-window launches.
 COUNTED = tuple((mod, "launches") for mod in (
     bsr_matmul, csa_matmul, flash_attention, lookahead_decode, nm_spmm,
-    paged_attention)) + ((paged_attention, "block_launches"),
-                         (paged_attention, "mma_launches"),
-                         (flash_attention, "mma_launches"))
+    paged_attention)) + tuple((mod, attr) for mod in (
+        paged_attention, flash_attention) for attr in (
+        "mma_launches", "window_launches")) + (
+    (paged_attention, "block_launches"),)
 
 
 def _cache_ptrs(cache) -> Tuple[int, ...]:

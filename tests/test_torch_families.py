@@ -15,12 +15,14 @@ Auto axes, weights carried over with ``convert.params_from_numpy``):
 * Engine parity: greedy transcripts and ``sync_count`` equal the JAX
   ``Engine`` and ``conftest.reference_decode``, both layouts, both tiny
   configs, plus speculation (self and 2:4 pack draft) on the untied one;
-* ``_check_ported`` still refuses the gemma configs of the JAX registry;
-  the MoE configs pass it (their own suite is ``test_torch_moe.py``),
-  while their speculation and prefix sharing stay refused; the SSM/hybrid
+* every config of the JAX registry passes ``_check_ported``: the gemma
+  pair serves a CPU prefill (its suite is ``test_torch_gemma.py``); the
+  MoE configs pass it (their own suite is ``test_torch_moe.py``), while
+  their speculation and prefix sharing stay refused; the SSM/hybrid
   configs and the enc-dec seamless pass it (their suites are
   ``test_torch_ssm.py``, ``test_torch_hybrid.py`` and
-  ``test_torch_encdec.py``), while their prefix sharing stays refused.
+  ``test_torch_encdec.py``), while their prefix sharing stays refused;
+  the config registry refuses a name it does not know.
 """
 
 import dataclasses
@@ -125,8 +127,9 @@ def test_registry_names_the_ported_archs():
     assert TC.get("zamba2-1.2b") == to_port(JC.get("zamba2-1.2b"))
     assert TC.get("seamless-m4t-large-v2") == \
         to_port(JC.get("seamless-m4t-large-v2"))
-    with pytest.raises(NotImplementedError, match="11e"):
-        TC.get("gemma2-27b")
+    assert TC.get("gemma2-27b") == to_port(JC.get("gemma2-27b"))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        TC.get("gemma4-9b")
 
 
 # --- M-RoPE ----------------------------------------------------------------------
@@ -353,7 +356,7 @@ def test_pack_draft_shares_the_untied_head(untied_dense):
                for name in names)
 
 
-# --- what stays refused --------------------------------------------------------------
+# --- the other families: what passes and what stays refused ---------------------------
 
 #: the MoE family: ported (ROADMAP queue 1 item 11b), its speculation and
 #: prefix sharing not yet (item 16)
@@ -363,17 +366,19 @@ MOE = ("qwen2_moe_a2_7b", "dbrx_132b")
 #: state lies outside the page pool)
 HYBRID = ("mamba2_130m", "zamba2_1_2b")
 ENCDEC = ("seamless_m4t_large_v2",)
+#: the gemma pair (item 11e): ported, nothing refused
+GEMMA = ("gemma2_27b", "gemma3_1b")
 REFUSED = [a for a in JC.list_archs()
            if a not in ("qwen3_0_6b", *PORTED, *MOE)]
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED + list(MOE)))
 def test_check_ported_refuses_the_other_families(arch):
-    """Gemma stays refused, with the message naming its ROADMAP item.
-    The MoE archs pass ``_check_ported``, and what stays refused for them
-    is speculation and prefix sharing; the SSM/hybrid archs and the
-    enc-dec seamless pass it, a CPU ``init_model``/``init_cache`` serves
-    a prefill, and what stays refused is prefix sharing."""
+    """Every arch passes ``_check_ported``.  The gemma pair's CPU
+    ``init_model``/``init_cache`` serve a prefill with finite logits.
+    What stays refused for the MoE archs is speculation and prefix
+    sharing; the SSM/hybrid archs and the enc-dec seamless serve a
+    prefill, and what stays refused for them is prefix sharing."""
     cfg = to_port(JC.get_reduced(arch))
     if arch in MOE:
         TM._check_ported(cfg)
@@ -395,10 +400,16 @@ def test_check_ported_refuses_the_other_families(arch):
                                       prefix_cache=True), params,
                     device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="11e"):
-        TM.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.init_cache(cfg, 1, 16, device="cpu")
+    assert arch in GEMMA
+    TM._check_ported(cfg)
+    params = TM.init_model(cfg, device="cpu")
+    assert all("ln_attn_post" in layer for layer in params["layers"])
+    cache = TM.init_cache(cfg, 1, 32, page_size=8, device="cpu")
+    TM.set_page_table(cache, np.arange(1, 5, dtype=np.int32)[None])
+    logits, _ = TM.prefill(params, cfg, {"tokens": torch.arange(
+        1, 21, dtype=torch.int32)[None]}, cache)
+    assert logits.shape == (1, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -377,16 +377,16 @@ def paged_inputs(seed, B, Q, H=16, Hk=8, D=128, ps=16, P=40, mp=8,
     return q, kp, vp, ptab, lens
 
 
-def run_paged(q, kp, vp, ptab, lens, route):
+def run_paged(q, kp, vp, ptab, lens, route, **kw):
     Q = 1 if q.dim() == 3 else q.shape[1]
     p = paged_mod.plan(q.shape[0], q.shape[-2], kp.shape[2], Q,
                        ptab.shape[1], q.shape[-1], (q.dtype, kp.dtype),
                        kp.shape[1])
     assert p["route"] == route
     before = paged_mod.launches
-    got = paged_mod.paged_attention(q, kp, vp, ptab, lens)
+    got = paged_mod.paged_attention(q, kp, vp, ptab, lens, **kw)
     assert paged_mod.launches == before + 1
-    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens))
+    close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens, **kw))
     return got
 
 
@@ -427,6 +427,63 @@ def test_paged_attention_fma_route(cuda):
     run_paged(*paged_inputs(90, 5, 1, D=256, lens=[0, 5, 16, 100, 128]),
               "fma")
     run_paged(*paged_inputs(91, 5, 1, q_dtype=torch.float32), "fma")
+
+
+#: gemma's paged decode: (what, H, Hk, D, q dtype, route) — gemma2's heads
+#: with its softcap of 50 on the tensor cores (and with fp32 q on the FMA
+#: route), gemma3's D = 256 over one kv head (bf16 takes the FMA route)
+GEMMA_PAGED = [("gemma2", 32, 16, 128, torch.bfloat16, "mma", 50.0),
+               ("gemma2-fp32q", 32, 16, 128, torch.float32, "fma", 50.0),
+               ("gemma3", 4, 1, 256, torch.bfloat16, "fma", None)]
+
+
+@pytest.mark.parametrize("window", [1, 16, 40, 100])
+@pytest.mark.parametrize("Q", [1, 4])
+@pytest.mark.parametrize("what,H,Hk,D,dtype,route,softcap", GEMMA_PAGED,
+                         ids=[g[0] for g in GEMMA_PAGED])
+def test_paged_attention_window_softcap(cuda, what, H, Hk, D, dtype, route,
+                                        softcap, Q, window):
+    """A sliding window (and gemma2's softcap) on both routes, one query
+    or a Q = 4 verify block, lens past the window so the mask bites
+    (and lens past the view, clamped); rows that see no key are zero and
+    the call counts as a window launch."""
+    args = paged_inputs(100 + Q + window, 7, Q, H=H, Hk=Hk, D=D,
+                        q_dtype=dtype, lens=[0, 1, 17, 64, 101, 128, 150])
+    before = paged_mod.window_launches
+    got = run_paged(*args, route, window=window, softcap=softcap)
+    assert paged_mod.window_launches == before + 1
+    assert (got[0] == 0).all()
+    assert torch.equal(got, paged_mod.paged_attention(
+        *args, window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_paged_attention_window_every_split(cuda, monkeypatch, warps, split):
+    """Under a window the parts of every (warps, split) start at the
+    first chunk the tile's lowest query reaches."""
+    monkeypatch.setattr(paged_mod, "plan", lambda *a: dict(
+        route="mma", warps=warps, split=split,
+        ring=tiling.paged_ring(16, warps * split)))
+    q, kp, vp, ptab, lens = paged_inputs(110, 5, 4, H=32, Hk=16, mp=16,
+                                         lens=[3, 40, 97, 200, 256])
+    for window in (5, 33, 120):
+        got = paged_mod.paged_attention(q, kp, vp, ptab, lens,
+                                        window=window, softcap=50.0)
+        close(got, ref.paged_attention_ref(q, kp, vp, ptab, lens,
+                                           window=window, softcap=50.0))
+
+
+def test_paged_attention_softcap_alone(cuda):
+    """A softcap without a window moves the output (the scores of
+    random q and k reach past the cap) and is no window launch."""
+    args = paged_inputs(120, 4, 1, lens=[5, 60, 100, 128])
+    q = args[0] * 8                       # logits well past a cap of 5
+    before = paged_mod.window_launches
+    got = run_paged(q, *args[1:], "mma", softcap=5.0)
+    assert paged_mod.window_launches == before
+    assert (got.float() - paged_mod.paged_attention(q, *args[1:]).float()
+            ).abs().max() > 0.05
 
 
 @pytest.mark.parametrize("H,Hk", [(16, 8), (16, 2)])

@@ -22,7 +22,8 @@ assert {"repro_torch.configs.stablelm_12b",
         "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b",
         "repro_torch.models.ssm", "repro_torch.models.hybrid",
         "repro_torch.configs.seamless_m4t_large_v2",
-        "repro_torch.models.encdec"} <= set(names), names
+        "repro_torch.models.encdec", "repro_torch.configs.gemma2_27b",
+        "repro_torch.configs.gemma3_1b"} <= set(names), names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]

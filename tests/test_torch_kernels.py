@@ -136,7 +136,7 @@ def test_kernel_entries_call_the_wrappers(monkeypatch):
     monkeypatch.setattr(dispatch, "nm_spmm",
                         lambda x, p: calls.append("nm") or x)
     monkeypatch.setattr(dispatch, "_paged_attention",
-                        lambda *a: calls.append("paged") or a[0])
+                        lambda *a, **k: calls.append(("paged", k)) or a[0])
     monkeypatch.setattr(dispatch, "flash_attention",
                         lambda *a, **k: calls.append("flash") or a[0])
     monkeypatch.setattr(dispatch, "resolve_mode", lambda device: "kernel")
@@ -146,9 +146,10 @@ def test_kernel_entries_call_the_wrappers(monkeypatch):
     x = torch.zeros((2, 256))
     dispatch.sparse_matmul(x, tp)
     q = torch.zeros((1, 2, 32))
-    dispatch.paged_attention(q, paged_mod.PagedKV(q, q, q, q))
+    dispatch.paged_attention(q, paged_mod.PagedKV(q, q, q, q), window=4,
+                             softcap=2.0)
     dispatch.attention(q, q, q)
-    assert calls == ["nm", "paged", "flash"]
+    assert calls == ["nm", ("paged", dict(window=4, softcap=2.0)), "flash"]
 
 
 def test_entry_points_refuse_a_missing_card():
