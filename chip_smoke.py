@@ -235,8 +235,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      vocab 256000 tied, attention softcap 50, final softcap 30) and
      gemma3-1b (26 layers, 22 local with a window of 512, d_model 1152,
      4 heads of 256 over 1, qk-norm, d_ff 6912, vocab 262144 tied), both
-     with post-norms and scaled embeddings, at published widths and
-     depth, bf16, random weights from a seed, each layer packed as it is
+     with post-norms and scaled embeddings, at published widths (gemma2
+     cut to ``GEMMA2_LAYERS`` and gemma3 to ``GEMMA3_LAYERS`` since
+     phase 14), bf16, random weights from a seed, each layer packed as it is
      drawn: ``sparse()``'s 2:4 packs on the MLPs, attention dense.
      (a) gemma2 through phase 4's serve and stream (``max_len`` 512:
      the window never masks, the softcaps and post-norms do their work):
@@ -256,6 +257,39 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (phase 5's rule), model-level logits (prefill, 4 decode steps, a T
      = 4 block) within ``FID_ATOL``, and a garbage-draft speculative
      serve equal to the plain loop.
+ 14. training, the paper's co-design loop, on qwen3-0.6b ``config()`` at
+     published widths and full depth (28 layers, bf16, remat, seeded
+     random init; ``repro_torch.examples.train_sparse_lm``'s functions):
+     (a) the ``Trainer``, ``DENSE_STEPS`` steps of 8 x 128 tokens (lr
+     3e-3, warmup 20), one asynchronous checkpoint at ``CKPT_STEP`` under
+     ``build/``; gates: finite losses and grad norms, the last 10 losses'
+     mean at least ``LOSS_DROP`` below the first 10's, the checkpoint
+     restored bitwise equal to a host copy taken at that step; prints the
+     median step and its split (data, forward, backward, optimizer; CUDA
+     events over ``TIMED_STEPS`` extra steps), tokens/s, model
+     utilization, peak memory and the checkpoint's stall and write
+     seconds.  (b) 2:4 masks along K on all seven projections (positions
+     shared over 128 columns, as ``sparse()`` packs them) and
+     ``FT_STEPS`` masked fine-tune steps (lr 1e-3, warmup 10); gates:
+     masked positions exactly 0 and no mask's kept positions all 0, the
+     held-out loss after the fine-tune below the one right after
+     pruning.  (c) ``pack_params`` under ``sparse()``, phase 4's Engine
+     over 16 held-out prompts; gates: each pack keeps its mask's
+     positions, budgets and syncs, only nm_spmm and both attention
+     kernels at their per-layer counts, tokens equal to the masked
+     weights served dense or split at a near tie; prints warm ms/step and
+     tok/s and the share of generated tokens that follow the stream's
+     transition (dense-trained, one-shot pruned pack, fine-tuned pack).
+     (d) the dense-trained weights verify ``SPEC_K`` tokens drafted by
+     (c)'s pack; gates: one verify block per layer and step, nm_spmm 7
+     times per layer and draft step, tokens equal to the plain loop's or
+     split at a near tie; prints acceptance and tokens per chunk beside
+     phase 8's pack draft on random weights.  (e) each family's
+     ``reduced()`` config in fp32: loss and every gradient on the card
+     against the CPU, and one train step (Adam's epsilon at
+     ``STEP_EPS``) with every param compared; no kernel launches
+     across any training (the training route is plain PyTorch).  The
+     line before ``nvidia-smi``'s second reading is ``{"train": ...}``.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -265,6 +299,7 @@ error and times; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1624,7 +1659,7 @@ def spec_config(**kw):
                        **kw)
 
 
-def speculation(cfg, dev, counters) -> dict:
+def speculation(cfg, dev, counters) -> tuple:
     """Phase 8 at full width: phase 4's stream through (a) the plain
     dense loop (a graph serve cold, then warm), (b) a self draft and (c)
     the config's 2:4 packs as the draft with the dense weights verifying,
@@ -1633,7 +1668,8 @@ def speculation(cfg, dev, counters) -> dict:
     step, and in (c) nm_spmm's 7 projections per layer and draft step;
     each speculative serve's tokens equal (a)'s or split first at a near
     tie (``near_tie``, read by replaying (a)'s tokens one sequence at a
-    time).  Returns the cold turns' launches, summed."""
+    time).  Returns the cold turns' launches, summed, and each draft's
+    acceptance rate."""
     from repro_torch.serving import Engine
     params = dense_model(cfg, dev, SEED)
     prompts = phase4_prompts(cfg.vocab_size)
@@ -1645,6 +1681,7 @@ def speculation(cfg, dev, counters) -> dict:
     if plain[1][0] != base:
         raise AssertionError("the two plain serves differ")
     gaps: dict = {}                  # request -> (gaps, tops) along (a)
+    acceptance = {}
     dtype = params["embed"].dtype
     for draft in ("self", "pack"):
         tag = f"spec {draft}"
@@ -1653,6 +1690,7 @@ def speculation(cfg, dev, counters) -> dict:
         turns = graph_turns(eng, prompts, counters,
                             serve_prompts(eng, prompts, counters), tag)
         outs, rep, launches = turns[0][2]
+        acceptance[draft] = rep["acceptance_rate"]
         steps = rep["chunks"] * eng.scfg.decode_chunk
         want_nm = 7 * cfg.n_layers * steps * SPEC_K if draft == "pack" else 0
         path = {"paged_attention", "flash_attention"} | (
@@ -1700,7 +1738,7 @@ def speculation(cfg, dev, counters) -> dict:
         if far:
             raise AssertionError(f"{tag}: requests {far} split from the "
                                  "plain loop away from a near tie")
-    return total
+    return total, acceptance
 
 
 def spec_vs_cpu(cfg, dev, counters) -> None:
@@ -2736,11 +2774,24 @@ LONG_SERVE = dict(slots=8, max_len=1024, prompt_pad=640, page_size=16,
 GEMMA_WINDOW = 32                  # phase 13 (c): the 2-layer window
 
 
+#: phase 13's depths since phase 14 came: the whole script must stay
+#: under 950 s with training added, and phase 13 is the one cut for it
+#: (gemma2 first).  At 8 of gemma2-27b's 46 layers and gemma3-1b's full
+#: 26, phase 13 took 177.3 s of a 988 s run, gemma3's serves most of it
+#: (the eager turns past the window are host-bound, ~75 ms a step).
+#: gemma2 keeps two periods of its 1:1 local/global pattern, gemma3 one
+#: of its 5:1
+GEMMA2_LAYERS = 4
+GEMMA3_LAYERS = 6
+
+
 def gemma_configs() -> list:
-    """Phase 13's configurations: gemma2-27b and gemma3-1b ``sparse()``
-    at full width and depth."""
+    """Phase 13's configurations: gemma2-27b ``sparse()`` cut to
+    ``GEMMA2_LAYERS`` (2 local, 2 global) and gemma3-1b ``sparse()`` to
+    ``GEMMA3_LAYERS`` (5 local, 1 global), at published widths."""
     from repro_torch.configs import gemma2_27b, gemma3_1b
-    return [gemma2_27b.sparse(), gemma3_1b.sparse()]
+    return [cut_depth(gemma2_27b.sparse(), GEMMA2_LAYERS),
+            cut_depth(gemma3_1b.sparse(), GEMMA3_LAYERS)]
 
 
 def mlp_projections(cfg):
@@ -2994,6 +3045,493 @@ def gemma_spec(cfg, dev, counters) -> dict:
                         small.n_layers)
 
 
+# --- phase 14: training, the co-design loop at full width -------------------
+
+#: phase 14's stages: the dense stage of examples/train_sparse_lm.py (lr
+#: 3e-3, warmup 20), then the masked fine-tune (lr 1e-3, warmup 10), cut
+#: from 60 steps: phase 14 took ~230 s of its 240 at 60 (a step is
+#: ~0.55-0.65 s of host-bound eager work on the card's host)
+DENSE_STEPS = 120
+FT_STEPS = 40
+CKPT_STEP = 60                     # the one asynchronous checkpoint
+#: launch/train.py's defaults
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TIMED_STEPS = 4                    # steps instrumented with CUDA events
+HELDOUT_BATCHES = 4
+LOSS_DROP = 1.0                    # first 10 minus last 10 mean losses
+#: phase 14 (e): card against the CPU, fp32 (TF32 off): the loss within
+#: LOSS_RTOL, every gradient leaf within GRAD_RTOL of its largest entry
+#: (the tolerances of tests/test_torch_loss.py)
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+#: and after one step every param within STEP_RTOL of its leaf's largest
+#: plus STEP_ATOL, with Adam's epsilon at STEP_EPS as in
+#: tests/test_torch_train.py: at 1e-8 the first step moves an entry by
+#: lr·g/(|g| + 1e-8), about ±lr whatever |g|, so an entry whose gradient
+#: is float32 noise moves either way; at 1e-3 the step's gain is at most
+#: 1e3 and the comparison holds
+STEP_RTOL, STEP_ATOL, STEP_EPS = 1e-5, 1e-6, 1e-3
+TRAIN_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b", "zamba2-1.2b",
+               "seamless-m4t-large-v2", "gemma2-27b")
+
+
+def train_data():
+    from repro_torch.data import DataConfig
+    return DataConfig(seed=SEED, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+
+
+def no_kernel_launched(tag: str, counters, before: dict) -> None:
+    after = launch_counts(counters)
+    if after != before:
+        raise AssertionError(f"{tag}: the training route launched a kernel: "
+                             f"{before} -> {after}")
+
+
+def step_split(trainer, params, opt) -> dict:
+    """Median device ms of a train step's parts over ``TIMED_STEPS``
+    extra steps of the trainer's own step (``build_train_step`` with its
+    configs; results dropped, the step is functional): data wait (the
+    batch drawn on the host and copied), forward, backward and optimizer,
+    between CUDA events recorded by the step's ``mark`` hook as the host
+    issues each part."""
+    from repro_torch.data import make_batch
+    from repro_torch.train import build_train_step
+    events: list = []
+
+    def mark(part: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((part, ev))
+
+    step = build_train_step(trainer.cfg, trainer.tcfg, masks=trainer.masks,
+                            mark=mark)
+    parts = {"data": [], "forward": [], "backward": [], "optimizer": []}
+    for i in range(TIMED_STEPS):
+        events.clear()
+        torch.cuda.synchronize()
+        mark("start")
+        batch = make_batch(trainer.cfg, trainer.dcfg, trainer.tcfg.steps + i,
+                           trainer.device)
+        mark("data")
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        for (_, a), (part, b) in zip(events, events[1:]):
+            parts[part].append(a.elapsed_time(b))
+        del out
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def dense_training(cfg, dev, counters) -> tuple:
+    """Phase 14 (a): the port's ``Trainer`` from a seeded random init,
+    ``DENSE_STEPS`` steps, one asynchronous checkpoint at ``CKPT_STEP``
+    under ``build/``.  Gates: finite losses and grad norms; the mean of
+    the last 10 losses at least ``LOSS_DROP`` below the first 10's; the
+    checkpoint restores bitwise equal to a host copy taken at that step;
+    no kernel launches.  Returns (params, report)."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.examples import train_sparse_lm as ex
+    from repro_torch.tree import leaves, with_paths
+    ckpt = ROOT / "build" / "phase14_checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    trainer = ex.dense_trainer(cfg, train_data(), DENSE_STEPS, device=dev,
+                               log_every=1)
+    host = {}
+
+    def progress(step, m):
+        if step % 10 == 0 or step == DENSE_STEPS - 1:
+            log(f"[train dense] step {step}: loss {m['loss']:.4f}, grad "
+                f"norm {m['grad_norm']:.3f}, lr {m['lr']:.2e}, "
+                f"{1e3 * m['step_time_s']:.1f} ms")
+        if step + 1 == CKPT_STEP:
+            host.update({k: v.detach().to("cpu", copy=True) for k, v in
+                         with_paths({"params": trainer.params})})
+            mgr.save(CKPT_STEP, {"params": trainer.params,
+                                 "opt": trainer.opt_state})
+
+    before = launch_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = trainer.fit(progress=progress)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mgr.wait()
+    no_kernel_launched("train dense", counters, before)
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError("train dense: a loss or grad norm is not finite")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not last <= first - LOSS_DROP:
+        raise AssertionError(f"train dense: loss {first:.4f} -> {last:.4f}, "
+                             f"a drop under {LOSS_DROP}")
+    t1 = time.perf_counter()
+    flat, manifest = load_checkpoint(str(ckpt / f"step_{CKPT_STEP:09d}"))
+    restore_s = time.perf_counter() - t1
+    bad = [k for k, v in host.items() if v.dtype != flat[k].dtype
+           or not torch.equal(v, flat[k])]
+    if manifest["step"] != CKPT_STEP or bad:
+        raise AssertionError(f"train dense: the step-{CKPT_STEP} checkpoint "
+                             f"differs from the host copy at {bad[:5]}")
+    split = step_split(trainer, params, opt)
+    del opt
+    steps_ms = sorted(1e3 * h["step_time_s"] for h in hist[5:])
+    step_ms = float(np.median(steps_ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    ck = mgr.timings[0]
+    rep = {"steps": len(hist), "fit_s": fit_s, "loss_first10": first,
+           "loss_last10": last, "step_ms_median": step_ms,
+           "step_ms_min_max": [steps_ms[0], steps_ms[-1]],
+           "split_ms": split, "tokens_per_s": tokens / step_ms * 1e3,
+           "matmul_params": n, "model_utilization": 6 * n * tokens
+           / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+           "peak_mem_gb": peak_gb, "checkpoint_stall_s": ck["stall_s"],
+           "checkpoint_total_s": ck["total_s"],
+           "checkpoint_restore_s": restore_s,
+           "checkpoint_leaves": len(flat),
+           "stragglers": len(trainer.straggler_flags)}
+    log(f"[train dense] {json.dumps(rep)}")
+    log(f"[train dense] loss {first:.4f} -> {last:.4f} (means of the first "
+        f"and last 10 of {len(hist)} steps); median step {step_ms:.2f} ms "
+        f"after 5 warm-up steps ({rep['tokens_per_s']:.0f} tokens/s; split "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f" ms); model utilization {rep['model_utilization']:.4f} = 6 x "
+        f"{n} matmul params (head included) x {tokens} tokens / step time / "
+        f"989 TFLOP/s, recompute not counted; peak {peak_gb:.3f} GB; "
+        f"checkpoint at step {CKPT_STEP}: stall {ck['stall_s']:.3f} s, "
+        f"written in {ck['total_s']:.3f} s, restored bitwise ({len(flat)} "
+        f"arrays, {restore_s:.3f} s)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return params, rep
+
+
+def check_masks(params, masks, tag: str) -> None:
+    """Every masked position exactly 0; no mask's kept positions all 0."""
+    from repro_torch.examples import train_sparse_lm as ex
+    pairs = ex.masked_leaves(params, masks)
+    if not ex.zeros_kept(params, masks):
+        raise AssertionError(f"{tag}: a masked position is not 0")
+    if any(not bool((p[m == 1] != 0).any()) for p, m in pairs):
+        raise AssertionError(f"{tag}: a mask's kept positions are all 0")
+
+
+def prune_finetune(cfg, params, dev, counters) -> tuple:
+    """Phase 14 (b): 2:4 masks along K on all seven projections,
+    positions shared over 128 columns (``sparse()``'s packs), then
+    ``FT_STEPS`` masked fine-tune steps.  Gates: masked positions 0 and
+    no mask's kept positions all 0, on the card; the held-out loss after
+    the fine-tune below the loss right after pruning; no kernel
+    launches.  Returns (masks, fine-tuned params, report)."""
+    from repro_torch.examples import train_sparse_lm as ex
+    from repro_torch.optim import apply_mask
+    dcfg = train_data()
+    dense = ex.heldout_loss(params, cfg, dcfg, HELDOUT_BATCHES, dev)
+    masks = ex.nm_masks(params, 2, 4, group=128, names=ex.PROJECTIONS)
+    pruned = apply_mask(params, masks)
+    after_prune = ex.heldout_loss(pruned, cfg, dcfg, HELDOUT_BATCHES, dev)
+    before = launch_counts(counters)
+
+    def progress(s, m):
+        if s % 10 == 0 or s == FT_STEPS - 1:
+            log(f"[train finetune] step {s}: loss {m['loss']:.4f}, grad norm "
+                f"{m['grad_norm']:.3f}, {1e3 * m['step_time_s']:.1f} ms")
+
+    tuned, hist = ex.finetune(cfg, pruned, masks, dcfg, FT_STEPS, device=dev,
+                              progress=progress)
+    no_kernel_launched("train finetune", counters, before)
+    check_masks(tuned, masks, "train finetune")
+    finetuned = ex.heldout_loss(tuned, cfg, dcfg, HELDOUT_BATCHES, dev)
+    rep = {"heldout_dense": dense, "heldout_pruned": after_prune,
+           "heldout_finetuned": finetuned,
+           "step_ms_median": float(np.median([1e3 * h["step_time_s"]
+                                              for h in hist[5:]])),
+           "masked_leaves": len(ex.masked_leaves(tuned, masks))}
+    log(f"[train finetune] {json.dumps(rep)}")
+    if not finetuned < after_prune:
+        raise AssertionError(f"train finetune: held-out loss {finetuned:.4f} "
+                             f"not below {after_prune:.4f} after pruning")
+    return masks, tuned, rep
+
+
+def check_packs_keep_masks(packed, masks) -> int:
+    """Each pack's kept K-rows, per column group, are exactly its mask's."""
+    from repro_torch.core.sparsity import NMPack
+    from repro_torch.tree import leaves, leaves_as
+    n = 0
+    for pack, m in zip(leaves(packed), leaves_as(masks, packed)):
+        if m is None:
+            continue
+        if not isinstance(pack, NMPack):
+            raise AssertionError(f"a masked weight was not packed: "
+                                 f"{type(pack)}")
+        kept = torch.zeros((pack.K, pack.N // pack.g), dtype=torch.bool,
+                           device=m.device)
+        cols = torch.arange(pack.N // pack.g, device=m.device)
+        kept[pack.src_rows(), cols.expand(pack.Kc, -1)] = True
+        if not torch.equal(kept, m[:, ::pack.g] != 0):
+            raise AssertionError("a pack keeps other positions than its "
+                                 "mask")
+        n += 1
+    return n
+
+
+def heldout_prompts(cfg) -> list:
+    """16 prompts of 16-128 tokens from batches no stage trains on."""
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.examples import train_sparse_lm as ex
+    rows = make_batch(cfg, DataConfig(seed=SEED, global_batch=16,
+                                      seq_len=128),
+                      ex.HELDOUT_START + 1000, "cpu")["tokens"].numpy()
+    lens = np.random.default_rng(SEED).integers(16, 129, size=16)
+    return [rows[i, :n].astype(np.int32) for i, n in enumerate(lens)]
+
+
+def transition_share(cfg, prompts, outs) -> float:
+    """Share of generated tokens that follow the stream's deterministic
+    transition from the token before them."""
+    from repro_torch.data import transition
+    hit = total = 0
+    for p, o in zip(prompts, outs):
+        prev = [int(p[-1])] + list(o[:-1])
+        hit += sum(int(transition(a, cfg.vocab_size)) == b
+                   for a, b in zip(prev, o))
+        total += len(o)
+    return hit / total
+
+
+def nm_launches(cfg, prefills: int, steps: int) -> dict:
+    """2:4 on all seven projections, paged: nm_spmm 7 times per layer
+    and forward, flash once per layer and prefill, paged once per layer
+    and step."""
+    L = cfg.n_layers
+    return {"nm_spmm": 7 * L * (prefills + steps),
+            "flash_attention": L * prefills, "paged_attention": L * steps}
+
+
+def splits_at_near_ties(tag, params, cfg, dev, prompts, outs, base) -> int:
+    """Each request's tokens equal ``base``'s or split first at a near
+    tie of ``base``'s model (``near_tie``, read by replaying ``base`` one
+    sequence at a time).  Returns the requests token-equal."""
+    dtype = params["embed"].dtype
+    far, equal = [], 0
+    for i, (p, a, b) in enumerate(zip(prompts, outs, base)):
+        split = first_split(a, b)
+        if split is None:
+            equal += 1
+            continue
+        _, gaps, tops = greedy(params, cfg, p, len(b), 128, 512, device=dev,
+                               forced=b)
+        tie = near_tie(gaps[split], tops[split], dtype)
+        log(f"[{tag}] request {i}: first split at {split}, top-2 gap there "
+            f"{gaps[split]:.3e} at top logit {tops[split]:.4f}: "
+            f"{'a near tie' if tie else 'NOT a tie'}")
+        if not tie:
+            far.append(i)
+    if far:
+        raise AssertionError(f"{tag}: requests {far} split away from a near "
+                             "tie")
+    return equal
+
+
+def pack_and_serve(cfg, dense, tuned, masks, dev, counters) -> tuple:
+    """Phase 14 (c): ``pack_params`` under ``sparse()`` of the fine-tuned
+    weights, served through phase 4's Engine over held-out prompts (cold,
+    then warm).  Gates: each pack keeps exactly its mask's positions;
+    budgets and syncs (``serve_prompts``); only nm_spmm and both
+    attention kernels, as ``nm_launches`` counts; the tokens equal the
+    masked weights' served dense or split first at a near tie.  Also
+    serves the dense-trained weights and their one-shot pruned pack for
+    the transition shares.  Returns (the fine-tuned pack, the dense
+    serve's tokens, launches, report)."""
+    from repro_torch.core.sparse_linear import SparsityConfig, pack_params
+    from repro_torch.serving import Engine
+    nm = SparsityConfig(format="nm", n=2, m=4, block_n=128)   # sparse()'s
+    scfg = dataclasses.replace(cfg, mlp_sparsity=nm, attn_sparsity=nm)
+    packed = pack_params(tuned, scfg)
+    n_packs = check_packs_keep_masks(packed, masks)
+    prompts = heldout_prompts(cfg)
+    eng = Engine(scfg, spec_config(), packed, device=dev)
+    outs, rep, launches = serve_prompts(eng, prompts, counters)
+    path = {"nm_spmm", "paged_attention", "flash_attention"}
+    if any((launches[k] > 0) != (k in path) for k in counted(launches)):
+        raise AssertionError(f"train serve: the kernels of {sorted(path)} "
+                             f"must launch and no other: {launches}")
+    check_launches("train serve", launches, nm_launches(
+        scfg, rep["prefills"], rep["chunks"] * eng.scfg.decode_chunk))
+    warm_outs, warm, _ = serve_prompts(eng, prompts, counters)
+    if warm_outs != outs:
+        raise AssertionError("train serve: the warm serve's tokens differ")
+    log(f"[train serve] fine-tuned pack ({n_packs} packs keep their masks): "
+        f"{json.dumps(rep)}")
+    masked_dense = serve_prompts(Engine(cfg, spec_config(), tuned,
+                                        device=dev), prompts, counters)[0]
+    equal = splits_at_near_ties("train serve", tuned, cfg, dev, prompts,
+                                outs, masked_dense)
+    dense_outs = serve_prompts(Engine(cfg, spec_config(), dense, device=dev),
+                               prompts, counters)[0]
+    oneshot = serve_prompts(Engine(scfg, spec_config(),
+                                   pack_params(dense, scfg), device=dev),
+                            prompts, counters)[0]
+    shares = {what: transition_share(cfg, prompts, o) for what, o in
+              (("dense", dense_outs), ("one-shot pruned pack", oneshot),
+               ("fine-tuned pack", outs))}
+    out = {"warm_decode_ms_per_step": warm["decode_ms_per_step"],
+           "warm_tok_per_s": warm["tok_per_s"],
+           "equal_to_masked_dense": equal, "transition_share": shares}
+    log(f"[train serve] warm {warm['decode_ms_per_step']:.3f} ms/step, "
+        f"{warm['tok_per_s']:.2f} tok/s; {equal}/{len(prompts)} requests "
+        f"token-equal to the masked weights served dense; share of "
+        "generated tokens that follow the stream's transition: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    return packed, dense_outs, launches, out
+
+
+def trained_speculation(cfg, dense, packed, base, dev, counters,
+                        random_acceptance: float) -> tuple:
+    """Phase 14 (d): the dense-trained weights verify ``SPEC_K`` tokens
+    drafted by the fine-tuned pack (``draft_params``).  Gates: budgets
+    and syncs; one verify block per layer and step; nm_spmm 7 times per
+    layer and draft step; the tokens equal the plain loop's (``base``)
+    or split first at a near tie.  Printed beside ``random_acceptance``,
+    phase 8's pack draft on random weights in this run."""
+    from repro_torch.serving import Engine
+    prompts = heldout_prompts(cfg)
+    eng = Engine(cfg, spec_config(spec_k=SPEC_K), dense,
+                 draft_params=packed, device=dev)
+    outs, rep, launches = serve_prompts(eng, prompts, counters)
+    steps = rep["chunks"] * eng.scfg.decode_chunk
+    L = cfg.n_layers
+    if launches["paged_attention Q>1"] != L * steps or \
+            launches["nm_spmm"] != 7 * L * steps * SPEC_K:
+        raise AssertionError(f"train spec: {launches} for {steps} steps of "
+                             f"{L} layers")
+    equal = splits_at_near_ties("train spec", dense, cfg, dev, prompts, outs,
+                                base)
+    out = {"acceptance": rep["acceptance_rate"],
+           "tokens_per_chunk": rep["tokens_per_chunk"],
+           "random_weights_acceptance": random_acceptance,
+           "equal_to_plain": equal, "decode_ms_per_step":
+           rep["decode_ms_per_step"], "tok_per_s": rep["tok_per_s"]}
+    log(f"[train spec] {json.dumps(rep)}")
+    log(f"[train spec] trained weights, fine-tuned pack draft, k = {SPEC_K}:"
+        f" acceptance {rep['acceptance_rate']:.4f} ({rep['accepted']} of "
+        f"{rep['drafted']}), {rep['tokens_per_chunk']:.1f} tokens/chunk "
+        f"(phase 8's pack draft on random weights at {SPEC_LAYERS} layers "
+        f"accepted {random_acceptance:.4f} in this run); "
+        f"{equal}/{len(prompts)} requests equal to "
+        "the plain loop")
+    return launches, out
+
+
+def train_vs_cpu(dev, counters) -> None:
+    """Phase 14 (e): each family's reduced config in fp32 (TF32 off):
+    ``model_loss`` and every gradient leaf on the card against the CPU
+    path, then one ``build_train_step`` step with Adam at ``STEP_EPS``
+    (loss, grad norm, first moments and every param); the six kernels'
+    launch counters read 0 across it."""
+    from unittest import mock
+
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, build_train_step, \
+        init_opt_state
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import leaves
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(C._module(arch).reduced(), dtype="float32")
+        params = models.init_model(cfg, seed=SEED, device="cpu")
+        gparams = _to(params, dev)
+        d = DataConfig(seed=SEED, global_batch=2, seq_len=24)
+        cb, gb = make_batch(cfg, d, 0, "cpu"), make_batch(cfg, d, 0, dev)
+
+        def loss_fn(p, b):
+            return models.model_loss(p, cfg, b)
+
+        before = launch_counts(counters)
+        lc, g_cpu = value_and_grad(loss_fn, params, cb)
+        lg, g_card = value_and_grad(loss_fn, gparams, gb)
+        tcfg = TrainConfig(steps=3, lr=1e-3)
+        with mock.patch.object(trainer_mod, "AdamWConfig", functools.partial(
+                AdamWConfig, eps=STEP_EPS)):
+            step = build_train_step(cfg, tcfg)
+        pc, oc, mc = step(params, init_opt_state(params, tcfg), cb)
+        pg, og, mg = step(gparams, init_opt_state(gparams, tcfg), gb)
+        torch.cuda.synchronize()
+        no_kernel_launched(f"train fidelity {arch}", counters, before)
+        errs = []
+        if abs(float(lg) - float(lc)) > LOSS_RTOL * abs(float(lc)):
+            raise AssertionError(f"{arch}: loss {float(lg)} vs {float(lc)}")
+        for a, b in zip(leaves(g_card), leaves(g_cpu)):
+            err = float((a.cpu() - b).abs().max())
+            errs.append(err / max(float(b.abs().max()), 1e-30))
+            if err > GRAD_RTOL * float(b.abs().max()) + 1e-8:
+                raise AssertionError(f"{arch}: a gradient leaf is {err:.3e} "
+                                     "off the CPU's")
+        for k in ("loss", "grad_norm"):
+            if abs(float(mg[k]) - float(mc[k])) > \
+                    LOSS_RTOL * abs(float(mc[k])):
+                raise AssertionError(f"{arch}: step {k} {float(mg[k])} vs "
+                                     f"{float(mc[k])}")
+        for a, b in zip(leaves(og["mu"]), leaves(oc["mu"])):
+            if float((a.cpu() - b).abs().max()) > \
+                    GRAD_RTOL * float(b.abs().max()) + 1e-12:
+                raise AssertionError(f"{arch}: a first moment is off the "
+                                     "CPU's")
+        worst = 0.0
+        for a, b, g, h in zip(leaves(pg), leaves(pc), leaves(g_cpu),
+                              leaves(g_card)):
+            diff = (a.cpu() - b).abs()
+            off = diff > STEP_RTOL * float(b.abs().max()) + STEP_ATOL
+            if bool(off.any()):
+                raise AssertionError(
+                    f"{arch}: {int(off.sum())} params after the step are "
+                    f"off the CPU's by up to {float(diff.max()):.3e}, their "
+                    f"gradients {g[off][:4].tolist()} on the CPU, "
+                    f"{h.cpu()[off][:4].tolist()} on the card")
+            worst = max(worst, float(diff.max()))
+        log(f"[train fidelity {arch}] fp32 card vs CPU: loss {float(lg):.6f} "
+            f"vs {float(lc):.6f}, worst gradient leaf {max(errs):.3e} of its "
+            f"largest entry ({len(errs)} leaves); one step (Adam eps "
+            f"{STEP_EPS}): loss, grad norm and first moments within "
+            f"tolerance, every param within {STEP_RTOL} of its leaf's "
+            f"largest + {STEP_ATOL} (worst {worst:.3e}); no kernel launched")
+
+
+def training(dev, counters, random_acceptance: float) -> tuple:
+    """Phase 14: (a)-(d) on qwen3-0.6b at full width and depth (bf16,
+    seeded random init), then (e); ``random_acceptance`` is phase 8's
+    pack draft's.  Returns (serve launches, report)."""
+    import gc
+
+    from repro_torch.configs import qwen3_0_6b
+    cfg = qwen3_0_6b.config()
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"vocab {cfg.vocab_size} {cfg.dtype}, remat={cfg.remat}; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}; dense {DENSE_STEPS} steps, fine-tune "
+        f"{FT_STEPS}")
+    report = {}
+    dense, report["dense"] = dense_training(cfg, dev, counters)
+    masks, tuned, report["finetune"] = prune_finetune(cfg, dense, dev,
+                                                      counters)
+    packed, base, launches, report["serve"] = pack_and_serve(
+        cfg, dense, tuned, masks, dev, counters)
+    got, report["spec"] = trained_speculation(cfg, dense, packed, base, dev,
+                                              counters, random_acceptance)
+    for k in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[k] += got[k]
+    del dense, tuned, packed, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_vs_cpu(dev, counters)
+    return launches, report
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -3099,8 +3637,9 @@ def main() -> int:
     timed("7 prefix sharing", t0)
 
     t0 = time.perf_counter()
-    got = speculation(dataclasses.replace(cfg, n_layers=SPEC_LAYERS,
-                                          layer_kinds=()), dev, counters)
+    got, spec_acceptance = speculation(
+        dataclasses.replace(cfg, n_layers=SPEC_LAYERS, layer_kinds=()), dev,
+        counters)
     for name in ("nm_spmm", "paged_attention", "flash_attention"):
         launches[name] += got[name]
     spec_vs_cpu(small, dev, counters)
@@ -3157,6 +3696,12 @@ def main() -> int:
             launches[name] += got[name]
     timed("13 gemma2-27b and gemma3-1b", t0)
 
+    t0 = time.perf_counter()
+    got, train = training(dev, counters, spec_acceptance["pack"])
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    timed("14 training", t0)
+
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -3164,6 +3709,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for r in rows]
     log(f"[phase] seconds {json.dumps(seconds)}")
+    log(json.dumps({"train": train}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ stacks them ``(L, E, …)``) keep their expert axis as a dense ``(E, K, N)``
 tensor, or become a list of ``E`` packs — the forms
 ``core.sparse_linear.pack_params`` gives; ``router`` stays fp32.
 gemma's post-norms (``ln_attn_post``, ``ln_mlp_post``) are per-layer
-leaves like the other norms and carry over as they are.
+leaves like the other norms and carry over as they are.  A ``None`` leaf
+(a mask tree's dense entry) stays ``None``; an optimizer state
+(``{"mu", "nu", "step"}``, plus ``"ef"`` under compressed grads)
+converts each moment tree as a param tree and keeps the step counter as
+an int32 tensor on the host, where the port's AdamW keeps it.
 
 :func:`cnn_params_from_numpy` does the same for the TinyML CNNs of
 ``models/cnn.py``: conv kernels go from HWIO to the port's OIHW, every
@@ -65,6 +69,8 @@ def _convert(node: Any, device, index: tuple = (), moe: bool = False
     """Convert a subtree, taking ``a[index]`` of every array (``index``
     names a layer of a layer stack, and an expert of an expert stack);
     under an ``moe`` dict, an expert pack stack becomes a list of packs."""
+    if node is None:
+        return None
     cls = _pack_class(node)
     if cls is not None:
         return cls(**{k: int(v) if isinstance(v, (int, np.integer)) else
@@ -83,24 +89,32 @@ def _convert(node: Any, device, index: tuple = (), moe: bool = False
     return _tensor(np.asarray(node)[index], device)
 
 
-def _lead(node: Any) -> tuple:
+def _lead(node: Any) -> Optional[tuple]:
     """Shape of the first array in a subtree (a pack's ``values`` or
-    ``enc``)."""
+    ``enc``), ``None`` for a subtree of ``None`` leaves only."""
+    if node is None:
+        return None
     cls = _pack_class(node)
     if cls is not None:
         return np.asarray(node["enc" if "enc" in node else "values"]).shape
     if isinstance(node, dict):
-        return _lead(next(iter(node.values())))
+        return next((s for s in map(_lead, node.values()) if s is not None),
+                    None)
     return np.asarray(node).shape
 
 
 def params_from_numpy(tree: dict, device="cuda") -> dict:
-    """The port's params from a numpy-flattened JAX param tree."""
+    """The port's params from a numpy-flattened JAX param tree (or mask
+    tree, or optimizer state: see the module docstring)."""
     from repro_torch.kernels.dispatch import resolve_device
     device = resolve_device(device)
+    if {"mu", "nu"} <= set(tree):
+        return {k: torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+                if k == "step" else params_from_numpy(v, device)
+                for k, v in tree.items()}
     out = {}
     for k, v in tree.items():
-        if k in STACKS:
+        if k in STACKS and v is not None:
             out[k] = [_convert(v, device, (l,)) for l in range(_lead(v)[0])]
         else:
             out[k] = _convert(v, device)

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("nm_spmm", "paged_attention", "flash_attention", "bsr_matmul",
@@ -95,6 +97,17 @@ def check(err: int, what: str) -> None:
     """Raise when a launcher returned a non-zero ``cudaGetLastError``."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would track any of ``tensors``: the kernels have
+    no backward, and a launch through ``ctypes`` would silently cut the
+    graph (the grads would come back as zero).  Training runs the plain
+    cache-less route, which reaches no kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and the kernel "
+                           "has no backward (train through the cache-less "
+                           "forward)")
 
 
 def smem_bytes(name: str, symbol: str, *args: int) -> int:

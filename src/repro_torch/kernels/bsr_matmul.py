@@ -133,6 +133,7 @@ def bsr_matmul(x: torch.Tensor, pack: BlockSparsePack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
     global launches
+    _build.refuse_grad("bsr_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.bsr_matmul_ref(x, pack)
     if x.device.type != "cuda":

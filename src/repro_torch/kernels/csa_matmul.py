@@ -65,6 +65,7 @@ def csa_matmul(x: torch.Tensor, pack: CombinedPack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
     global launches
+    _build.refuse_grad("csa_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.csa_matmul_ref(x, pack)
     if x.device.type != "cuda":

@@ -64,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Rows with no key in reach give zeros on the card."""
     global launches, suffix_launches, mma_launches, noncausal_launches, \
         window_launches
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)

@@ -74,6 +74,7 @@ def lookahead_matmul(x: torch.Tensor, pack: LookaheadPack) -> torch.Tensor:
     """``x (M, K) @ decode(pack) (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
     global launches
+    _build.refuse_grad("lookahead_matmul", x, pack.scale)
     if x.device.type == "cpu":
         return ref.lookahead_matmul_ref(x, pack)
     if x.device.type != "cuda":

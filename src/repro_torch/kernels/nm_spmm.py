@@ -77,6 +77,7 @@ def nm_spmm(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
     global launches
+    _build.refuse_grad("nm_spmm", x, pack.values)
     if x.device.type == "cpu":
         return ref.nm_spmm_ref(x, pack)
     if x.device.type != "cuda":

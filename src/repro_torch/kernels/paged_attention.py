@@ -102,6 +102,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     (:func:`plan`).
     """
     global launches, block_launches, mma_launches, window_launches
+    _build.refuse_grad("paged_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale,
                                        window=window, softcap=softcap)

@@ -24,6 +24,12 @@ nested caches as the JAX ones do, and the recurrent-state helpers of
 speculative rollback (``recurrent_state``, ``set_recurrent_state``,
 ``select_recurrent``, ``where_slot``).  Caches are updated in place; the
 helpers return the cache for call-site parity with the JAX API.
+
+Training speaks :func:`model_loss` and :func:`model_logits` over the
+batches of ``data.pipeline`` (``{"tokens", "labels"}``, ``{"embeds",
+"labels"}`` or ``{"src", "tokens", "labels"}``): the cache-less forward
+of each family, whose attention is plain PyTorch on every device, so
+autograd differentiates it and no kernel runs.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from repro_torch.models import moe as MOE
 Params = Dict[str, Any]
 
 __all__ = ["LayerKind", "ModelConfig", "family", "expert_rows", "init_model",
-           "init_cache", "prefill", "decode_step", "decode_block",
+           "model_loss", "model_logits", "init_cache", "prefill", "decode_step", "decode_block",
            "blank_slot_cache", "merge_cache_slot", "copy_page",
            "set_page_table", "page_view", "unpage_view", "paged_max_pages",
            "recurrent_state", "set_recurrent_state", "select_recurrent",
@@ -95,6 +101,33 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if family(cfg) == "hybrid":
         return HY.init_hybrid_lm(cfg, gen, device, packed=packed)
     return TR.init_lm(cfg, gen, device, packed=packed)
+
+
+def model_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor],
+               aux_weight: float = 0.01) -> torch.Tensor:
+    """The family's mean next-token cross-entropy on ``batch`` (the lm
+    family's plus ``aux_weight`` times its MoE load-balancing term)."""
+    f = family(cfg)
+    if f == "encdec":
+        return ED.encdec_loss(params, cfg, batch["src"], batch["tokens"],
+                              batch["labels"])
+    if f == "hybrid":
+        return HY.hybrid_loss(params, cfg, batch["tokens"], batch["labels"])
+    return TR.lm_loss(params, cfg, batch.get("embeds", batch.get("tokens")),
+                      batch["labels"], aux_weight)
+
+
+def model_logits(params: Params, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The family's cache-less fp32 logits ``(B, L, vocab_padded)``."""
+    f = family(cfg)
+    if f == "encdec":
+        return ED.encdec_apply(params, cfg, batch["src"], batch["tokens"])
+    if f == "hybrid":
+        return HY.hybrid_apply(params, cfg, batch["tokens"])[0]
+    return TR.lm_apply(params, cfg, batch.get("embeds",
+                                              batch.get("tokens")))[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -39,7 +39,11 @@ Which kernel runs where:
   * :func:`cross_attention` over a source's cached keys and values calls
     the flash kernel non-causal for a prompt's rows, and is plain
     unmasked fp32 attention at decode (as the JAX ``_sdpa`` over the
-    cross cache).
+    cross cache);
+  * without a cache (``cache=None``: training and the teacher-forced
+    forward) :func:`attention` is the JAX ``_sdpa`` in plain fp32 on any
+    device, causal or not, over ``x`` or over a ``cross_src``: no kernel
+    runs, since the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -107,15 +111,19 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                 sparsity: SparsityConfig):
-    """x (B, L, d) → q (B, L, H, D), k/v (B, L, Hk, D)."""
+                 sparsity: SparsityConfig,
+                 kv_src: Optional[torch.Tensor] = None):
+    """x (B, L, d) → q (B, L, H, D), k/v (B, Lk, Hk, D) from ``kv_src``
+    (default ``x``)."""
     B, Lq, _ = x.shape
+    src = x if kv_src is None else kv_src
+    Lk = src.shape[1]
     q = apply_linear(x, params["wq"], sparsity)
-    k = apply_linear(x, params["wk"], sparsity)
-    v = apply_linear(x, params["wv"], sparsity)
+    k = apply_linear(src, params["wk"], sparsity)
+    v = apply_linear(src, params["wv"], sparsity)
     q = q.reshape(B, Lq, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, Lq, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, Lq, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(B, Lk, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Lk, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -148,6 +156,78 @@ def _sdpa_cache(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             mask &= kpos > qpos[..., None] - window
         logits = torch.where(mask[:, None, None], logits, NEG_INF)
     out = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(logits, -1), vh)
+    return out.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
+
+
+#: chunk sizes of :func:`_sdpa`'s online-softmax route (the JAX
+#: ``_KV_CHUNK``/``_Q_CHUNK``): keys longer than ``KV_CHUNK`` that it
+#: divides are walked in chunks, so the logits are never whole
+KV_CHUNK = 2048
+Q_CHUNK = 2048
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """``(Lq, Lk)`` reachability of keys at ``kpos`` from queries at
+    ``qpos``."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos[:, None]
+    if window is not None:
+        mask &= kpos > qpos[:, None] - window
+    return mask
+
+
+def _sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+          v: torch.Tensor, *, causal: bool, window: Optional[int]
+          ) -> torch.Tensor:
+    """The cache-less attention of the JAX ``_sdpa`` in plain fp32:
+    ``q (B, Lq, H, D)`` over ``k/v (B, Lk, Hk, D)`` → ``(B, Lq, H, D)`` in
+    ``q``'s dtype, queries at positions ``Lk - Lq + [0, Lq)``.  Whole
+    logits (:func:`_sdpa_cache` over all ``Lk`` keys) unless ``Lk >
+    KV_CHUNK`` divides by it: then the keys are walked in chunks with an
+    online softmax (queries in ``Q_CHUNK`` blocks where that divides), as
+    JAX walks them."""
+    if window is not None and not causal:
+        raise ValueError("a sliding window is causal here: no layer of the "
+                         "port attends bidirectionally within a window")
+    B, Lq, H, D = q.shape
+    Lk, Hk = k.shape[1], k.shape[2]
+    if Lk <= KV_CHUNK or Lk % KV_CHUNK:
+        kv_len = torch.full((B,), Lk, device=q.device) if causal else None
+        return _sdpa_cache(cfg, q, k, v, kv_len, window)
+    g = H // Hk
+    dev = q.device
+    qh = q.transpose(1, 2).reshape(B, Hk, g, Lq, D).float()
+    kh = k.transpose(1, 2).float()                       # (B, Hk, Lk, D)
+    vh = v.transpose(1, 2).float()
+    qpos = torch.arange(Lq, device=dev) + (Lk - Lq)
+    qc = Lq if (Lq <= Q_CHUNK or Lq % Q_CHUNK) else Q_CHUNK
+    blocks = []
+    for q0 in range(0, Lq, qc):
+        qb = qh[..., q0:q0 + qc, :]
+        m_run = torch.full((B, Hk, g, qc, 1), NEG_INF, device=dev)
+        l_run = torch.zeros((B, Hk, g, qc, 1), device=dev)
+        acc = torch.zeros((B, Hk, g, qc, D), device=dev)
+        for k0 in range(0, Lk, KV_CHUNK):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
+                             kh[:, :, k0:k0 + KV_CHUNK]) * D ** -0.5
+            if cfg.attn_softcap is not None:
+                s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
+            mask = _mask(qpos[q0:q0 + qc],
+                         torch.arange(k0, k0 + KV_CHUNK, device=dev),
+                         causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vh[:, :, k0:k0 + KV_CHUNK])
+            m_run = m_new
+        blocks.append(acc / torch.where(l_run == 0.0, 1.0, l_run))
+    out = torch.cat(blocks, dim=3)
     return out.reshape(B, H, Lq, D).transpose(1, 2).to(q.dtype)
 
 
@@ -243,10 +323,12 @@ def _last_writers(rows: torch.Tensor, *vals: torch.Tensor):
 
 
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, cache: Params, cache_pos, *,
-              is_local: bool = False,
+              positions: torch.Tensor, cache: Optional[Params] = None,
+              cache_pos=None, *, is_local: bool = False,
+              cross_src: Optional[torch.Tensor] = None,
+              causal: Optional[bool] = None,
               sparsity: SparsityConfig = DENSE
-              ) -> Tuple[torch.Tensor, Params]:
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Project → rope → cache write → attention → out projection.
 
     ``cache_pos`` is a host int for prefill (the prompt fills rows
@@ -256,8 +338,16 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     ``[pos, pos + L)``, causal within the block.  ``cache`` is this
     layer's monolithic or paged cache (the paged one detected by its
     ``ptab``); it is written in place and returned.
+
+    ``cache=None`` is the training route, the JAX ``attention`` without
+    a cache: plain fp32 :func:`_sdpa` over ``x``'s own keys (``causal``,
+    default true) or, with ``cross_src``, over the encoder output's (no
+    rope, no mask); returns ``(out, None)``.
     """
     window = cfg.window_size if is_local else None
+    if cache is None:
+        return _attention_plain(params, cfg, x, positions, window,
+                                cross_src, causal, sparsity), None
     q, k, v = _project_qkv(params, cfg, x, sparsity)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -317,3 +407,20 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
     out = apply_linear(out.reshape(B, Lq, cfg.q_dim), params["wo"], sparsity)
     return out, cache
+
+
+def _attention_plain(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, window: Optional[int],
+                     cross_src: Optional[torch.Tensor],
+                     causal: Optional[bool], sparsity: SparsityConfig
+                     ) -> torch.Tensor:
+    """:func:`attention` without a cache (see there)."""
+    if causal is None:
+        causal = cross_src is None
+    q, k, v = _project_qkv(params, cfg, x, sparsity, kv_src=cross_src)
+    if cross_src is None:
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    out = _sdpa(cfg, q, k, v, causal=causal, window=window)
+    B, Lq = x.shape[:2]
+    return apply_linear(out.reshape(B, Lq, cfg.q_dim), params["wo"], sparsity)

@@ -137,6 +137,39 @@ class ModelConfig:
         return any(k in (LayerKind.MAMBA, LayerKind.SHARED_ATTN)
                    for k in self.layer_kinds)
 
+    def param_count(self) -> int:
+        """Approximate parameter count N of the matrices (for 6·N·D
+        training FLOPs), the JAX config's: the embedding table (once when
+        tied: it is also the head), attention, MLP or experts and router,
+        mamba projections and conv, the shared block once, the enc-dec
+        encoder and cross-attention; norms and biases left out."""
+        d, V = self.d_model, self.vocab_size
+        n = V * d
+        if not self.tie_embeddings:
+            n += V * d
+        per_attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        per_mlp = d * self.d_ff * (3 if self.mlp_gated else 2)
+        per_expert = d * self.d_expert * (3 if self.mlp_gated else 2)
+        per_moe = self.n_experts * per_expert + d * self.n_experts \
+            + self.n_shared_experts * per_expert
+        if self.uses_mamba:
+            di, N, H = self.d_inner, self.ssm_state, self.n_ssm_heads
+            G = self.ssm_groups
+            per_mamba = d * (2 * di + 2 * G * N + H) + di * d \
+                + self.ssm_conv * (di + 2 * G * N)
+        kinds = [LayerKind(k) for k in self.layer_kinds]
+        for k in kinds:
+            if k in (LayerKind.ATTN_GLOBAL, LayerKind.ATTN_LOCAL):
+                n += per_attn + (per_moe if self.n_experts else per_mlp)
+            else:                      # MAMBA, SHARED_ATTN: the mixer
+                n += per_mamba
+        if LayerKind.SHARED_ATTN in kinds:
+            n += per_attn + per_mlp
+        if self.is_encoder_decoder:
+            n += self.n_encoder_layers * (per_attn + per_mlp)
+            n += self.n_layers * per_attn          # cross-attention
+        return n
+
 
 def interleave_kinds(n_layers: int, local: int, global_: int,
                      window_first: bool = True) -> Tuple[int, ...]:

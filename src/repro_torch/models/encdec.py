@@ -26,6 +26,13 @@ the flash kernel, non-causal; the prompt's self-attention on it causal;
 decode self-attention on the paged kernel (paged layout); decode
 cross-attention is plain fp32 attention over the cross cache, as the JAX
 ``_sdpa`` computes it (a kernel route for it is ROADMAP queue 2).
+
+Training is the teacher-forced forward without a cache
+(:func:`encdec_apply`, :func:`encdec_loss`): ``encode(kernel=False)``
+and :func:`decode_hidden` run every attention on the plain route
+(self-attention causal, cross-attention over the encoder output, the
+encoder bidirectional) and, under ``cfg.remat``, recompute each layer in
+the backward, as the JAX package checkpoints its scanned bodies.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from repro_torch.models.attention import (attention,
                                           cross_attention, init_attention,
                                           init_kv_cache, init_paged_kv_cache)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import chunked_ce
 
 Params = Dict[str, Any]
 
@@ -101,21 +109,81 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                                    device=device)}
 
 
-def encode(params: Params, cfg: ModelConfig, src: torch.Tensor
-           ) -> torch.Tensor:
+def _enc_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, kernel: bool) -> torch.Tensor:
+    h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+    if kernel:
+        x = x + bidirectional_attention(p["attn"], cfg, h, positions,
+                                        sparsity=cfg.attn_sparsity)
+    else:
+        x = x + attention(p["attn"], cfg, h, positions, causal=False,
+                          sparsity=cfg.attn_sparsity)[0]
+    h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity,
+                     gated=cfg.mlp_gated)
+
+
+def encode(params: Params, cfg: ModelConfig, src: torch.Tensor,
+           kernel: bool = True) -> torch.Tensor:
     """``src (B, L_src, d_model)`` frame embeddings → the encoder output
-    (rope at positions ``0..L_src-1``, bidirectional attention)."""
+    (rope at positions ``0..L_src-1``, bidirectional attention): on the
+    flash kernel (``kernel``, serving), or on the plain route with
+    ``cfg.remat`` recomputing each layer (training)."""
     B, Ls = src.shape[:2]
     positions = torch.arange(Ls, device=src.device)[None].expand(B, Ls)
     x = src.to(L.DTYPES[cfg.dtype])
     for p in params["encoder"]:
-        h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-        x = x + bidirectional_attention(p["attn"], cfg, h, positions,
-                                        sparsity=cfg.attn_sparsity)
-        h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity,
-                      gated=cfg.mlp_gated)
+        x = L.maybe_remat(cfg.remat and not kernel, _enc_layer, p, cfg, x,
+                          positions, kernel)
     return L.rmsnorm(params["ln_enc_final"], x, cfg.norm_eps)
+
+
+def _dec_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, enc_out: torch.Tensor
+               ) -> torch.Tensor:
+    h = L.rmsnorm(p["ln_self"], x, cfg.norm_eps)
+    x = x + attention(p["self_attn"], cfg, h, positions,
+                      sparsity=cfg.attn_sparsity)[0]
+    h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+    x = x + attention(p["cross_attn"], cfg, h, positions, cross_src=enc_out,
+                      sparsity=cfg.attn_sparsity)[0]
+    h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, sparsity=cfg.mlp_sparsity,
+                     gated=cfg.mlp_gated)
+
+
+def decode_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  enc_out: torch.Tensor) -> torch.Tensor:
+    """The teacher-forced decoder trunk (no cache; cross K/V computed in
+    each layer) → final normed hidden states ``(B, T, d)``."""
+    B, T = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg.embed_scale)
+    positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
+    for p in params["decoder"]:
+        x = L.maybe_remat(cfg.remat, _dec_layer, p, cfg, x, positions,
+                          enc_out)
+    return L.rmsnorm(params["ln_dec_final"], x, cfg.norm_eps)
+
+
+def decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 enc_out: torch.Tensor) -> torch.Tensor:
+    return L.unembed(params["embed"], decode_hidden(params, cfg, tokens,
+                                                    enc_out),
+                     cfg.final_softcap)
+
+
+def encdec_apply(params: Params, cfg: ModelConfig, src: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward: (frames, target tokens) → fp32 logits."""
+    return decode_train(params, cfg, tokens,
+                        encode(params, cfg, src, kernel=False))
+
+
+def encdec_loss(params: Params, cfg: ModelConfig, src: torch.Tensor,
+                tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    x = decode_hidden(params, cfg, tokens,
+                      encode(params, cfg, src, kernel=False))
+    return chunked_ce(x, params["embed"], labels, cfg)
 
 
 def _cross_kv(p_layer: Params, cfg: ModelConfig, enc_out: torch.Tensor

@@ -16,6 +16,12 @@ The cache is ``{"ssm": {"conv", "ssm"}, "kv": ...}``: the recurrent
 state stacked over all layers (fp32), and the shared block's KV stacked
 over the shared slots only, monolithic ``(n_shared, B, S, Hk, D)`` or
 paged; mamba2 has no ``"kv"``.  Everything is written in place.
+
+Training runs without a cache (:func:`hybrid_apply`, :func:`hybrid_loss`):
+the chunked SSD scan from a zero state in every mamba layer, the shared
+block's attention on the plain route, and under ``cfg.remat`` each mamba
+layer recomputed in the backward, as the JAX ``_scan_run`` checkpoints
+its body.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.models.attention import (attention, init_attention,
                                           init_paged_kv_cache)
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.ssm import init_mamba, init_ssm_cache, mamba_block
+from repro_torch.models.transformer import chunked_ce
 
 Params = Dict[str, Any]
 
@@ -104,21 +111,42 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
+def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    out, _ = mamba_block(p, cfg, h, sparsity=cfg.mlp_sparsity)
+    return x + out
+
+
+def _scan_run(params_run: List[Params], cfg: ModelConfig, x: torch.Tensor,
+              remat: bool) -> torch.Tensor:
+    """One contiguous run of mamba layers without a cache; ``remat``
+    recomputes each layer in the backward."""
+    for p in params_run:
+        x = L.maybe_remat(remat, _mamba_layer, p, cfg, x)
+    return x
+
+
 def hybrid_hidden(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
-                  positions: torch.Tensor, cache: Params, cache_pos,
+                  positions: Optional[torch.Tensor] = None,
+                  cache: Optional[Params] = None, cache_pos=None,
                   collect_states: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """The trunk over a serving cache: tokens ``(B, L)`` at ``positions
-    (B, L)`` → the final normed hidden states, and with
+    """The trunk: tokens ``(B, L)`` at ``positions (B, L)`` (default
+    ``arange(L)`` per row) → the final normed hidden states, and with
     ``collect_states`` the per-position recurrent snapshots stacked over
     layers, ``{"conv": (nl, B, L, K-1, c), "ssm": (nl, B, L, h, p, n)}``
     (else ``None``).  ``cache_pos`` is the attention's: a host int at
-    prefill, ``(B,)`` at decode.  (The cache-less forward of training,
-    the JAX ``hybrid_apply``/``hybrid_loss``, comes with ROADMAP queue 1
-    item 14.)"""
+    prefill, ``(B,)`` at decode.  ``cache=None`` is the training route
+    (:func:`_scan_run`, plain attention)."""
     x = L.embed(params["embed"], inputs, cfg.embed_scale)
+    if positions is None:
+        B, Lq = inputs.shape
+        positions = torch.arange(Lq, device=x.device)[None].expand(B, Lq)
     slots = shared_slots(cfg)
-    ssm, kv = cache["ssm"], cache.get("kv")
+    ssm = kv = None
+    if cache is not None:
+        ssm, kv = cache["ssm"], cache.get("kv")
     conv_seq: list = []
     ssm_seq: list = []
     for lo, hi in _runs(cfg):
@@ -127,12 +155,16 @@ def hybrid_hidden(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
             sp = params["shared"]
             h = L.rmsnorm(sp["ln_attn"], x, cfg.norm_eps)
             # every leaf of the KV is stacked over the shared slots
-            layer_kv = {name: leaf[s] for name, leaf in kv.items()}
+            layer_kv = (None if kv is None else
+                        {name: leaf[s] for name, leaf in kv.items()})
             attn_out, _ = attention(sp["attn"], cfg, h, positions, layer_kv,
                                     cache_pos, sparsity=cfg.attn_sparsity)
             x = x + attn_out
             h = L.rmsnorm(sp["ln_mlp"], x, cfg.norm_eps)
             x = x + L.mlp(sp["mlp"], h, sparsity=cfg.mlp_sparsity)
+        if cache is None:
+            x = _scan_run(params["mamba"][lo:hi], cfg, x, cfg.remat)
+            continue
         for l in range(lo, hi):
             p = params["mamba"][l]
             h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
@@ -147,6 +179,27 @@ def hybrid_hidden(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
     snaps = ({"conv": torch.stack(conv_seq), "ssm": torch.stack(ssm_seq)}
              if collect_states else None)
     return L.rmsnorm(params["ln_final"], x, cfg.norm_eps), snaps
+
+
+def hybrid_apply(params: Params, cfg: ModelConfig, inputs: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 last_only: bool = False
+                 ) -> Tuple[torch.Tensor, None, torch.Tensor]:
+    """Cache-less forward → (fp32 logits ``(B, L|1, vocab_padded)``,
+    ``None`` (no cache), a zero aux), the contract of ``lm_apply``."""
+    x, _ = hybrid_hidden(params, cfg, inputs, positions)
+    if last_only:
+        x = x[:, -1:]
+    return (L.unembed(_head(params), x, cfg.final_softcap), None,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def hybrid_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE through the vocab-chunked logsumexp
+    (``transformer.chunked_ce``)."""
+    x, _ = hybrid_hidden(params, cfg, tokens)
+    return chunked_ce(x, _head(params), labels, cfg)
 
 
 def _head(params: Params) -> torch.Tensor:

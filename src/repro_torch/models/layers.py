@@ -1,5 +1,5 @@
-"""Shared building blocks: rmsnorm, rotary embeddings, embed/unembed and
-the MLP, gated or plain.
+"""Shared building blocks: rmsnorm, layernorm, rotary embeddings,
+embed/unembed and the MLP, gated or plain.
 
 Cast points follow the JAX package: rmsnorm and rope compute in fp32 and
 cast back to the input dtype; silu and gelu run in fp32.  Every projection goes
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sparse_linear import (DENSE, SparsityConfig,
                                             apply_linear, init_linear)
@@ -21,6 +22,12 @@ Params = Dict[str, Any]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
+
+
+def maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``remat`` (the JAX
+    package's ``jax.checkpoint`` of a layer body)."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
 def init_rmsnorm(d: int, device) -> Params:
@@ -34,6 +41,23 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + params["scale"].float())).to(dt)
+
+
+def init_layernorm(d: int, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-6
+              ) -> torch.Tensor:
+    """Layer norm in fp32 (biased variance), cast back to ``x``'s
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(dt)
 
 
 def init_embedding(vocab_padded: int, d: int, dtype: torch.dtype,

@@ -1153,3 +1153,104 @@ def test_encdec_graph_serve_equals_eager(cuda, page_size):
     assert want[2][paged_mod.__name__] == \
         (cfg.n_layers * steps if page_size else 0)
     assert all(len(t) == 24 for t in want[0])
+
+
+# --- training on the card (the cache-less route: no kernel, no backward) ---
+
+TRAIN_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b", "zamba2-1.2b",
+               "seamless-m4t-large-v2", "gemma2-27b")
+KERNEL_MODS = (nm_mod, paged_mod, flash_mod, csa_mod, bsr_mod, lookahead_mod)
+
+
+def _fp32_reduced(arch):
+    import dataclasses
+    from repro_torch import configs as C
+    return dataclasses.replace(C._module(arch).reduced(), dtype="float32")
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def test_make_batch_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.data import DataConfig, make_batch
+    for arch in ("qwen3-0.6b", "seamless-m4t-large-v2", "qwen2-vl-72b"):
+        cfg = _fp32_reduced(arch)
+        d = DataConfig(global_batch=4, seq_len=32)
+        a, b = make_batch(cfg, d, 11, "cpu"), make_batch(cfg, d, 11, cuda)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert b[k].device.type == "cuda" and torch.equal(a[k],
+                                                              b[k].cpu())
+
+
+#: Adam's epsilon in the step comparison, as in tests/test_torch_train.py:
+#: at 1e-8 the first step moves an entry by lr·g/(|g| + 1e-8), about ±lr
+#: whatever |g|, so an entry whose gradient is float32 noise moves either
+#: way; at 1e-3 the step's gain is at most 1e3 and the comparison holds
+STEP_EPS = 1e-3
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch, monkeypatch):
+    """Loss and every gradient leaf of a reduced config in fp32 (TF32
+    off) on the card against the CPU path, then one train step (Adam at
+    ``STEP_EPS``); none of the six kernels launches."""
+    import functools
+
+    from repro_torch import models
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, build_train_step, \
+        init_opt_state
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = _fp32_reduced(arch)
+    params = models.init_model(cfg, seed=0, device="cpu")
+    d = DataConfig(global_batch=2, seq_len=24)
+    batch = make_batch(cfg, d, 0, "cpu")
+
+    def loss_fn(p, b):
+        return models.model_loss(p, cfg, b)
+
+    before = [m.launches for m in KERNEL_MODS]
+    l_cpu, g_cpu = value_and_grad(loss_fn, params, batch)
+    l_gpu, g_gpu = value_and_grad(loss_fn, _to(params, cuda),
+                                  make_batch(cfg, d, 0, cuda))
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-5, atol=0)
+    for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-8)
+    tcfg = TrainConfig(steps=3, lr=1e-3)
+    monkeypatch.setattr(trainer_mod, "AdamWConfig",
+                        functools.partial(AdamWConfig, eps=STEP_EPS))
+    step = build_train_step(cfg, tcfg)
+    p_cpu, o_cpu, m_cpu = step(params, init_opt_state(params, tcfg), batch)
+    gp = _to(params, cuda)
+    p_gpu, o_gpu, m_gpu = step(gp, init_opt_state(gp, tcfg),
+                               make_batch(cfg, d, 0, cuda))
+    torch.cuda.synchronize()
+    assert [m.launches for m in KERNEL_MODS] == before
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-5,
+                                   atol=0)
+    for a, b in zip(leaves(o_gpu["mu"]), leaves(o_cpu["mu"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-12)
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()) + 1e-6)
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    w, _ = pruning.n_m(randn(0, (1024, 1024), cuda), 2, 4, group=128)
+    pack = sparsity.pack_nm(w, 2, 4, g=128)
+    x = randn(1, (8, 1024), cuda).requires_grad_()
+    before = nm_mod.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        nm_mod.nm_spmm(x, pack)
+    assert nm_mod.launches == before
+    with torch.no_grad():
+        close(nm_mod.nm_spmm(x, pack), ref.nm_spmm_ref(x.detach(), pack))

@@ -23,7 +23,12 @@ assert {"repro_torch.configs.stablelm_12b",
         "repro_torch.models.ssm", "repro_torch.models.hybrid",
         "repro_torch.configs.seamless_m4t_large_v2",
         "repro_torch.models.encdec", "repro_torch.configs.gemma2_27b",
-        "repro_torch.configs.gemma3_1b"} <= set(names), names
+        "repro_torch.configs.gemma3_1b", "repro_torch.tree",
+        "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+        "repro_torch.optim.compression", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint.store", "repro_torch.train.trainer",
+        "repro_torch.launch.train",
+        "repro_torch.examples.train_sparse_lm"} <= set(names), names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]
