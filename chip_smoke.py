@@ -62,6 +62,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      beside SDPA under the same window mask (SDPA has no softcap), and
      flash with the window and softcap at the served prompts (gemma2:
      128 rows; gemma3: 640 rows, window 512, and without the window);
+     and at phase 15's (``check_bench_kernels``): the serving bench's
+     geometry (d_model 64, 4 heads over 2, D = 16): nm_spmm at its 2:4
+     MLP with g = 64 (K = 64 keeps 32 rows: the half stage) and
+     csa_matmul at its combined MLP (64 x 64 tiles, 32 kept rows a
+     tile), each at M = 1, 8, 16, 128, and both attention kernels at D =
+     16 on their FMA routes (flash at L = 16, 128, 512 in bf16 and fp32;
+     paged over a 36-page view at Q = 1, 3, 5 and with fp32 q), each
+     timed beside cuBLAS or SDPA and its bound;
   4. serve qwen3-0.6b at full width, 28 layers (the other formats than
      2:4 cut to ``FORMAT_LAYERS``), bf16, random weights from
      a seed, through ``Engine`` over the paged KV cache, once per pack
@@ -290,6 +298,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``STEP_EPS``) with every param compared; no kernel launches
      across any training (the training route is plain PyTorch).  The
      line before ``nvidia-smi``'s second reading is ``{"train": ...}``.
+ 15. the launchers, the serving bench, CNN training and the examples
+     (``launchers_and_cnn``): (a) ``repro_torch.launch.serve.main`` at
+     qwen3-0.6b's full width and depth (``LAUNCH_FLAGS``: 16 requests
+     on 8 slots, 128-token prompts, 64 new, 16-row pages, chunks of 16),
+     plain and with ``--spec-k 3 --spec-draft self``; gates: host syncs
+     equal the chunks served, flash once per layer and prefill, paged
+     once per layer and step (and per draft; one Q = 4 verify block per
+     layer and step), no matmul kernel (dense projections on cuBLAS);
+     then ``python -m repro_torch.launch.serve --arch qwen3-0.6b
+     --reduced --checkpoint-dir D`` in a subprocess on a checkpoint the
+     phase writes, which must print ``restored checkpoint step N`` and
+     the counts of an in-process serve of it.  (b)
+     ``benchmarks.bench_serving.run()`` under ``REPRO_BENCH_SMOKE=1``,
+     every row printed; gates: nm_spmm and csa_matmul launched on their
+     half stage and both attention kernels on their FMA routes (D = 16),
+     every row's syncs equal its chunks, the chunked and per-token
+     serves of a grid row equal in tokens.  (c) Table II
+     (``benchmarks.bench_int7.run()``: ResNet-56, MobileNetV2, DS-CNN
+     trained 250 / 200 / 250 steps of 64) and
+     ``examples.tinyml_repro``, printed as findings, not gated; then 3
+     fp32 DS-CNN steps on the card against the CPU path from one init
+     (Adam at ``STEP_EPS``), every leaf within ``STEP_RTOL`` of its
+     largest, no kernel launched.  (d) ``examples.quickstart`` (its
+     step 3 raises if a kernel disagrees with its plain version),
+     ``serve_lm`` and ``serve_stream`` on the card; gate: all six
+     kernels launched.  The line after ``{"train": ...}`` is
+     ``{"launchers": ...}``.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -452,19 +487,22 @@ def log_plans(name: str, M: int, plans) -> None:
     plan)``."""
     parts = [f"{proj} {p['route']} bm{p['bm']} bn{p['bn']} "
              f"split{p['split']} steps{p['steps_per_block']} grid{p['grid']}"
+             + (f" ks{p['ks']}" if "ks" in p else "")
              for proj, p in plans]
     log(f"[plan] {name} M={M}: " + "; ".join(parts))
 
 
 def check_nm_spmm(cfg, dev, copies: int = 4, projections=None,
-                  sweep=SWEEP_M, timed=TIMED_M, what="layer") -> dict:
+                  sweep=SWEEP_M, timed=TIMED_M, what="layer",
+                  g: int = 128) -> dict:
     """Each projection geometry of ``projections`` (default: the seven of
     one layer) at every M of ``sweep`` against the plain version; timed
     at ``timed`` per ``what`` (a layer, an expert): ``copies`` of distinct
     packs, so the weights stream from HBM as they do through the model's
     layers (one layer of stablelm-12b or qwen2-vl-72b is already
     0.28-0.88 G of weights), and each projection alone against cuBLAS
-    and its bound (a small one stays in the L2 across the replays)."""
+    and its bound (a small one stays in the L2 across the replays).  The
+    packs keep their 2:4 positions per ``g`` columns."""
     from repro_torch.core import pruning, sparsity
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import ref
@@ -476,13 +514,13 @@ def check_nm_spmm(cfg, dev, copies: int = 4, projections=None,
         for _, k, n in projections:
             w = (torch.randn((k, n), generator=gen, device=dev)
                  / k ** 0.5).to(torch.bfloat16)
-            pw, _ = pruning.n_m(w, 2, 4, group=128)
-            packs.append(sparsity.pack_nm(pw, 2, 4, g=128))
+            pw, _ = pruning.n_m(w, 2, 4, group=g)
+            packs.append(sparsity.pack_nm(pw, 2, 4, g=g))
             dense.append(pw)
     err, rows = 0.0, {}
     for M in sweep:
         log_plans(f"nm_spmm {cfg.name}", M,
-                  [(proj, K.plan(M, k, n, torch.bfloat16))
+                  [(proj, K.plan(M, k, n, torch.bfloat16, 2, 4, g))
                    for proj, k, n in projections])
         xs = {k: torch.randn((M, k), generator=gen, device=dev)
               .to(torch.bfloat16) for _, k, _ in projections}
@@ -639,9 +677,11 @@ def check_paged_attention(cfg, dev, copies: int = 12, cases=PAGED_CASES,
                 **rows[cases[0]])
 
 
-def check_flash_attention(cfg, dev) -> dict:
-    """Prefill attention of one prompt, timed at L = 128 and a ragged 200
-    in bf16 (the tensor-core route) and fp32 (the FMA route); phase 7's
+def check_flash_attention(cfg, dev, lengths=(128, 200)) -> dict:
+    """Prefill attention of one prompt, timed at each of ``lengths``
+    (default L = 128 and a ragged 200) in bf16 (the tensor-core route, or
+    the FMA route where the head dim has none) and fp32 (the FMA route);
+    phase 7's
     suffixes of a shared prefix (``SUFFIX_SHAPES``), checked and timed
     against SDPA under a lower-right causal mask; checked, not timed: a
     suffix (37 queries over 200 keys) and a window with softcap.  The
@@ -658,7 +698,7 @@ def check_flash_attention(cfg, dev) -> dict:
 
     err, rows = {torch.bfloat16: 0.0, torch.float32: 0.0}, {}
     for dtype in err:
-        for L in (128, 200):
+        for L in lengths:
             q, k, v = qkv(L, L, dtype)
             what = f"{str(dtype)[6:]} B=1 H={H} Hk={Hk} D={D} L={L}"
             log_attn_plan("flash_attention", what,
@@ -709,15 +749,16 @@ def check_flash_attention(cfg, dev) -> dict:
         err[torch.bfloat16] = max(err[torch.bfloat16], check_close(
             f"flash_attention {what}", K.flash_attention(q, k, v, **kw),
             ref.mha_ref(q.float(), k.float(), v.float(), **kw)))
+    Ls = ", ".join(map(str, lengths))
     log(f"[kernels] flash_attention H={H} Hk={Hk} D={D} max abs err "
-        f"{err[torch.bfloat16]:.3e} (bf16: L = 128, 200, phase 7's "
+        f"{err[torch.bfloat16]:.3e} (bf16: L = {Ls}, phase 7's "
         f"suffixes, window + softcap), {err[torch.float32]:.3e} (fp32: L = "
-        "128, 200) against the plain version")
+        f"{Ls}) against the plain version")
     return dict(name="flash_attention",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:97",
                 max_abs_err=err[torch.bfloat16],
-                **rows[128, torch.bfloat16])
+                **rows[lengths[0], torch.bfloat16])
 
 
 #: (queries, keys) of phase 7's suffix prefills: a 48-token suffix after
@@ -966,10 +1007,11 @@ def pack_summary(params) -> str:
 
 #: the wrappers' counts of a kind of their launches, and the tag of each
 #: in :func:`launch_counts`: verify blocks (paged Q > 1), the tensor-core
-#: route and the launches with a sliding window (both attention kernels)
+#: route and the launches with a sliding window (both attention kernels),
+#: the half-stage launches (the matmul kernels)
 SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma",
               "noncausal_launches": "non-causal",
-              "window_launches": "window"}
+              "window_launches": "window", "half_launches": "half"}
 
 
 def zero_counts(counters) -> None:
@@ -1794,9 +1836,11 @@ def spec_vs_cpu(cfg, dev, counters) -> None:
 #: eager turns are host-bound and scale with the layers.  Widths stay
 #: published; qwen2-vl-72b and dbrx-132b also could not fit the card at
 #: full depth (a dense bf16 init of qwen2-vl's 80 layers is ~141 GB,
-#: dbrx's 40 packed layers ~134 GB).
+#: dbrx's 40 packed layers ~134 GB).  Phase 15 came with stablelm cut
+#: again from 10 layers to 8 (its first whole run took 898 s, phase 9
+#: 78.7 s of it, against the script's 950 s cap).
 FORMAT_LAYERS = 14
-STABLELM_LAYERS = 10
+STABLELM_LAYERS = 8
 QWEN2_VL_LAYERS = 8
 
 
@@ -1924,8 +1968,9 @@ def family_vs_cpu(cfg, dev, counters) -> None:
 # --- phase 10: the MoE family ------------------------------------------------
 
 #: phase 10's depths (see ``FORMAT_LAYERS``): qwen2-moe's eager step is
-#: ~230 ms at 12 layers (183 nm_spmm launches a layer and step)
-QWEN2_MOE_LAYERS = 6
+#: ~230 ms at 12 layers (183 nm_spmm launches a layer and step); cut from
+#: 6 layers to 4 for phase 15 (phase 10 took 99.9 s of its first run)
+QWEN2_MOE_LAYERS = 4
 DBRX_LAYERS = 4
 #: rows each expert takes in phase 10's serve: C at 8 decode slots
 #: (qwen2-moe 1, dbrx 3) and in a 128-row prompt (11, 40)
@@ -3532,6 +3577,385 @@ def training(dev, counters, random_acceptance: float) -> tuple:
     return launches, report
 
 
+# --- phase 3 at phase 15's shapes: the serving bench's geometries -----------
+
+def bench_config():
+    """The serving bench's model geometry (``bench_serving._model``):
+    d_model 64 over 4 heads and 2 kv heads (D = 16), MLPs of 64 <-> 128,
+    bf16."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="bench", n_layers=2, d_model=64, vocab_size=256,
+                       n_heads=4, n_kv_heads=2, d_ff=128, remat=False)
+
+
+#: rows of the bench's matmuls: decode at 1 and 8 slots, a slot's 16-row
+#: prefill and the 8 x 16 wave prefill
+BENCH_M = (1, 8, 16, 128)
+
+
+def check_bench_csa(cfg, dev) -> None:
+    """``csa_matmul`` at the bench's combined MLP (64 x 64 tiles, 32 kept
+    rows each: the half stage) at ``BENCH_M``, held against the plain
+    version (two calls bitwise equal), timed at 8 and 128 rows beside
+    cuBLAS on the dense weight and the bound."""
+    from repro_torch.core import pruning, sparsity
+    from repro_torch.kernels import csa_matmul as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    packs, dense = [], []
+    for _, k, n in mlp_projections(cfg):
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / k ** 0.5).to(torch.bfloat16)
+        pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=64, block=64)
+        packs.append(sparsity.pack_combined(pw, 2, 4, 64, 64))
+        dense.append(pw)
+    err = 0.0
+    for M in BENCH_M:
+        log_plans("csa_matmul bench", M, [
+            (proj, K.plan(M, p.K, p.N, torch.bfloat16, p.max_nnz, 64, 64))
+            for (proj, _, _), p in zip(mlp_projections(cfg), packs)])
+        xs = {k: torch.randn((M, k), generator=gen, device=dev)
+              .to(torch.bfloat16) for _, k, _ in mlp_projections(cfg)}
+        for p in packs:
+            what = f"csa_matmul bench M={M} K={p.K} N={p.N}"
+            got = K.csa_matmul(xs[p.K], p)
+            if not torch.equal(got, K.csa_matmul(xs[p.K], p)):
+                raise AssertionError(f"{what}: two calls differ")
+            err = max(err, check_close(what, got,
+                                       ref.csa_matmul_ref(xs[p.K], p)))
+        if M not in (8, 128):
+            continue
+        nbytes = flops = 0.0
+        for p in packs:
+            kept = int(p.counts.sum()) * p.bkc
+            nbytes += (M * p.K + kept * p.bn + M * p.N) * 2 \
+                + (int(p.counts.sum()) + p.counts.numel() + kept) * 4
+            flops += 2.0 * M * kept * p.bn
+        b, by = bound_ms(nbytes, flops)
+        row = dict(**timings(
+            lambda: [K.csa_matmul(xs[p.K], p) for p in packs],
+            lambda: [ref.csa_matmul_ref(xs[p.K], p) for p in packs],
+            lambda: [torch.matmul(xs[w.shape[0]], w) for w in dense], 1),
+            bound_ms=b, bound_by=by, density=sum(
+                float(p.density) for p in packs) / len(packs))
+        log(f"[kernels] csa_matmul bench MLP (3 projections, 64 x 64 "
+            f"tiles) at M={M}: {json.dumps(row)}")
+    log(f"[kernels] csa_matmul bench: max abs err {err:.3e} against the "
+        "plain version at M = 1, 8, 16, 128; two calls bitwise equal")
+
+
+def check_bench_kernels(dev) -> None:
+    """Phase 3 at phase 15's shapes: the new instances the serving bench
+    and the streaming demo run, against their plain versions and timed:
+    ``nm_spmm`` at the bench's 2:4 MLP (g = 64; K = 64 keeps 32 rows, the
+    half stage), ``csa_matmul`` at its combined MLP, and both attention
+    kernels at D = 16 (4 heads over 2) on their FMA routes: flash at L =
+    16 (a slot's prompt), 128 and 512 (the longest bucket), paged at 8
+    slots over a 36-page view (the bench's 576 rows) at Q = 1, the
+    speculative verify blocks Q = 3 and 5, and fp32 q."""
+    cfg = bench_config()
+    check_nm_spmm(cfg, dev, copies=1, projections=mlp_projections(cfg),
+                  sweep=BENCH_M, timed=(8, 128), what="bench MLP", g=64)
+    check_bench_csa(cfg, dev)
+    check_flash_attention(cfg, dev, lengths=(16, 128, 512))
+    bf16 = torch.bfloat16
+    check_paged_attention(cfg, dev, copies=4, mp=36, cases=(
+        ("mixed", 1, bf16), ("serve", 1, bf16), ("mixed", 3, bf16),
+        ("mixed", 5, bf16), ("mixed", 1, torch.float32)))
+
+
+# --- phase 15: the launchers, the serving bench, CNN training, examples -----
+
+#: phase 15 (a): the launcher at qwen3-0.6b's full width and depth
+LAUNCH_FLAGS = ["--arch", "qwen3-0.6b", "--requests", "16", "--slots", "8",
+                "--prompt-len", "128", "--prompt-pad", "128", "--max-len",
+                "512", "--max-new", "64", "--page-size", "16",
+                "--decode-chunk", "16"]
+LAUNCH_SPEC = ["--spec-k", "3", "--spec-draft", "self"]
+#: the report's wall-clock fields; the others are counts
+LAUNCH_TIMED = ("wall_s", "tok_per_s", "ttft_p50_ms")
+CKPT_STEP_15 = 5                   # phase 15 (a)'s checkpoint step
+
+
+def run_launcher(argv, counters) -> tuple:
+    """``launch.serve.main(argv)`` in-process with every launch count set
+    to 0 just before and read just after: (printed lines, report,
+    launches, the engine it served)."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import repro_torch.serving as S
+    from repro_torch.launch import serve
+    engines = []
+
+    class Recorded(S.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    buf = io.StringIO()
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    with mock.patch.object(S, "Engine", Recorded), \
+            contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts(counters)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or len(engines) != 1:
+        raise AssertionError(f"launcher {argv}: exit {rc}, {len(engines)} "
+                             "engines")
+    return lines, json.loads(lines[-1]), launches, engines[0]
+
+
+def launcher_full_width(dev, counters) -> dict:
+    """Phase 15 (a): ``launch.serve.main`` at qwen3-0.6b's full width and
+    depth, plain and with a ``spec_k = 3`` self draft.  Gates: one host
+    sync per decode chunk; flash once per layer and prefill; paged once
+    per layer and step (plain), or per layer, step and draft plus one
+    Q = 4 verify block per layer and step (speculation); no matmul
+    kernel (dense projections run on cuBLAS, as in JAX)."""
+    from repro_torch.configs import qwen3_0_6b
+    L = qwen3_0_6b.config().n_layers
+    out = {}
+    for tag, argv in (("plain", LAUNCH_FLAGS),
+                      ("spec self", LAUNCH_FLAGS + LAUNCH_SPEC)):
+        _, rep, launches, eng = run_launcher(argv, counters)
+        st = eng.stats()
+        chunks = len(st.chunk_s)
+        steps = chunks * eng.scfg.decode_chunk
+        K = eng.scfg.spec_k
+        want = {"flash_attention": L * rep["prefills"],
+                "paged_attention": L * steps * (K + 1),
+                "paged_attention Q>1": L * steps if K else 0}
+        got = {k: launches[k] for k in want}
+        if rep["host_syncs"] != chunks or got != want or any(
+                launches[k] for k in ("nm_spmm", "csa_matmul", "bsr_matmul",
+                                      "lookahead_decode")):
+            raise AssertionError(f"launcher {tag}: {rep['host_syncs']} "
+                                 f"syncs for {chunks} chunks; launches "
+                                 f"{launches}, want {want}")
+        log(f"[launch {tag}] {json.dumps(rep)}")
+        runs = {h: sum(r == h for _, r in st.chunk_runs)
+                for h in ("eager", "capture", "replay")}
+        log(f"[launch {tag}] {chunks} chunks ({steps} steps), launches "
+            f"{json.dumps(launches)}; chunk runs {json.dumps(runs)}")
+        out[tag] = dict(rep, launches=launches)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def launcher_checkpoint(dev, counters, tmp: Path) -> None:
+    """Phase 15 (a), restore: write ``{"params": ...}`` of qwen3-0.6b's
+    ``reduced()`` (seed ``SEED + 15``) with the port's
+    ``CheckpointManager``, serve it with ``python -m
+    repro_torch.launch.serve --arch qwen3-0.6b --reduced --checkpoint-dir
+    D`` in a subprocess, and in-process with the same flags: the
+    subprocess must print ``restored checkpoint step N`` and the same
+    counts."""
+    import os
+
+    from repro_torch import models as MZ
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import qwen3_0_6b
+    d = tmp / "launch_ckpt"
+    params = MZ.init_model(qwen3_0_6b.reduced(), seed=SEED + 15, device=dev)
+    CheckpointManager(str(d)).save(CKPT_STEP_15, {"params": params},
+                                   blocking=True)
+    argv = ["--arch", "qwen3-0.6b", "--reduced", "--checkpoint-dir", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *argv], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the launcher's subprocess failed: "
+                             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    sub = json.loads(lines[-1])
+    here_lines, here, _, _ = run_launcher(argv, counters)
+    want = f"restored checkpoint step {CKPT_STEP_15}"
+    counts = {k: v for k, v in here.items() if k not in LAUNCH_TIMED}
+    if lines[0] != want or here_lines[0] != want or \
+            {k: sub.get(k) for k in counts} != counts:
+        raise AssertionError(f"launcher restore: {lines[0]!r}, "
+                             f"{here_lines[0]!r}; {sub} vs {here}")
+    log(f"[launch restore] subprocess ({sub_s:.1f} s): {lines[0]}; "
+        f"{json.dumps(sub)}; the in-process serve of the same checkpoint "
+        "gives the same counts")
+
+
+def bench_serving_smoke(dev, counters) -> tuple:
+    """Phase 15 (b): ``bench_serving.run()`` at the smoke sizes on the
+    card.  Gates: ``nm_spmm`` and ``csa_matmul`` launched on their half
+    stage and both attention kernels on their FMA routes (D = 16, the
+    only bf16 FMA geometry the bench has); every chunked row's syncs
+    equal its chunks; the chunked and per-token serves of a grid row
+    count equal tokens."""
+    import importlib
+    import os
+    os.environ["REPRO_BENCH_SMOKE"] = "1"
+    import repro_torch.benchmarks.bench_serving as B
+    B = importlib.reload(B)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out = B.run(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    for r in out["rows"]:
+        log(f"[bench serving] {json.dumps(r)}")
+    for why in out["not_ported"].items():
+        log(f"[bench serving] not ported: {why[0]} ({why[1]})")
+    bad = [r["config"] for r in out["rows"] if r["syncs"] != r["chunks"]]
+    bad += [r["config"] for r in out["rows"]
+            if "ref_tokens" in r and r["ref_tokens"] != r["tokens"]]
+    fma = {k: launches[k] - launches[f"{k} mma"]
+           for k in ("flash_attention", "paged_attention")}
+    if bad or not launches["nm_spmm half"] or \
+            not launches["csa_matmul half"] or not all(fma.values()):
+        raise AssertionError(f"bench serving: rows {bad} break the sync or "
+                             f"token contract; launches {launches}")
+    log(f"[bench serving] run() {wall:.1f} s on the card; launches "
+        f"{json.dumps(launches)} (FMA-route attention {json.dumps(fma)})")
+    return launches, out
+
+
+def cnn_training_vs_cpu(dev, counters) -> None:
+    """Phase 15 (c): three fp32 DS-CNN steps of ``bench_int7._train`` on
+    the card (TF32 off) against the CPU path from the same init, Adam at
+    ``STEP_EPS``; every leaf within ``STEP_RTOL`` of its largest entry;
+    no kernel launches."""
+    from unittest import mock
+
+    import repro_torch.optim as O
+    from repro_torch.benchmarks.bench_int7 import RUNS, _train
+    from repro_torch.models import cnn
+    model, shape, classes, width, _ = next(r for r in RUNS
+                                           if r[0] == "dscnn")
+    init = cnn.CNN_ZOO[model][0](seed=SEED, num_classes=classes, width=width,
+                                 device="cpu")
+    before = launch_counts(counters)
+    with mock.patch.object(O, "AdamWConfig", functools.partial(
+            O.AdamWConfig, eps=STEP_EPS)):
+        pc, acc_c, _ = _train(model, shape, classes, width, 3, params=init,
+                              device="cpu")
+        pg, acc_g, _ = _train(model, shape, classes, width, 3,
+                              params=_to(init, dev), device=dev)
+    torch.cuda.synchronize()
+    no_kernel_launched("cnn fidelity", counters, before)
+    worst = 0.0
+    for a, b in zip(_leaves(pg), _leaves(pc)):
+        err = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+        if err > STEP_RTOL:
+            raise AssertionError(f"cnn fidelity: a leaf after 3 steps is "
+                                 f"{err:.3e} of its largest off the CPU's")
+        worst = max(worst, err)
+    log(f"[cnn fidelity] {model} w={width}: 3 fp32 AdamW steps (eps "
+        f"{STEP_EPS}) on the card vs the CPU: worst leaf {worst:.3e} of its "
+        f"largest entry (limit {STEP_RTOL}); held-out acc {acc_g(pg):.4f} "
+        f"vs {acc_c(pc):.4f}; no kernel launched")
+
+
+def cnn_training(dev, counters) -> dict:
+    """Phase 15 (c): Table II (``bench_int7.run()``: three CNNs, 250 /
+    200 / 250 steps of 64) and ``examples.tinyml_repro`` on the card,
+    printed as findings (not gated), then the fp32 comparison with the
+    CPU."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import bench_int7
+    from repro_torch.examples import tinyml_repro
+    t0 = time.perf_counter()
+    out = bench_int7.run(device=dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_int7.main(out)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[table2] {line}")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf := io.StringIO()):
+        tiny = tinyml_repro.main(["--device", str(dev)])
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[tinyml] {line}")
+    log(f"[table2] bench_int7.run() {t1 - t0:.1f} s, tinyml_repro "
+        f"{time.perf_counter() - t1:.1f} s on the card")
+    cnn_training_vs_cpu(dev, counters)
+    return {"table2": out["rows"], "tinyml": {
+        k: v for k, v in tiny.items() if k != "speedups"}}
+
+
+def examples_on_card(dev, counters) -> dict:
+    """Phase 15 (d): ``quickstart`` (its step 3 raises if a kernel
+    disagrees with its plain version), ``serve_lm`` and ``serve_stream``
+    (its own asserts) on the card; the launches of all three."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_lm, serve_stream
+    zero_counts(counters)
+    for name, main_fn, argv in (("quickstart", quickstart.main, []),
+                                ("serve_lm", serve_lm.main, []),
+                                ("serve_stream", serve_stream.main, [])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf := io.StringIO()):
+            main_fn(argv + ["--device", str(dev)])
+        text = buf.getvalue().strip().splitlines()
+        if text[-1] != "ok":
+            raise AssertionError(f"{name} did not end with ok: {text[-3:]}")
+        for line in text:
+            log(f"[{name}] {line}")
+        log(f"[{name}] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = launch_counts(counters)
+    if not all(launches[k] for k in ("nm_spmm", "csa_matmul", "bsr_matmul",
+                                     "lookahead_decode", "flash_attention",
+                                     "paged_attention")):
+        raise AssertionError(f"examples: a kernel did not launch: {launches}")
+    log(f"[examples] launches {json.dumps(launches)}")
+    return launches
+
+
+def launchers_and_cnn(dev, counters) -> tuple:
+    """Phase 15: (a) the serve launcher at full width and from a
+    checkpoint, (b) the serving bench, (c) CNN training, (d) the
+    examples.  Returns (launches on the main path, report)."""
+    import tempfile
+    total = {}
+    report = {}
+
+    def add(launches):
+        for k in counted(launches):
+            total[k] = total.get(k, 0) + launches[k]
+
+    t0 = time.perf_counter()
+    report["launcher"] = launcher_full_width(dev, counters)
+    for rep in report["launcher"].values():
+        add(rep["launches"])
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        launcher_checkpoint(dev, counters, Path(tmp))
+    report["seconds_a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, _ = bench_serving_smoke(dev, counters)
+    add(launches)
+    report["seconds_b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["cnn"] = cnn_training(dev, counters)
+    report["seconds_c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add(examples_on_card(dev, counters))
+    report["seconds_d"] = time.perf_counter() - t0
+    log("[phase 15] seconds " + json.dumps(
+        {k: round(v, 1) for k, v in report.items()
+         if k.startswith("seconds")}))
+    return total, report
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -3593,6 +4017,7 @@ def main() -> int:
     check_encdec_kernels(encdec_config(), dev)
     for gcfg in gemma_configs():
         check_gemma_kernels(gcfg, dev)
+    check_bench_kernels(dev)
     timed("3 kernels", t0)
 
     # each format's serve: (kernel module, kernel name, requests, tokens,
@@ -3702,6 +4127,13 @@ def main() -> int:
         launches[name] += got[name]
     timed("14 training", t0)
 
+    t0 = time.perf_counter()
+    got, launchers = launchers_and_cnn(dev, counters)
+    for module, n in got.items():
+        name = "lookahead_matmul" if module == "lookahead_decode" else module
+        launches[name] += n
+    timed("15 launchers and CNN training", t0)
+
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -3710,6 +4142,7 @@ def main() -> int:
                for r in rows]
     log(f"[phase] seconds {json.dumps(seconds)}")
     log(json.dumps({"train": train}))
+    log(json.dumps({"launchers": launchers}, default=str))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

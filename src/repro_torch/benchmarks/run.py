@@ -4,10 +4,13 @@
       --sections fig8_ussa,fig9_sssa,table3_resources --json out.json
 
 Sections: ``fig8_ussa``, ``fig9_sssa``, ``fig10_csa_models`` (the whole
-grid, ~30 s of host numpy), ``table3_resources`` and ``kernels``.  Figs.
-8–10 and Table III are simulated CFU cycles and byte counts on the host;
-``kernels`` runs the hand-written kernels on the card (``--device
-cuda``, the default) or their plain versions (``--device cpu``).
+grid, ~30 s of host numpy), ``table2_int7``, ``table3_resources``,
+``kernels`` and ``serving``.  Figs. 8–10 and Table III are simulated CFU
+cycles and byte counts on the host; ``kernels`` runs the hand-written
+kernels on the card (``--device cuda``, the default) or their plain
+versions (``--device cpu``); ``table2_int7`` trains three CNNs and
+``serving`` serves its request mixes on ``--device``.  The JAX
+aggregator's ``roofline`` section comes with ROADMAP queue 1 item 14c.
 ``--json PATH`` writes each section's wall time, ok flag and its
 ``run()`` payload.  Exits 1 if a section raised or printed a FAIL line.
 """
@@ -29,9 +32,13 @@ SECTIONS = {
     "fig8_ussa": "repro_torch.benchmarks.bench_ussa",
     "fig9_sssa": "repro_torch.benchmarks.bench_sssa",
     "fig10_csa_models": "repro_torch.benchmarks.bench_csa_models",
+    "table2_int7": "repro_torch.benchmarks.bench_int7",
     "table3_resources": "repro_torch.benchmarks.bench_resources",
     "kernels": "repro_torch.benchmarks.bench_kernels",
+    "serving": "repro_torch.benchmarks.bench_serving",
 }
+#: the sections that run on ``--device``; the others are host numpy
+ON_DEVICE = ("table2_int7", "kernels", "serving")
 
 
 def _jsonable(obj):
@@ -63,7 +70,7 @@ def run_section(name: str, device: str) -> dict:
     line it printed reads PASS."""
     mod = importlib.import_module(SECTIONS[name])
     t0 = time.time()
-    data = mod.run(device=device) if name == "kernels" else mod.run()
+    data = mod.run(device=device) if name in ON_DEVICE else mod.run()
     verdicts = print_table(mod, data)
     return {"ok": all("PASS" in v for v in verdicts),
             "wall_s": round(time.time() - t0, 3), "data": _jsonable(data)}
@@ -74,7 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated subset of " + ", ".join(SECTIONS))
     ap.add_argument("--device", default="cuda",
-                    help="device of the kernels section (cuda or cpu)")
+                    help="device of the table2_int7, kernels and serving "
+                         "sections (cuda or cpu)")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="write per-section wall time + results")
     args = ap.parse_args(argv)

@@ -36,10 +36,11 @@ extern "C" int bsr_matmul_mma_launch(const void* x, const void* values,
                                      const void* indices, const void* counts,
                                      void* out, int M, int K, int N, int bk,
                                      int bn, int max_nnz, int bm, int bnt,
-                                     int split, int steps, void* stream) {
+                                     int split, int steps, int ks,
+                                     void* stream) {
   return repro::strip_mma_dispatch<false>(x, values, indices, counts,
                                           nullptr, out, M, K, N, bk, bn, bk,
-                                          max_nnz, bm, bnt, split, steps,
+                                          max_nnz, bm, bnt, split, steps, ks,
                                           stream);
 }
 
@@ -55,6 +56,6 @@ extern "C" int bsr_matmul_fma_launch(const void* x, const void* values,
 // The dynamic shared memory per block that bsr_matmul_mma_launch passes for
 // these arguments, or -1 for a tile it does not list.
 extern "C" int bsr_matmul_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt,
-                                         int steps) {
-  return repro::strip_mma_smem_bytes<false>(bk, max_nnz, bm, bnt, steps);
+                                         int steps, int ks) {
+  return repro::strip_mma_smem_bytes<false>(bk, max_nnz, bm, bnt, steps, ks);
 }

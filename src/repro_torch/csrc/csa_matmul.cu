@@ -17,9 +17,10 @@
 // Layout (strip_spmm.cuh says more), bf16: a block owns BN <= bn columns
 // of one strip by BM rows of x and one of `split` ranks of a cluster; a
 // stage is one kept tile's 64 compressed rows (bkc = 64 for 2:4 at bk =
-// 128), and rank r copies every split-th stage with cp.async: the (64, BN)
-// values slab, the tile's bk x columns for BM rows and its 64 gidx
-// entries.  Each warp reads four gidx entries per k step and gathers its B
+// 128; at bk = 64 a tile's 32 kept rows are one half stage of 32), and
+// rank r copies every split-th stage with cp.async: the (64, BN) values
+// slab, the tile's bk x columns for BM rows and its 64 gidx entries.
+// Each warp reads four gidx entries per k step and gathers its B
 // fragments with 16-bit shared loads (nm_spmm_mma's stage with src =
 // gidx[r]); mma.sync.m16n8k16 into fp32, then the ranks' partial tiles are
 // summed in rank order through distributed shared memory.  fp32 keeps the
@@ -36,10 +37,10 @@ extern "C" int csa_matmul_mma_launch(const void* x, const void* values,
                                      const void* counts, void* out, int M,
                                      int K, int N, int bk, int bn, int bkc,
                                      int max_nnz, int bm, int bnt, int split,
-                                     int steps, void* stream) {
+                                     int steps, int ks, void* stream) {
   return repro::strip_mma_dispatch<true>(x, values, indices, counts, gidx,
                                          out, M, K, N, bk, bn, bkc, max_nnz,
-                                         bm, bnt, split, steps, stream);
+                                         bm, bnt, split, steps, ks, stream);
 }
 
 extern "C" int csa_matmul_fma_launch(const void* x, const void* values,
@@ -55,6 +56,6 @@ extern "C" int csa_matmul_fma_launch(const void* x, const void* values,
 // The dynamic shared memory per block that csa_matmul_mma_launch passes for
 // these arguments, or -1 for a tile it does not list.
 extern "C" int csa_matmul_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt,
-                                         int steps) {
-  return repro::strip_mma_smem_bytes<true>(bk, max_nnz, bm, bnt, steps);
+                                         int steps, int ks) {
+  return repro::strip_mma_smem_bytes<true>(bk, max_nnz, bm, bnt, steps, ks);
 }

@@ -38,10 +38,11 @@
 // V, and 20 sixteen-byte pieces per staged row (row stride D + 8 = 168
 // bf16: eight ldmatrix rows still fall in distinct bank groups).
 //
-// fp32 (and bf16 at D = 32 or 256) -> CUDA-core FMAs
+// fp32 (and bf16 at D = 16, 32 or 256) -> CUDA-core FMAs
 // (flash_attention_fma), kept for fp32 parity: a block of 4 warps owns 16
 // query rows and walks KV tiles of 32 keys staged as fp32, one key per
-// lane for the scores and D/32 output elements per lane for P*V.
+// lane for the scores and D/32 output elements per lane for P*V (at D =
+// 16, one on each of the lanes below 16: the bench models' heads).
 #include "tensor_core.cuh"
 
 namespace {
@@ -278,10 +279,15 @@ flash_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
                     int Hk, int Lq, int Lk, int causal, int window,
                     float softcap, float scale) {
   using namespace repro;
-  constexpr int VPT = D / 32;
+  // output columns per lane: D / 32, or one for D = 16 (lanes 16..31 then
+  // hold no column of their own and write nothing)
+  constexpr int VPT = (D + 31) / 32;
   constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
-  constexpr int NT = kBk * D / VEC / kThreads; // 16-byte loads per K/V tile
-  static_assert(NT * VEC * kThreads == kBk * D, "tile must split evenly");
+  // 16-byte loads per thread per K/V tile (the last pass partial for a
+  // tile smaller than one load per thread: bf16 at D = 16)
+  constexpr int NT = (kBk * D / VEC + kThreads - 1) / kThreads;
+  static_assert(D % VEC == 0 && (D >= 32 || 32 % D == 0),
+                "D must be a whole number of 16-byte loads");
   extern __shared__ float smem_f[];
   float* q_s = smem_f;                 // [kBq][D]
   float* k_s = q_s + kBq * D;           // [kBk][D + 1]
@@ -325,13 +331,15 @@ flash_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
       const int e = (threadIdx.x + t * kThreads) * VEC;
       const int kpos = kt + e / D;
       const size_t off = (size_t)kpos * D + e % D;
-      kr[t] = kpos < Lk ? load16(kp + off) : zero16();
-      vr[t] = kpos < Lk ? load16(vp + off) : zero16();
+      const bool in = e < kBk * D && kpos < Lk;
+      kr[t] = in ? load16(kp + off) : zero16();
+      vr[t] = in ? load16(vp + off) : zero16();
     }
     __syncthreads();                  // q_s written / previous tile consumed
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int e = (threadIdx.x + t * kThreads) * VEC;
+      if (e >= kBk * D) break;
       store_vec<T>(k_s + (e / D) * (D + 1) + e % D, kr[t]);
       store_vec<T>(v_s + e, vr[t]);
     }
@@ -365,7 +373,8 @@ flash_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
       for (int kk = 0; kk < kBk; ++kk) {
         const float pk = __shfl_sync(kFull, p, kk);
 #pragma unroll
-        for (int j = 0; j < VPT; ++j) acc[r][j] += pk * v_s[kk * D + lane + 32 * j];
+        for (int j = 0; j < VPT; ++j)
+          acc[r][j] += pk * v_s[kk * D + (lane + 32 * j) % D];
       }
       m_run[r] = m_new;
     }
@@ -378,7 +387,9 @@ flash_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
 #pragma unroll
     for (int j = 0; j < VPT; ++j)
-      out[((size_t)bh * Lq + qi) * D + lane + 32 * j] = from_f<T>(acc[r][j] * inv);
+      if (lane + 32 * j < D)
+        out[((size_t)bh * Lq + qi) * D + lane + 32 * j] =
+            from_f<T>(acc[r][j] * inv);
   }
 }
 
@@ -430,8 +441,8 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// float32 at D in {32, 64, 128, 160, 256}; bfloat16 only at D in {32,
-// 256} (64, 128 and 160 take the tensor cores).
+// float32 at D in {16, 32, 64, 128, 160, 256}; bfloat16 only at D in
+// {16, 32, 256} (64, 128 and 160 take the tensor cores).
 extern "C" int flash_attention_fma_launch(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int H, int Hk, int Lq, int Lk, int D,
@@ -447,10 +458,10 @@ extern "C" int flash_attention_fma_launch(const void* q, const void* k,
     err = launch_fma<T, DD>(q, k, v, out, B, H, Hk, Lq, Lk, causal, window,  \
                             softcap, scale, s);
   if (dtype == kFloat32) {
-    FLASH_FMA(float, 32) FLASH_FMA(float, 64) FLASH_FMA(float, 128)
-    FLASH_FMA(float, 160) FLASH_FMA(float, 256)
+    FLASH_FMA(float, 16) FLASH_FMA(float, 32) FLASH_FMA(float, 64)
+    FLASH_FMA(float, 128) FLASH_FMA(float, 160) FLASH_FMA(float, 256)
   } else if (dtype == kBFloat16) {
-    FLASH_FMA(bf16, 32) FLASH_FMA(bf16, 256)
+    FLASH_FMA(bf16, 16) FLASH_FMA(bf16, 32) FLASH_FMA(bf16, 256)
   }
 #undef FLASH_FMA
   return static_cast<int>(err);

@@ -18,12 +18,15 @@
 // g-column group, one list of source rows -- by BM rows (8 at decode, 32
 // or 64 beyond), and one of `split` K-slices; the slices of a tile form a
 // cluster and sum their fp32 partials through distributed shared memory.
-// A ring of up to 8 stages, each 64 compressed rows, is filled by
+// A ring of up to 8 stages, each KS = 64 compressed rows, is filled by
 // cp.async (all of a block's stages at once where they fit): the dense
-// (64, BN) values tile, the dense x columns those rows come from (64 m/n
-// per row of x; rows past M zero-filled), and the 64 idx entries of the
-// group.  Per 16-row k step a warp loads each A fragment (16 weight
-// columns x 16 rows) from the row-major values tile with one
+// (KS, BN) values tile, the dense x columns those rows come from (KS m/n
+// per row of x; rows past M zero-filled), and the KS idx entries of the
+// group.  A projection with fewer kept rows than a stage, or a count that
+// 64 does not divide (K = 64 at 2:4: 32 kept rows), takes the half-stage
+// instances, KS = 32 (two k16 steps per stage); the plan picks KS.  Per
+// 16-row k step a warp loads each A fragment (16 weight columns x 16
+// rows) from the row-major values tile with one
 // ldmatrix.x4.trans, computes the four source columns (r/n)*m + idx[r] of
 // its rows 2t, 2t+1, 2t+8, 2t+9 once, gathers the B fragment (x^T) for
 // each 8-row group with four 16-bit shared loads, and issues
@@ -43,24 +46,23 @@ using repro::tc::bf16;
 
 // ---- bf16: tensor cores ---------------------------------------------------
 
-constexpr int KS = 64;       // compressed rows per stage (four k16 steps)
-
-template <int BN>
-struct NmStage {             // one ring slot; XW = 64 m / n x columns
+// KS: compressed rows per stage, 64 (four k16 steps) or 32 (two).
+template <int BN, int KS>
+struct NmStage {             // one ring slot; XW = KS m / n x columns
   static constexpr int VLD = BN + 8;          // bf16 row stride of values
   __host__ __device__ static size_t bytes(int XW, int BM) {
     return sizeof(bf16) * (KS * VLD + (size_t)BM * (XW + 8)) + sizeof(int) * KS;
   }
 };
 
-template <int BN, int BM>
+template <int BN, int BM, int KS>
 __global__ void __launch_bounds__(repro::tc::Tile<BN, BM>::THREADS)
 nm_spmm_mma(const bf16* __restrict__ x, const bf16* __restrict__ values,
             const int* __restrict__ idx, bf16* __restrict__ out, int M, int K,
             int N, int n, int m, int g, int steps, int slots, int recv) {
   using namespace repro::tc;
   using TL = Tile<BN, BM>;
-  using ST = NmStage<BN>;
+  using ST = NmStage<BN, KS>;
   extern __shared__ __align__(128) unsigned char smem[];
   namespace cg = cooperative_groups;
   cluster_arrive_started();
@@ -160,29 +162,29 @@ nm_spmm_mma(const bf16* __restrict__ x, const bf16* __restrict__ values,
                            nullptr, M, N, m0, n0);
 }
 
-int mma_steps(int K, int n, int m, int split) {  // stages per block
-  return K / m * n / KS / split;
+int mma_steps(int K, int n, int m, int split, int ks) {  // per block
+  return K / m * n / ks / split;
 }
 
 // The shared-memory layout of a block of `steps` stages.
-template <int BN, int BM>
+template <int BN, int BM, int KS>
 repro::tc::Layout<repro::tc::Tile<BN, BM>> mma_layout(int steps, int n,
                                                      int m) {
   return repro::tc::Layout<repro::tc::Tile<BN, BM>>(
-      steps, NmStage<BN>::bytes(KS * m / n, BM));
+      steps, NmStage<BN, KS>::bytes(KS * m / n, BM));
 }
 
-template <int BN, int BM>
+template <int BN, int BM, int KS>
 cudaError_t launch_mma(const void* x, const void* values, const void* idx,
                        void* out, int M, int K, int N, int n, int m, int g,
                        int split, cudaStream_t s) {
   using TL = repro::tc::Tile<BN, BM>;
   static size_t opted = 0;
-  const int steps = mma_steps(K, n, m, split);
-  const auto lay = mma_layout<BN, BM>(steps, n, m);
+  const int steps = mma_steps(K, n, m, split, KS);
+  const auto lay = mma_layout<BN, BM, KS>(steps, n, m);
   const dim3 grid(N / BN * split, (M + BM - 1) / BM);
   return repro::tc::launch_cluster(
-      nm_spmm_mma<BN, BM>, opted, grid, TL::THREADS, lay.bytes, split, s,
+      nm_spmm_mma<BN, BM, KS>, opted, grid, TL::THREADS, lay.bytes, split, s,
       static_cast<const bf16*>(x), static_cast<const bf16*>(values),
       static_cast<const int*>(idx), static_cast<bf16*>(out), M, K, N, n, m, g,
       steps, lay.slots, (int)lay.recv);
@@ -291,20 +293,25 @@ cudaError_t launch_fma(const void* x, const void* values, const void* idx,
 // the launch's error, then cudaGetLastError().
 
 // bf16 x and values: BN in {32, 64, 128} dividing g, BM in {8, 32, 64},
-// `split` blocks per cluster dividing K*n/m / 64; x and values 16-byte
-// aligned, K % 8 == 0, 64 % n == 0, (64 m / n) % 8 == 0.
+// ks (compressed rows per stage) in {64, 32}, `split` blocks per cluster
+// dividing K*n/m / ks; x and values 16-byte aligned, K % 8 == 0, ks % n ==
+// 0, (ks m / n) % 8 == 0.
 extern "C" int nm_spmm_mma_launch(const void* x, const void* values,
                                   const void* idx, void* out, int M, int K,
                                   int N, int n, int m, int g, int bm, int bn,
-                                  int split, void* stream) {
+                                  int split, int ks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define NM_MMA(BN, BM)                                                        \
-  if (bn == BN && bm == BM)                                                   \
-    err = launch_mma<BN, BM>(x, values, idx, out, M, K, N, n, m, g, split, s);
-  NM_MMA(32, 8) NM_MMA(64, 8) NM_MMA(128, 8)
-  NM_MMA(32, 32) NM_MMA(64, 32) NM_MMA(128, 32)
-  NM_MMA(32, 64) NM_MMA(64, 64) NM_MMA(128, 64)
+#define NM_MMA(BN, BM, KS)                                                    \
+  if (bn == BN && bm == BM && ks == KS)                                       \
+    err = launch_mma<BN, BM, KS>(x, values, idx, out, M, K, N, n, m, g,       \
+                                 split, s);
+  NM_MMA(32, 8, 64) NM_MMA(64, 8, 64) NM_MMA(128, 8, 64)
+  NM_MMA(32, 32, 64) NM_MMA(64, 32, 64) NM_MMA(128, 32, 64)
+  NM_MMA(32, 64, 64) NM_MMA(64, 64, 64) NM_MMA(128, 64, 64)
+  NM_MMA(32, 8, 32) NM_MMA(64, 8, 32) NM_MMA(128, 8, 32)
+  NM_MMA(32, 32, 32) NM_MMA(64, 32, 32) NM_MMA(128, 32, 32)
+  NM_MMA(32, 64, 32) NM_MMA(64, 64, 32) NM_MMA(128, 64, 32)
 #undef NM_MMA
   return static_cast<int>(err);
 }
@@ -312,13 +319,17 @@ extern "C" int nm_spmm_mma_launch(const void* x, const void* values,
 // The dynamic shared memory per block that nm_spmm_mma_launch passes for
 // these arguments, or -1 for a tile it does not list.
 extern "C" int nm_spmm_mma_smem_bytes(int K, int n, int m, int bm, int bn,
-                                      int split) {
-#define NM_SMEM(BN, BM)  \
-  if (bn == BN && bm == BM) \
-    return (int)mma_layout<BN, BM>(mma_steps(K, n, m, split), n, m).bytes;
-  NM_SMEM(32, 8) NM_SMEM(64, 8) NM_SMEM(128, 8)
-  NM_SMEM(32, 32) NM_SMEM(64, 32) NM_SMEM(128, 32)
-  NM_SMEM(32, 64) NM_SMEM(64, 64) NM_SMEM(128, 64)
+                                      int split, int ks) {
+#define NM_SMEM(BN, BM, KS)                                                  \
+  if (bn == BN && bm == BM && ks == KS)                                      \
+    return (int)mma_layout<BN, BM, KS>(mma_steps(K, n, m, split, KS), n, m) \
+        .bytes;
+  NM_SMEM(32, 8, 64) NM_SMEM(64, 8, 64) NM_SMEM(128, 8, 64)
+  NM_SMEM(32, 32, 64) NM_SMEM(64, 32, 64) NM_SMEM(128, 32, 64)
+  NM_SMEM(32, 64, 64) NM_SMEM(64, 64, 64) NM_SMEM(128, 64, 64)
+  NM_SMEM(32, 8, 32) NM_SMEM(64, 8, 32) NM_SMEM(128, 8, 32)
+  NM_SMEM(32, 32, 32) NM_SMEM(64, 32, 32) NM_SMEM(128, 32, 32)
+  NM_SMEM(32, 64, 32) NM_SMEM(64, 64, 32) NM_SMEM(128, 64, 32)
 #undef NM_SMEM
   return -1;
 }

@@ -76,7 +76,7 @@
 // per output row in the merge, and a warp's published state (10,368 B)
 // still fits in a ring of two chunks (21,504 B).
 //
-// fp32 q (over fp32 or bf16 pools), and bf16 at D = 32 or 256 ->
+// fp32 q (over fp32 or bf16 pools), and bf16 at D = 16, 32 or 256 ->
 // CUDA-core FMAs (paged_attention_fma), kept for fp32 parity: one block
 // per (sequence, kv head, tile of 8 query rows) folds its rows -- row
 // r = qi * G + gi as above, so Q = 1 folds the G query heads of the
@@ -84,7 +84,8 @@
 // its 8 warps split the sequence's rows, UNROLL rows' loads in flight
 // per warp, and merge their softmax states in shared memory at the end.
 // Under a window the walk starts at the first key the block's lowest
-// query reaches.
+// query reaches.  A lane holds D / 32 columns of a row; at D = 16 the
+// lanes below 16 hold one each and the others hold zeros.
 #include "tensor_core.cuh"
 
 namespace {
@@ -417,8 +418,12 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                        int H, int Hk, int ps, int n_pages, int ptab_stride,
                        float scale, int window, float softcap) {
   using namespace repro;
-  constexpr int VPT = D / 32;
+  constexpr int VPT = (D + 31) / 32;         // columns a lane holds
+  static_assert(D >= 32 ? D % 32 == 0 : 32 % D == 0, "D must tile a warp");
   constexpr int UNROLL = D <= 128 ? 8 : 4;   // rows a warp loads before use
+  // lane + 32 j is a column of the row where it is below D (always but at
+  // D = 16, where the lanes above hold zeros)
+  auto has = [&](int j) { return D >= 32 || threadIdx.x % 32 + 32 * j < D; };
   extern __shared__ float smem_f[];  // [kFmaWarps][NR][D + 2], then the page row
   const int b = blockIdx.x, hk = blockIdx.y;
   const int G = H / Hk;
@@ -454,9 +459,10 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 #pragma unroll
     for (int j = 0; j < VPT; ++j) {
       acc[g][j] = 0.f;
-      qv[g][j] = g < NR ? to_f(q[(((size_t)b * Q + gr / G) * H + hk * G +
-                                  gr % G) * D + lane + 32 * j])
-                        : 0.f;
+      qv[g][j] = g < NR && has(j)
+                     ? to_f(q[(((size_t)b * Q + gr / G) * H + hk * G +
+                               gr % G) * D + lane + 32 * j])
+                     : 0.f;
     }
   }
 
@@ -469,8 +475,9 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
           row < len ? (((size_t)pt[row / ps] * ps + row % ps) * Hk + hk) * D : 0;
 #pragma unroll
       for (int j = 0; j < VPT; ++j) {
-        kv[u][j] = row < len ? to_f(kp[base + lane + 32 * j]) : 0.f;
-        vv[u][j] = row < len ? to_f(vp[base + lane + 32 * j]) : 0.f;
+        const bool in = row < len && has(j);
+        kv[u][j] = in ? to_f(kp[base + lane + 32 * j]) : 0.f;
+        vv[u][j] = in ? to_f(vp[base + lane + 32 * j]) : 0.f;
       }
     }
     // one online-softmax update per UNROLL rows: the rows' dot products
@@ -516,7 +523,8 @@ paged_attention_fma(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   for (int g = 0; g < kGMax; ++g) {
     if (g >= NR) break;
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) mine[g * (D + 2) + lane + 32 * j] = acc[g][j];
+    for (int j = 0; j < VPT; ++j)
+      if (has(j)) mine[g * (D + 2) + lane + 32 * j] = acc[g][j];
     if (lane == 0) {
       mine[g * (D + 2) + D] = m_run[g];
       mine[g * (D + 2) + D + 1] = l_run[g];
@@ -565,6 +573,7 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
                      int H, int Hk, int ps, int n_pages, int ptab_stride,
                      float scale, int window, float softcap, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_fma<TQ, TKV, 16>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
     case 32: return launch_fma<TQ, TKV, 32>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
     case 64: return launch_fma<TQ, TKV, 64>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
     case 128: return launch_fma<TQ, TKV, 128>(q, kp, vp, ptab, lens, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
@@ -614,9 +623,9 @@ extern "C" int paged_attention_mma_launch(const void* q, const void* kp,
 }
 
 // q (B, Q, H, D) and out in q_dtype, one block per 8 of the Q * H / Hk
-// query rows, D in {32, 64, 128, 160, 256}: float32 q over float32 or
-// bf16 pools; bf16 q and pools only at D in {32, 256} (64, 128 and 160
-// take the tensor cores).
+// query rows, D in {16, 32, 64, 128, 160, 256}: float32 q over float32
+// or bf16 pools; bf16 q and pools only at D in {16, 32, 256} (64, 128 and
+// 160 take the tensor cores).
 extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
                                           const void* vp, const void* ptab,
                                           const void* lens, void* out, int B,
@@ -636,6 +645,8 @@ extern "C" int paged_attention_fma_launch(const void* q, const void* kp,
     err = launch_d<float, float>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kFloat32 && kv_dtype == kBFloat16)
     err = launch_d<float, bf16>(D, q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
+  else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 16)
+    err = launch_fma<bf16, bf16, 16>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 32)
     err = launch_fma<bf16, bf16, 32>(q, kp, vp, pt, ln, out, B, Q, H, Hk, ps, n_pages, ptab_stride, scale, window, softcap, s);
   else if (q_dtype == kBFloat16 && kv_dtype == kBFloat16 && D == 256)

@@ -24,7 +24,8 @@
 // a block owns BN columns of one strip (BN divides bn, so they share one
 // tile list) by BM rows of x (8 at decode, 32 or 64 beyond) and one of
 // `split` ranks of a thread-block cluster.  A stage is KS = 64 kept rows of
-// the strip; rank r takes the strip's stages r, r + split, ... below
+// the strip (KS = 32, two k16 steps, where R is not a multiple of 64: a
+// combined pack of bk = 64 keeps 32 rows a tile at 2:4); rank r takes the strip's stages r, r + split, ... below
 // counts[j] * R / 64, read from the device inside the kernel, so the ranks
 // stay balanced to one stage whatever the counts and the host never reads
 // them.  The ring (tensor_core.cuh's Layout, sized on the host from
@@ -65,20 +66,19 @@ namespace {
 
 // ---- bf16: tensor cores ---------------------------------------------------
 
-constexpr int kStripKS = 64;   // kept rows per stage (four k16 steps)
-
-// One ring slot: the (64, BN) values slab, BM rows of an XW-column x
-// window, and (GATHER) the stage's 64 gidx entries.
-template <int BN, bool GATHER>
+// One ring slot: the (KS, BN) values slab, BM rows of an XW-column x
+// window, and (GATHER) the stage's KS gidx entries; KS kept rows per
+// stage, 64 (four k16 steps) or 32 (two).
+template <int BN, bool GATHER, int KS>
 struct StripStage {
   static constexpr int VLD = BN + 8;          // bf16 row stride of values
   __host__ __device__ static size_t bytes(int XW, int BM) {
-    return sizeof(tc::bf16) * (kStripKS * VLD + (size_t)BM * (XW + 8)) +
-           (GATHER ? sizeof(int) * kStripKS : 0);
+    return sizeof(tc::bf16) * (KS * VLD + (size_t)BM * (XW + 8)) +
+           (GATHER ? sizeof(int) * KS : 0);
   }
 };
 
-template <int BN, int BM, bool GATHER>
+template <int BN, int BM, bool GATHER, int KS>
 __global__ void __launch_bounds__(tc::Tile<BN, BM>::THREADS)
 strip_spmm_mma(const tc::bf16* __restrict__ x,
                const tc::bf16* __restrict__ values,
@@ -88,8 +88,7 @@ strip_spmm_mma(const tc::bf16* __restrict__ x,
                int recv, int tiles_at) {
   using namespace tc;
   using TL = Tile<BN, BM>;
-  using ST = StripStage<BN, GATHER>;
-  constexpr int KS = kStripKS;
+  using ST = StripStage<BN, GATHER, KS>;
   extern __shared__ __align__(128) unsigned char smem[];
   namespace cg = cooperative_groups;
   cluster_arrive_started();
@@ -223,14 +222,14 @@ strip_spmm_mma(const tc::bf16* __restrict__ x,
 
 // The shared-memory layout of a block: the stage ring, then the strip's
 // tile list (`max_nnz` ints, 16-byte aligned).
-template <int BN, int BM, bool GATHER>
+template <int BN, int BM, bool GATHER, int KS>
 tc::Layout<tc::Tile<BN, BM>> strip_layout(int bk, int max_nnz, int steps) {
   const size_t list = (sizeof(int) * max_nnz + 15) / 16 * 16;
   return tc::Layout<tc::Tile<BN, BM>>(
-      steps, StripStage<BN, GATHER>::bytes(GATHER ? bk : kStripKS, BM), list);
+      steps, StripStage<BN, GATHER, KS>::bytes(GATHER ? bk : KS, BM), list);
 }
 
-template <int BN, int BM, bool GATHER>
+template <int BN, int BM, bool GATHER, int KS>
 cudaError_t strip_launch_mma(const void* x, const void* values,
                              const void* indices, const void* counts,
                              const void* gidx, void* out, int M, int K, int N,
@@ -238,10 +237,10 @@ cudaError_t strip_launch_mma(const void* x, const void* values,
                              int steps, cudaStream_t s) {
   using TL = tc::Tile<BN, BM>;
   static size_t opted = 0;
-  const auto lay = strip_layout<BN, BM, GATHER>(bk, max_nnz, steps);
+  const auto lay = strip_layout<BN, BM, GATHER, KS>(bk, max_nnz, steps);
   const dim3 grid(N / BN * split, (M + BM - 1) / BM);
   return tc::launch_cluster(
-      strip_spmm_mma<BN, BM, GATHER>, opted, grid, TL::THREADS, lay.bytes,
+      strip_spmm_mma<BN, BM, GATHER, KS>, opted, grid, TL::THREADS, lay.bytes,
       split, s, static_cast<const tc::bf16*>(x),
       static_cast<const tc::bf16*>(values), static_cast<const int*>(indices),
       static_cast<const int*>(counts), static_cast<const int*>(gidx),
@@ -250,29 +249,34 @@ cudaError_t strip_launch_mma(const void* x, const void* values,
 }
 
 // bf16 x and values: (bm, bnt) in {8, 32, 64} x {32, 64, 128} with bnt
-// dividing bn, `split` in {1, 2, 4, 8} blocks per cluster taking `steps`
-// stages each at most (split * steps * 64 >= max_nnz * R), R % 64 == 0;
-// x and values 16-byte aligned, K % 8 == 0, bk % 8 == 0.  Anything else
-// returns cudaErrorInvalidValue without a launch.
+// dividing bn, ks (kept rows per stage) in {64, 32} dividing R, `split`
+// in {1, 2, 4, 8} blocks per cluster taking `steps` stages each at most
+// (split * steps * ks >= max_nnz * R); x and values 16-byte aligned, K %
+// 8 == 0, bk % 8 == 0.  Anything else returns cudaErrorInvalidValue
+// without a launch.
 template <bool GATHER>
 int strip_mma_dispatch(const void* x, const void* values, const void* indices,
                        const void* counts, const void* gidx, void* out, int M,
                        int K, int N, int bk, int bn, int R, int max_nnz,
-                       int bm, int bnt, int split, int steps, void* stream) {
+                       int bm, int bnt, int split, int steps, int ks,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (bnt <= 0 || R % kStripKS || bn % bnt || steps < 1 ||
-      (long long)split * steps * kStripKS < (long long)max_nnz * R ||
+  if (bnt <= 0 || (ks != 64 && ks != 32) || R % ks || bn % bnt ||
+      steps < 1 || (long long)split * steps * ks < (long long)max_nnz * R ||
       (split != 1 && split != 2 && split != 4 && split != 8))
     return static_cast<int>(err);
-#define STRIP_MMA(BN, BM)                                                    \
-  if (bnt == BN && bm == BM)                                                 \
-    err = strip_launch_mma<BN, BM, GATHER>(x, values, indices, counts, gidx, \
-                                           out, M, K, N, bk, bn, R, max_nnz, \
-                                           split, steps, s);
-  STRIP_MMA(32, 8) STRIP_MMA(64, 8) STRIP_MMA(128, 8)
-  STRIP_MMA(32, 32) STRIP_MMA(64, 32) STRIP_MMA(128, 32)
-  STRIP_MMA(32, 64) STRIP_MMA(64, 64) STRIP_MMA(128, 64)
+#define STRIP_MMA(BN, BM, KS)                                                \
+  if (bnt == BN && bm == BM && ks == KS)                                     \
+    err = strip_launch_mma<BN, BM, GATHER, KS>(x, values, indices, counts,   \
+                                               gidx, out, M, K, N, bk, bn,   \
+                                               R, max_nnz, split, steps, s);
+  STRIP_MMA(32, 8, 64) STRIP_MMA(64, 8, 64) STRIP_MMA(128, 8, 64)
+  STRIP_MMA(32, 32, 64) STRIP_MMA(64, 32, 64) STRIP_MMA(128, 32, 64)
+  STRIP_MMA(32, 64, 64) STRIP_MMA(64, 64, 64) STRIP_MMA(128, 64, 64)
+  STRIP_MMA(32, 8, 32) STRIP_MMA(64, 8, 32) STRIP_MMA(128, 8, 32)
+  STRIP_MMA(32, 32, 32) STRIP_MMA(64, 32, 32) STRIP_MMA(128, 32, 32)
+  STRIP_MMA(32, 64, 32) STRIP_MMA(64, 64, 32) STRIP_MMA(128, 64, 32)
 #undef STRIP_MMA
   return static_cast<int>(err);
 }
@@ -280,13 +284,17 @@ int strip_mma_dispatch(const void* x, const void* values, const void* indices,
 // The dynamic shared memory per block that strip_mma_dispatch passes for
 // these arguments, or -1 for a tile it does not list.
 template <bool GATHER>
-int strip_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt, int steps) {
-#define STRIP_SMEM(BN, BM)                                                  \
-  if (bnt == BN && bm == BM)                                                \
-    return (int)strip_layout<BN, BM, GATHER>(bk, max_nnz, steps).bytes;
-  STRIP_SMEM(32, 8) STRIP_SMEM(64, 8) STRIP_SMEM(128, 8)
-  STRIP_SMEM(32, 32) STRIP_SMEM(64, 32) STRIP_SMEM(128, 32)
-  STRIP_SMEM(32, 64) STRIP_SMEM(64, 64) STRIP_SMEM(128, 64)
+int strip_mma_smem_bytes(int bk, int max_nnz, int bm, int bnt, int steps,
+                         int ks) {
+#define STRIP_SMEM(BN, BM, KS)                                              \
+  if (bnt == BN && bm == BM && ks == KS)                                    \
+    return (int)strip_layout<BN, BM, GATHER, KS>(bk, max_nnz, steps).bytes;
+  STRIP_SMEM(32, 8, 64) STRIP_SMEM(64, 8, 64) STRIP_SMEM(128, 8, 64)
+  STRIP_SMEM(32, 32, 64) STRIP_SMEM(64, 32, 64) STRIP_SMEM(128, 32, 64)
+  STRIP_SMEM(32, 64, 64) STRIP_SMEM(64, 64, 64) STRIP_SMEM(128, 64, 64)
+  STRIP_SMEM(32, 8, 32) STRIP_SMEM(64, 8, 32) STRIP_SMEM(128, 8, 32)
+  STRIP_SMEM(32, 32, 32) STRIP_SMEM(64, 32, 32) STRIP_SMEM(128, 32, 32)
+  STRIP_SMEM(32, 64, 32) STRIP_SMEM(64, 64, 32) STRIP_SMEM(128, 64, 32)
 #undef STRIP_SMEM
   return -1;
 }

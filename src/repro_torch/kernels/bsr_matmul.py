@@ -23,11 +23,14 @@ from repro_torch.core.sparsity import BlockSparsePack
 from repro_torch.kernels import _build, ref, tiling
 
 KS = 64                      # kept rows per stage of the mma route
+HALF_KS = 32                 # the half stage, where KS does not divide
 FMA_BN = 32                  # widest column slice of the fma route
 SMEM_ROWS = 48 * 1024        # source rows the fma route holds per strip
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Those of them on the mma route's half stage (``plan``'s ``ks`` = 32).
+half_launches = 0
 
 
 def strip_plan(M: int, K: int, N: int, dtype: torch.dtype, bk: int,
@@ -36,9 +39,11 @@ def strip_plan(M: int, K: int, N: int, dtype: torch.dtype, bk: int,
     ``(bk, bn)`` tiles, ``max_nnz`` slots per strip, ``rows`` value rows
     per kept tile (``gather``: picked from the tile's ``bk`` rows through
     ``gidx``): the route by dtype (``"mma"`` for bfloat16, ``"fma"`` for
-    float32), then its tiles.  The mma route's column tile is as wide as
-    a stage's x window (64 columns, or the gathered tile's ``bk``) where
-    ``bn`` allows: the sweep (``tools/mma_tile_sweep.py``) found 64 the
+    float32), then its tiles.  The mma route's stage (``ks``) is 64 kept
+    rows, or the half stage of 32 where 64 does not divide ``rows`` (a
+    combined pack of ``bk = 64`` keeps 32 rows a tile at 2:4).  Its column
+    tile is as wide as a stage's x window (``ks`` columns, or the gathered
+    tile's ``bk``) where ``bn`` allows: the sweep (``tools/mma_tile_sweep.py``) found 64 the
     fastest for a block pack and 128 for a combined one at decode.  Only
     integers of the pack are read, never a device tensor.  Raises for
     geometry neither route takes."""
@@ -55,14 +60,15 @@ def strip_plan(M: int, K: int, N: int, dtype: torch.dtype, bk: int,
     if dtype != torch.bfloat16:
         raise TypeError(f"the strip kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    if rows % KS or bk % 8 or K % 8:
+    ks = next((s for s in (KS, HALF_KS) if rows % s == 0), None)
+    if ks is None or bk % 8 or K % 8:
         raise ValueError(f"the mma route needs {rows} rows per tile to be "
-                         f"a multiple of {KS}, bk % 8 == 0 and K % 8 == 0; "
-                         f"got bk={bk}, K={K}")
-    window = bk if gather else KS
+                         f"a multiple of {KS} or {HALF_KS}, bk % 8 == 0 and "
+                         f"K % 8 == 0; got bk={bk}, K={K}")
+    window = bk if gather else ks
     widths = [w for w in tiling.WIDTHS if bn % w == 0 and w <= window]
-    return tiling.mma_tiles(M, K, N, max_nnz * rows // KS, widths,
-                            ceil=True)
+    return dict(tiling.mma_tiles(M, K, N, max_nnz * rows // ks, widths,
+                                 ceil=True), ks=ks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,14 +87,15 @@ def smem_bytes(M: int, K: int, N: int, max_nnz: int, bk: int = 128,
     compiled library computes it."""
     p = plan(M, K, N, torch.bfloat16, max_nnz, bk, bn)
     return _build.smem_bytes("bsr_matmul", "bsr_matmul_mma_smem_bytes", bk,
-                             max_nnz, p["bm"], p["bn"], p["steps_per_block"])
+                             max_nnz, p["bm"], p["bn"], p["steps_per_block"],
+                             p["ks"])
 
 
 @functools.cache
 def _fns():
     lib = _build.load("bsr_matmul")
     mma, fma = lib.bsr_matmul_mma_launch, lib.bsr_matmul_fma_launch
-    mma.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
+    mma.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fma.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
@@ -132,7 +139,7 @@ def check_strip_pack(x: torch.Tensor, pack, rows: int, metadata) -> None:
 def bsr_matmul(x: torch.Tensor, pack: BlockSparsePack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
-    global launches
+    global launches, half_launches
     _build.refuse_grad("bsr_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.bsr_matmul_ref(x, pack)
@@ -151,9 +158,11 @@ def bsr_matmul(x: torch.Tensor, pack: BlockSparsePack) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if p["route"] == "mma":
         err = mma(*args, p["bm"], p["bn"], p["split"], p["steps_per_block"],
-                  stream)
+                  p["ks"], stream)
     else:
         err = fma(*args, stream)
     _build.check(err, "bsr_matmul")
     launches += 1
+    if p["route"] == "mma" and p["ks"] < KS:
+        half_launches += 1
     return out

@@ -20,10 +20,12 @@ import torch
 
 from repro_torch.core.sparsity import CombinedPack
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.bsr_matmul import check_strip_pack, strip_plan
+from repro_torch.kernels.bsr_matmul import KS, check_strip_pack, strip_plan
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Those of them on the mma route's half stage (``plan``'s ``ks`` = 32).
+half_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,7 +34,8 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
     """The launch plan of ``x (M, K) @ pack (K, N)`` for a combined pack
     of ``(bk, bn)`` tiles, ``max_nnz`` slots per strip and ``n:m`` rows
     kept inside each; a kept tile's ``bk·n/m`` rows are stages of 64 on
-    the mma route, each gathering from the tile's ``bk`` x columns."""
+    the mma route (one half stage of 32 at ``bk = 64``), each gathering
+    from the tile's ``bk`` x columns."""
     if bk * n % m:
         raise ValueError(f"bk={bk} keeps no whole number of {n}:{m} rows")
     return strip_plan(M, K, N, dtype, bk, bn, max_nnz, bk * n // m,
@@ -46,14 +49,15 @@ def smem_bytes(M: int, K: int, N: int, max_nnz: int, bk: int = 128,
     compiled library computes it."""
     p = plan(M, K, N, torch.bfloat16, max_nnz, bk, bn, n, m)
     return _build.smem_bytes("csa_matmul", "csa_matmul_mma_smem_bytes", bk,
-                             max_nnz, p["bm"], p["bn"], p["steps_per_block"])
+                             max_nnz, p["bm"], p["bn"], p["steps_per_block"],
+                             p["ks"])
 
 
 @functools.cache
 def _fns():
     lib = _build.load("csa_matmul")
     mma, fma = lib.csa_matmul_mma_launch, lib.csa_matmul_fma_launch
-    mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + \
+    mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + \
         [ctypes.c_void_p]
     fma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
@@ -64,7 +68,7 @@ def _fns():
 def csa_matmul(x: torch.Tensor, pack: CombinedPack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
-    global launches
+    global launches, half_launches
     _build.refuse_grad("csa_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.csa_matmul_ref(x, pack)
@@ -86,9 +90,11 @@ def csa_matmul(x: torch.Tensor, pack: CombinedPack) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if p["route"] == "mma":
         err = mma(*args, p["bm"], p["bn"], p["split"], p["steps_per_block"],
-                  stream)
+                  p["ks"], stream)
     else:
         err = fma(*args, stream)
     _build.check(err, "csa_matmul")
     launches += 1
+    if p["route"] == "mma" and p["ks"] < KS:
+        half_launches += 1
     return out

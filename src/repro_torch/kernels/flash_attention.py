@@ -7,7 +7,7 @@ soft-capping, GQA and the suffix offset ``Lk - Lq``.  On a CUDA tensor
 it launches ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention.py``; the source's head says what bounds
 it and how it is laid out): bfloat16 at D = 64, 128 or 160 runs on the
-tensor cores, float32 (and bfloat16 at D = 32 or 256) on CUDA-core FMAs,
+tensor cores, float32 (and bfloat16 at D = 16, 32 or 256) on CUDA-core FMAs,
 as :func:`plan` says.  On a CPU tensor it runs the plain version
 ``ref.mha_ref``.  There is no fallback between them.
 """

@@ -20,10 +20,13 @@ from repro_torch.core.sparsity import NMPack
 from repro_torch.kernels import _build, ref, tiling
 
 KS = 64                      # compressed rows per stage of the mma route
+HALF_KS = 32                 # the half stage, where KS does not divide
 FMA_BN = 32                  # widest column slice of the fma route
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Those of them on the mma route's half stage (``plan``'s ``ks`` = 32).
+half_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,7 +36,9 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2, m: int = 4,
     (``"mma"`` for bfloat16, ``"fma"`` for float32), then its tiles.
 
     The mma route's column tile divides ``g``, so a block's columns share
-    one list of source rows; raises for geometry neither route takes."""
+    one list of source rows; its stage (``ks``) is 64 compressed rows, or
+    the half stage of 32 where 64 does not divide them (K = 64 at 2:4: 32
+    kept rows).  Raises for geometry neither route takes."""
     if K % m:
         raise ValueError(f"K={K} is not a multiple of m={m}")
     if dtype == torch.float32:
@@ -44,12 +49,14 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2, m: int = 4,
     if dtype != torch.bfloat16:
         raise TypeError(f"nm_spmm takes float32 or bfloat16, got {dtype}")
     Kc = K // m * n
-    if KS % n or (KS * m // n) % 8 or K % 8 or Kc % KS:
-        raise ValueError(f"the mma route needs {KS} % n == 0, "
-                         f"({KS}*m/n) % 8 == 0, K % 8 == 0 and "
-                         f"K*n/m % {KS} == 0; got n={n}, m={m}, K={K}")
+    ks = next((s for s in (KS, HALF_KS) if Kc % s == 0), None)
+    if ks is None or ks % n or (ks * m // n) % 8 or K % 8:
+        raise ValueError(f"the mma route needs K*n/m to be a multiple of "
+                         f"{KS} or {HALF_KS} (the stage ks), ks % n == 0, "
+                         f"(ks*m/n) % 8 == 0 and K % 8 == 0; got n={n}, "
+                         f"m={m}, K={K}")
     widths = [w for w in tiling.WIDTHS if g % w == 0 and N % w == 0]
-    return tiling.mma_tiles(M, K, N, Kc // KS, widths)
+    return dict(tiling.mma_tiles(M, K, N, Kc // ks, widths), ks=ks)
 
 
 def smem_bytes(M: int, K: int, N: int, n: int = 2, m: int = 4,
@@ -59,7 +66,7 @@ def smem_bytes(M: int, K: int, N: int, n: int = 2, m: int = 4,
     compiled library computes it."""
     p = plan(M, K, N, torch.bfloat16, n, m, g)
     return _build.smem_bytes("nm_spmm", "nm_spmm_mma_smem_bytes", K, n, m,
-                             p["bm"], p["bn"], p["split"])
+                             p["bm"], p["bn"], p["split"], p["ks"])
 
 
 @functools.cache
@@ -68,7 +75,7 @@ def _fns():
     mma, fma = lib.nm_spmm_mma_launch, lib.nm_spmm_fma_launch
     for f in (mma, fma):
         f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-            [ctypes.c_int] * (3 if f is mma else 2) + [ctypes.c_void_p]
+            [ctypes.c_int] * (4 if f is mma else 2) + [ctypes.c_void_p]
         f.restype = ctypes.c_int
     return mma, fma
 
@@ -76,7 +83,7 @@ def _fns():
 def nm_spmm(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
     accumulation."""
-    global launches
+    global launches, half_launches
     _build.refuse_grad("nm_spmm", x, pack.values)
     if x.device.type == "cpu":
         return ref.nm_spmm_ref(x, pack)
@@ -108,9 +115,11 @@ def nm_spmm(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
             out.data_ptr(), M, K, pack.N, pack.n, pack.m, pack.g)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if p["route"] == "mma":
-        err = mma(*args, p["bm"], p["bn"], p["split"], stream)
+        err = mma(*args, p["bm"], p["bn"], p["split"], p["ks"], stream)
     else:
         err = fma(*args, p["mt"], p["bn"], stream)
     _build.check(err, "nm_spmm")
     launches += 1
+    if p["route"] == "mma" and p["ks"] < KS:
+        half_launches += 1
     return out

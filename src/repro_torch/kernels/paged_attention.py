@@ -10,7 +10,7 @@ and ``lens[b]`` rows are valid.  On a CUDA tensor it launches
 it and how it is laid out), which walks only the pages a sequence owns
 and never materializes the gathered view: bfloat16 q and pools at D = 64,
 128 or 160 run on the tensor cores (split over a thread-block cluster),
-float32 q (and bfloat16 at D = 32 or 256) on CUDA-core FMAs, as
+float32 q (and bfloat16 at D = 16, 32 or 256) on CUDA-core FMAs, as
 :func:`plan` says; both take a ``(B, Q, H, D)`` verify block of any ``Q``,
 a sliding ``window`` and a tanh ``softcap`` of the logits (gemma's local
 layers and attention softcap).

@@ -83,7 +83,7 @@ def fma_tiles(M: int, N: int, narrow: int) -> dict:
 # --- attention: flash_attention.cu and paged_attention.cu -------------------
 
 ATTN_DTYPES = ("float32", "bfloat16")
-HEAD_DIMS = (32, 64, 128, 160, 256)  # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)  # head dims the kernels are built for
 MMA_HEAD_DIMS = (64, 128, 160)   # head dims of the tensor-core routes
 FLASH_BQ = (16, 32, 64)          # query rows per block: 1, 2 or 4 warps
 FLASH_BK = (32, 64)              # keys per tile
@@ -121,8 +121,8 @@ def flash_plan(B: int, H: int, Hk: int, Lq: int, Lk: int, D: int,
 
     bfloat16 at D in ``MMA_HEAD_DIMS`` takes the tensor cores (``mma``):
     ``bq`` query rows per block (16 per warp) and ``bk`` keys per tile;
-    float32, and bfloat16 at D = 32 or 256, take the FMA kernel (``fma``,
-    16 rows and 32 keys).  The mma tile: 64 rows (each K/V tile serves
+    float32, and bfloat16 at D = 16, 32 or 256, take the FMA kernel
+    (``fma``, 16 rows and 32 keys).  The mma tile: 64 rows (each K/V tile serves
     four warps), fewer only when ``Lq`` is shorter, and 32 keys up to
     ``Lk = 256``, 64 beyond.  In the sweep 64 rows were fastest, or
     within 8% of the fastest, at every prompt length (128, 200, 512),
@@ -150,8 +150,8 @@ def paged_plan(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
     row tiles, each a grid axis with its own walk of the keys: 16 rows
     (one m16 tile) on the tensor cores, 8 on the FMA route.  bfloat16 q
     and pools at D in ``MMA_HEAD_DIMS`` take the tensor cores (``mma``);
-    float32 q (over float32 or bfloat16 pools), and bfloat16 at D = 32
-    or 256, the FMA kernel (``fma``).  The mma route's ``split`` blocks
+    float32 q (over float32 or bfloat16 pools), and bfloat16 at D = 16,
+    32 or 256, the FMA kernel (``fma``).  The mma route's ``split`` blocks
     of ``warps`` warps per (row tile, sequence, kv head) form a cluster;
     its ``split * warps`` parts take the view's 16-row chunks
     round-robin, each into a ring of ``ring`` chunks.  The rule, from

@@ -6,8 +6,9 @@ from repro_torch.serving.api import Engine, RequestHandle
 from repro_torch.serving.backends import MonoBackend, PagedBackend
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.loops import (DecodeChunk, build_decode_chunk,
-                                       build_decode_loop,
+                                       build_decode_loop, build_decode_step,
                                        build_prefill_slot_step,
+                                       build_prefill_step,
                                        build_prefill_wave_step,
                                        build_prefix_fill_step,
                                        build_prefix_prefill_slot_step,
@@ -24,7 +25,8 @@ __all__ = [
     "PrefixHandle", "PrefixIndex",
     "ChunkBuffers", "DecodeChunk", "EngineStats", "Request",
     "RequestStatus", "TokenEvent", "TERMINAL_STATUSES", "init_decode_state",
-    "sample_token_slots", "build_decode_chunk", "build_decode_loop",
+    "sample_token_slots", "build_decode_chunk",
+    "build_decode_loop", "build_decode_step", "build_prefill_step",
     "build_prefill_slot_step", "build_prefill_wave_step",
     "build_prefix_prefill_slot_step", "build_prefix_fill_step",
     "build_spec_decode_chunk", "build_spec_decode_loop",

@@ -34,6 +34,10 @@
     (the counterpart of the JAX package's one compiled program per
     ``view_pages`` bucket).
 
+:func:`build_prefill_step` / :func:`build_decode_step` are the wave-style
+whole-batch steps: the one-token-per-sync reference loop the serving
+benchmark compares the chunked engine against.
+
 The JAX package compiles these with ``jax.jit``; here the prefill steps
 are plain functions run eagerly (the ``build_*`` functions return
 closures so call sites read the same).
@@ -55,6 +59,32 @@ from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.state import ChunkBuffers, sample_token_slots
 
 State = Dict[str, torch.Tensor]
+
+
+def build_prefill_step(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
+    """(params, batch, cache) → (last_logits, cache): a whole-batch wave
+    prefill of ``batch["tokens"] (B, L)`` into rows ``[0, L)`` of every
+    slot.  The engine itself prefills per slot
+    (:func:`build_prefill_slot_step`)."""
+
+    def step(params, batch, cache):
+        return MZ.prefill(params, cfg, batch, cache)
+
+    return step
+
+
+def build_decode_step(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
+    """(params, token (B,), cache, pos) → (logits, cache): one decode step
+    of every slot; ``pos`` is one host int for all slots or a ``(B,)``
+    tensor of per-slot positions."""
+
+    def step(params, token, cache, pos):
+        if not torch.is_tensor(pos) or pos.dim() == 0:
+            pos = torch.full(token.shape, int(pos), dtype=torch.int32,
+                             device=token.device)
+        return MZ.decode_step(params, cfg, token, cache, pos)
+
+    return step
 
 
 def build_prefill_slot_step(cfg: ModelConfig, scfg: ServeConfig,
@@ -479,14 +509,16 @@ def build_spec_decode_chunk(cfg: ModelConfig, scfg: ServeConfig,
 #: The kernel wrappers' launch counters, ``(module, attribute)``, that a
 #: replay advances by what its capture recorded (a replay makes no Python
 #: call): every wrapper's ``launches``, ``paged_attention``'s count of
-#: verify-block (Q > 1) launches and the attention wrappers' counts of
-#: tensor-core-route and sliding-window launches.
+#: verify-block (Q > 1) launches, the attention wrappers' counts of
+#: tensor-core-route and sliding-window launches and the matmul
+#: wrappers' counts of half-stage launches.
 COUNTED = tuple((mod, "launches") for mod in (
     bsr_matmul, csa_matmul, flash_attention, lookahead_decode, nm_spmm,
     paged_attention)) + tuple((mod, attr) for mod in (
         paged_attention, flash_attention) for attr in (
         "mma_launches", "window_launches")) + (
-    (paged_attention, "block_launches"),)
+    (paged_attention, "block_launches"),) + tuple(
+        (mod, "half_launches") for mod in (bsr_matmul, csa_matmul, nm_spmm))
 
 
 def _cache_ptrs(cache) -> Tuple[int, ...]:

@@ -214,6 +214,12 @@ class RequestHandle:
         return self._req.status in TERMINAL_STATUSES
 
     @property
+    def slot(self) -> Optional[int]:
+        """The slot the request was admitted into (``None`` while
+        queued)."""
+        return self._req.slot
+
+    @property
     def tokens(self) -> List[int]:
         """Tokens emitted so far (a copy)."""
         return list(self._req.out)

@@ -1254,3 +1254,94 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
     assert nm_mod.launches == before
     with torch.no_grad():
         close(nm_mod.nm_spmm(x, pack), ref.nm_spmm_ref(x.detach(), pack))
+
+
+# --- the small geometries of the serving bench's models ----------------------
+# d_model 64 over 4 heads (D = 16), MLPs of 64 <-> 128 packed 2:4 at g = 64
+# (K = 64 keeps 32 rows: one half stage) or combined at bk = bn = 64 (32
+# kept rows a tile)
+
+@pytest.mark.parametrize("M", [1, 8, 16, 128])
+@pytest.mark.parametrize("K,N", [(64, 128), (64, 64), (192, 128)])
+def test_nm_spmm_half_stage(cuda, K, N, M):
+    p = nm_mod.plan(M, K, N, BF16, 2, 4, 64)
+    assert p["route"] == "mma" and p["ks"] == nm_mod.HALF_KS
+    w, _ = pruning.n_m(randn(K, (K, N), cuda) / K ** 0.5, 2, 4, group=64)
+    pack = sparsity.pack_nm(w, 2, 4, g=64)
+    x = randn(M, (M, K), cuda)
+    before = nm_mod.launches
+    got = nm_mod.nm_spmm(x, pack)
+    torch.cuda.synchronize()
+    assert nm_mod.launches == before + 1
+    close(got, ref.nm_spmm_ref(x, pack))
+    close(got, x.float() @ w.float())
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 128])
+@pytest.mark.parametrize("K,N", [(64, 128), (128, 64), (256, 128)])
+@pytest.mark.parametrize("fmt", ["block", "combined"])
+def test_strip_kernels_half_stage(cuda, fmt, K, N, M):
+    """A combined pack of 64 x 64 tiles keeps 32 rows a tile, a block pack
+    of 32 x 64 tiles 32: one half stage each; pruning zeroes about half
+    the tiles."""
+    bk = 64 if fmt == "combined" else 32
+    w = randn(K + M, (K, N), cuda) / K ** 0.5
+    if fmt == "block":
+        pw, _ = pruning.block_semi_structured(w, 0.5, block=bk)
+        pack = sparsity.pack_block_sparse(pw, bk, 64)
+        mod, kernel, plain = bsr_mod, bsr_mod.bsr_matmul, ref.bsr_matmul_ref
+        p = bsr_mod.plan(M, K, N, BF16, pack.max_nnz, bk, 64)
+    else:
+        pw, _ = pruning.combined_nm(w, 0.5, 2, 4, group=64, block=64)
+        pack = sparsity.pack_combined(pw, 2, 4, 64, 64)
+        mod, kernel, plain = csa_mod, csa_mod.csa_matmul, ref.csa_matmul_ref
+        p = csa_mod.plan(M, K, N, BF16, pack.max_nnz, 64, 64)
+    assert p["route"] == "mma" and p["ks"] == bsr_mod.HALF_KS
+    x = randn(M + 1, (M, K), cuda)
+    before = mod.launches
+    got = kernel(x, pack)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    assert torch.equal(got, kernel(x, pack))
+    close(got, plain(x, pack))
+    close(got, x.float() @ pw.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Lq,Lk,kw", [(16, 16, {}), (100, 100, {}),
+                                      (37, 90, {}), (64, 64, {"window": 20}),
+                                      (48, 48, {"causal": False})])
+def test_flash_attention_d16(cuda, Lq, Lk, kw, dtype):
+    run_flash(*flash_inputs(110 + Lq, Lq, Lk, H=4, Hk=2, D=16, dtype=dtype),
+              "fma", **kw)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Q", [1, 4])
+def test_paged_attention_d16(cuda, Q, q_dtype):
+    """The bench's heads (4 over 2, D = 16) on 16-row pages, lens from 0
+    past the view's end; a dead row is exactly zero."""
+    args = paged_inputs(120 + Q, 6, Q, H=4, Hk=2, D=16, lens=[0, 4, 16, 17,
+                                                             100, 200],
+                        q_dtype=q_dtype)
+    got = run_paged(*args, "fma")
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("fmt,kernel", [("nm", nm_mod), ("combined", csa_mod)])
+def test_bench_models_serve_through_the_kernels(cuda, fmt, kernel):
+    """The serving bench's packed model (D = 16, MLPs 64 <-> 128 at g or
+    tiles of 64) served paged on the card: its MLP kernel, flash and
+    paged attention all launch, and every request runs its budget."""
+    from repro_torch.benchmarks import bench_serving
+    from repro_torch.serving import Engine, ServeConfig
+    cfg, params = bench_serving._model(fmt, cuda)
+    scfg = ServeConfig(slots=4, max_len=64, prompt_pad=16, max_new_tokens=8,
+                       decode_chunk=4, eos_token=-1, page_size=16)
+    mods = (kernel, flash_mod, paged_mod)
+    before = [m.launches for m in mods]
+    rng = np.random.default_rng(0)
+    outs = Engine(cfg, scfg, params, device=cuda).generate(
+        [rng.integers(1, cfg.vocab_size, size=n) for n in (3, 9, 16, 12, 5)])
+    assert [len(o) for o in outs] == [8] * 5
+    assert all(m.launches > b for m, b in zip(mods, before))

@@ -28,7 +28,12 @@ assert {"repro_torch.configs.stablelm_12b",
         "repro_torch.optim.compression", "repro_torch.data.pipeline",
         "repro_torch.checkpoint.store", "repro_torch.train.trainer",
         "repro_torch.launch.train",
-        "repro_torch.examples.train_sparse_lm"} <= set(names), names
+        "repro_torch.examples.train_sparse_lm",
+        "repro_torch.launch.serve", "repro_torch.benchmarks.bench_serving",
+        "repro_torch.benchmarks.bench_int7",
+        "repro_torch.examples.quickstart", "repro_torch.examples.serve_lm",
+        "repro_torch.examples.serve_stream",
+        "repro_torch.examples.tinyml_repro"} <= set(names), names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]

@@ -122,15 +122,22 @@ def test_plans_refuse_what_the_kernels_cannot_take(kernel):
         with pytest.raises(ValueError):      # no slot per strip
             mod.plan(8, 1024, 256, torch.float32, 0)
         if kernel == "bsr_matmul":
-            with pytest.raises(ValueError):  # a 32-row tile is no stage
-                mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=32)
-            assert mod.plan(8, 1024, 256, torch.float32, 4, bk=32)[
+            with pytest.raises(ValueError):  # a 16-row tile is no stage
+                mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=16)
+            assert mod.plan(8, 1024, 256, torch.float32, 4, bk=16)[
                 "route"] == "fma"
+            # a 32-row tile is one half stage (x window of 32 columns)
+            p = mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=32)
+            assert p["ks"] == bsr_mod.HALF_KS and p["bn"] == 32
         else:
-            with pytest.raises(ValueError):  # 2:4 of 64 rows: 32 kept
-                mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=64)
+            with pytest.raises(ValueError):  # 2:4 of 32 rows: 16 kept
+                mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=32)
             with pytest.raises(ValueError):  # 3:4 of 2 rows
                 mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=2, n=3, m=4)
+            # 2:4 of 64 rows keeps 32: one half stage (the serving
+            # bench's combined packs, bk = bn = 64)
+            p = mod.plan(8, 1024, 256, torch.bfloat16, 4, bk=64, bn=64)
+            assert p["route"] == "mma" and p["ks"] == bsr_mod.HALF_KS
     elif kernel == "nm_spmm":
         with pytest.raises(ValueError):      # Kc = 48, not whole stages
             nm_mod.plan(8, 96, 256, torch.bfloat16)
@@ -309,3 +316,50 @@ def test_paged_split_never_depends_on_lens():
     call = src[src.index("p = plan("):]
     call = call[:call.index(")\n") + 1]
     assert "lens" not in call and "ptab.shape[1]" in call
+
+
+# --- the serving bench's small geometries ------------------------------------
+# its models: d_model 64 over 4 heads (D = 16) and 2 kv heads, MLPs 64 <->
+# 128 packed 2:4 at g = 64 (nm) or in 64 x 64 combined tiles; decode at 1
+# or 8 slots, prefill of 16-row prompts, wave prefills of 8 x 16 rows
+
+@pytest.mark.parametrize("M", [1, 8, 16, 128])
+@pytest.mark.parametrize("K,N,ks", [(64, 128, 32), (128, 64, 64)])
+def test_nm_plan_takes_the_bench_mlp(K, N, ks, M):
+    """``w_in``/``w_gate`` (K = 64: 32 kept rows) take the half stage,
+    ``w_out`` (K = 128: 64 kept rows) the full one; one g = 64 group's
+    column tile; the stages cover the kept rows exactly."""
+    p = nm_mod.plan(M, K, N, BF16, 2, 4, 64)
+    assert p["route"] == "mma" and p["ks"] == ks and 64 % p["bn"] == 0
+    assert p["split"] * p["steps_per_block"] * ks == K // 2
+    assert nm_mod.plan(M, K, N, FP32, 2, 4, 64)["route"] == "fma"
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 128])
+@pytest.mark.parametrize("K,N,max_nnz", [(64, 128, 1), (128, 64, 2)])
+def test_csa_plan_takes_the_bench_mlp(K, N, max_nnz, M):
+    """64 x 64 combined tiles keep 32 rows each: one half stage a tile,
+    a column tile no wider than the 64-column gathered window."""
+    p = csa_mod.plan(M, K, N, BF16, max_nnz, 64, 64)
+    assert p["route"] == "mma" and p["ks"] == bsr_mod.HALF_KS
+    assert p["bn"] in (32, 64)
+    covered = p["split"] * p["steps_per_block"] * p["ks"]
+    assert max_nnz * 32 <= covered < max_nnz * 32 + p["split"] * p["ks"]
+    assert csa_mod.plan(M, K, N, FP32, max_nnz, 64, 64)["route"] == "fma"
+
+
+@pytest.mark.parametrize("dtype", [BF16, FP32])
+def test_attention_plans_take_head_dim_16(dtype):
+    """D = 16 (the bench's and the streaming demo's heads) is built on the
+    FMA routes of both kernels, in bf16 as in fp32; D = 8 still raises."""
+    assert 16 in tiling.HEAD_DIMS and 16 not in tiling.MMA_HEAD_DIMS
+    for L in (16, 128, 512):
+        p = tiling.flash_plan(8, 4, 2, L, L, 16, dtype)
+        assert p == dict(route="fma", bq=tiling.FLASH_FMA_BQ, bk=32,
+                         grid=(8 * 4, -(-L // tiling.FLASH_FMA_BQ)))
+    for Q in (1, 3, 5):
+        p = tiling.paged_plan(8, 4, 2, Q, 36, 16, (dtype, dtype), 16)
+        assert p == dict(route="fma", warps=8, split=1, rows=2 * Q,
+                         grid=(8, 2, -(-2 * Q // tiling.PAGED_FMA_ROWS)))
+    with pytest.raises(ValueError):
+        tiling.flash_plan(8, 4, 2, 16, 16, 8, dtype)

@@ -1,0 +1,137 @@
+"""The port's serve launcher (``python -m repro_torch.launch.serve``)
+against the JAX package's (``repro.launch.serve``), on the CPU.
+
+Each case runs the JAX launcher's ``main`` (its elastic mesh replaced by
+a 1x1 mesh with Auto axes: jax 0.9's default Explicit axes are refused
+by the JAX engine) and the port's ``main`` with the same flags and
+``--reduced --device cpu``.  The JAX launcher draws its weights from
+``--seed``; the port restores the same weights, carried over by
+``convert.params_from_numpy``, from a checkpoint written by the port's
+``CheckpointManager`` (``--checkpoint-dir``).  Both feed their engines
+the launcher's submit loop (prompts from ``np.random.default_rng(seed)``)
+and print one JSON report: every field but the wall-clock ones (wall
+time, tok/s, TTFT) must be equal, and the port's keys are the JAX
+report's minus exactly its robustness counters (ROADMAP queue 1 item
+12).  One JAX launch per case.
+"""
+
+import contextlib
+import io
+import json
+import sys
+
+import jax
+import pytest
+import torch
+
+from repro import configs as JC
+from repro import models as JM
+from repro.launch import mesh as jmesh
+from repro.launch import serve as jserve
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.convert import params_from_numpy
+from repro_torch.launch import serve as tserve
+from test_torch_model import flatten, jax_mesh
+
+ARCH = "qwen3-0.6b"
+BASE = ["--arch", ARCH, "--reduced", "--requests", "6", "--slots", "2",
+        "--max-new", "8", "--decode-chunk", "4"]
+CASES = {
+    "mono": [],
+    "paged-prefix": ["--page-size", "16", "--prefix-cache",
+                     "--shared-prefix", "16", "--prompt-len", "16"],
+    "spec": ["--spec-k", "3"],
+}
+#: the JAX report's robustness counters, left out until item 12
+ROBUSTNESS = {"timeouts", "rejections", "preemptions", "numeric_faults",
+              "kernel_failures", "fetch_errors", "degraded",
+              "degraded_recoveries"}
+#: wall-clock fields: the only ones allowed to differ
+TIMED = {"wall_s", "tok_per_s", "ttft_p50_ms"}
+
+
+def run_main(main, argv=None):
+    """``main(argv)``'s printed lines and its exit code."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main() if argv is None else main(argv)
+    return buf.getvalue().strip().splitlines(), rc
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """The JAX launcher's weights (``init_model`` at seed 0) in a port
+    checkpoint, written as ``{"params": ...}`` at step 7."""
+    d = str(tmp_path_factory.mktemp("ckpt"))
+    cfg = JC._module(ARCH).reduced()
+    with jax_mesh():
+        jp = JM.init_model(jax.random.key(0), cfg)
+    CheckpointManager(d).save(
+        7, {"params": params_from_numpy(flatten(jp), "cpu")}, blocking=True)
+    return d
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def reports(request, checkpoint):
+    """(JAX report, port report, port's printed lines) of one case."""
+    flags = BASE + CASES[request.param]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jmesh, "make_elastic_mesh", lambda **kw: jax_mesh())
+    mp.setattr(sys, "argv", ["serve"] + flags)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        jlines, jrc = run_main(jserve.main)
+        tlines, trc = run_main(tserve.main, flags + [
+            "--device", "cpu", "--checkpoint-dir", checkpoint])
+    finally:
+        torch.set_num_threads(threads)
+        mp.undo()
+    assert jrc == trc == 0
+    return json.loads(jlines[-1]), json.loads(tlines[-1]), tlines
+
+
+def test_report_keys_are_the_jax_keys_but_robustness(reports):
+    jrep, trep, _ = reports
+    assert ROBUSTNESS <= set(jrep)
+    assert set(trep) == set(jrep) - ROBUSTNESS
+
+
+def test_report_matches_jax(reports):
+    """Every deterministic field: tokens, syncs, prefills, KV bytes and,
+    per case, the pages, the prefix counters and speculation's drafted /
+    accepted tokens."""
+    jrep, trep, _ = reports
+    for key in sorted(set(trep) - TIMED):
+        assert trep[key] == jrep[key], key
+    assert trep["generated_tokens"] > 0 and trep["host_syncs"] > 0
+
+
+def test_restores_the_checkpoint(reports):
+    *_, lines = reports
+    assert lines[0] == "restored checkpoint step 7"
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--dry-run"], "item 14c"),
+    (["--model-parallel", "2"], "item 13"), (["--devices", "8"], "item 13"),
+    (["--max-queue", "4"], "item 12"), (["--deadline-ms", "50"], "item 12"),
+    (["--supervise"], "item 12"), (["--journal", "wal.jsonl"], "item 12"),
+    (["--snapshot-dir", "snap"], "item 12"),
+    (["--snapshot-every", "2"], "item 12"),
+    (["--watchdog-ms", "100"], "item 12"),
+])
+def test_unported_flags_raise(flags, item):
+    """A flag of unported work raises before any model is built, naming
+    the ROADMAP item that ports it; its default value is accepted."""
+    with pytest.raises(NotImplementedError, match=item):
+        tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu"] + flags)
+
+
+def test_defaults_run_on_the_card():
+    """Without ``--device`` the launcher asks for the card, and without
+    one it raises instead of serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", ARCH, "--reduced"])

@@ -131,7 +131,7 @@ def main() -> int:
                             if not strip and steps % split:
                                 continue
                             shape = dict(route="mma", bm=bm, bn=bn,
-                                         split=split)
+                                         split=split, ks=64)
                             if not strip:
                                 shape["steps_per_block"] = steps // split
                             mod.plan = forced(kname, shape)
