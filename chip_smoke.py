@@ -325,6 +325,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``serve_lm`` and ``serve_stream`` on the card; gate: all six
      kernels launched.  The line after ``{"train": ...}`` is
      ``{"launchers": ...}``.
+ 16. the dry run, the autotune rows, roofline and perf trend
+     (``dryrun_and_autotune``; the autotune cache is a fresh file under
+     ``build/chip_smoke/``, set in ``REPRO_TORCH_AUTOTUNE_CACHE`` before
+     the port is imported, so phases 3-15 run the tiling rule): (a)
+     qwen3-0.6b ``sparse()`` at full width and phase 4's serve geometry
+     on ``meta`` (``TRACE_STEPS`` of a decode chunk through
+     ``launch.analysis``); gates: the param and cache bytes equal the
+     bytes the built engine's params, cache and chunk buffers asked the
+     allocator for, and the predicted peak of a decode chunk is at least
+     ``PEAK_FLOOR`` of the card's for one eager chunk; the predicted step
+     bound against phase 4's warm ms per step is printed as a finding.
+     (b) ``benchmarks.warm_autotune`` on one layer each of nm and
+     combined qwen3-0.6b and its paged geometry (every page view of the
+     serve, Q = 1 and the verify blocks); gates: every row written with
+     no skipped candidate, each cached plan within the bf16 tolerance of
+     its plain version on fresh inputs, a serve at ``AUTOTUNE_LAYERS``
+     layers under the cache runs cached plans (``autotune.hits``, every
+     decode-geometry nm key among them) and gives the tokens of the same
+     serve under an empty cache or splits only at a near tie.  (c)
+     ``launch.dryrun.run_cell`` of qwen3-0.6b's prefill and decode cells
+     through ``benchmarks.roofline``, and ``benchmarks.perf_trend``
+     between two ``benchmarks.run --json`` records of the kernels
+     section at its smoke shape (a finding: exit 1 only names rows that
+     moved past 30%).  The line after ``{"launchers": ...}`` is
+     ``{"dryrun": ...}``.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -337,6 +362,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -533,11 +559,10 @@ def check_nm_spmm(cfg, dev, copies: int = 4, projections=None,
         err = max(err, err_m)
         if M not in timed:
             continue
-        nbytes = flops = 0.0
-        for p in packs[:n_proj]:
-            nbytes += (M * p.K + p.Kc * p.N + M * p.N) * 2 + p.idx.numel() * 4
-            flops += 2.0 * M * p.Kc * p.N
-        b, by = bound_ms(nbytes, flops)
+        costs = [K.cost(M, p.K, p.N, torch.bfloat16, 2, 4, g)
+                 for p in packs[:n_proj]]
+        b, by = bound_ms(sum(c["bytes"] for c in costs),
+                         sum(c["flops"] for c in costs))
         rows[M] = dict(
             **timings(lambda: [K.nm_spmm(xs[p.K], p) for p in packs],
                       lambda: [ref.nm_spmm_ref(xs[p.K], p) for p in packs],
@@ -548,8 +573,8 @@ def check_nm_spmm(cfg, dev, copies: int = 4, projections=None,
             f" at M={M}: {json.dumps(rows[M])}")
         for (proj, _, _), p, w in zip(projections, packs, dense):
             x = xs[p.K]
-            b, by = bound_ms((M * p.K + p.Kc * p.N + M * p.N) * 2
-                             + p.idx.numel() * 4, 2.0 * M * p.Kc * p.N)
+            c = K.cost(M, p.K, p.N, torch.bfloat16, 2, 4, g)
+            b, by = bound_ms(c["bytes"], c["flops"])
             log(f"[kernels] nm_spmm {cfg.name} {proj} M={M}: " + json.dumps(
                 dict(ms=device_ms(lambda: K.nm_spmm(x, p)),
                      library_ms=device_ms(lambda: torch.matmul(x, w)),
@@ -650,9 +675,9 @@ def check_paged_attention(cfg, dev, copies: int = 12, cases=PAGED_CASES,
         live = int(np.maximum(hi - lo, 0).sum())
         pages = int(sum(-(-int(h) // ps) - int(l) // ps
                         for l, h in zip(lo, hi) if h > l))
-        nbytes = 2 * q.numel() * q.element_size() + live * Hk * D * 2 * 2 \
-            + pages * 4 + B * 4
-        b, by = bound_ms(nbytes, 4.0 * H * D * int((reach - first).sum()),
+        c = K.cost(B, H, Hk, Q, mp, D, (q.dtype, pools[0][0].dtype), ps,
+                   pairs=int((reach - first).sum()), rows=live, pages=pages)
+        b, by = bound_ms(c["bytes"], c["flops"],
                          BF16_FLOPS_PER_S if dtype == torch.bfloat16
                          else FP32_FLOPS_PER_S)
         rows[what, Q, dtype] = dict(
@@ -707,9 +732,8 @@ def check_flash_attention(cfg, dev, lengths=(128, 200)) -> dict:
                 f"flash_attention {what}", K.flash_attention(q, k, v),
                 ref.mha_ref(q.float(), k.float(), v.float())))
             kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
-            pairs = L * (L + 1) / 2
-            b, by = bound_ms((2 * H + 2 * Hk) * L * D * q.element_size(),
-                             4.0 * H * D * pairs,
+            c = K.cost(1, H, Hk, L, L, D, dtype, pairs=L * (L + 1) / 2)
+            b, by = bound_ms(c["bytes"], c["flops"],
                              BF16_FLOPS_PER_S if dtype == torch.bfloat16
                              else FP32_FLOPS_PER_S)
             rows[L, dtype] = dict(
@@ -730,9 +754,9 @@ def check_flash_attention(cfg, dev, lengths=(128, 200)) -> dict:
             ref.mha_ref(q.float(), k.float(), v.float())))
         kr, vr = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
         mask = causal_lower_right(Lq, Lk)
-        pairs = Lq * (Lk - Lq) + Lq * (Lq + 1) / 2
-        b, by = bound_ms((2 * H * Lq + 2 * Hk * Lk) * D * 2,
-                         4.0 * H * D * pairs)
+        c = K.cost(1, H, Hk, Lq, Lk, D, torch.bfloat16,
+                   pairs=Lq * (Lk - Lq) + Lq * (Lq + 1) / 2)
+        b, by = bound_ms(c["bytes"], c["flops"])
         row = dict(**timings(lambda: K.flash_attention(q, k, v),
                              lambda: ref.mha_ref(q, k, v),
                              lambda: sdpa(q, kr, vr, attn_mask=mask), 1),
@@ -865,15 +889,16 @@ def check_strip_kernel(cfg, dev, fmt: str, copies: int) -> dict:
         err = max(err, err_m)
         if M not in TIMED_M:
             continue
-        nbytes = flops = 0.0
-        for p in packs[:7]:
-            rows_kept = int(p.counts.sum()) * p.values.shape[2]
-            nbytes += (M * p.K + rows_kept * p.bn + M * p.N) * 2 \
-                + (int(p.counts.sum()) + p.counts.numel()) * 4
-            if fmt == "combined":
-                nbytes += rows_kept * 4                       # gidx
-            flops += 2.0 * M * rows_kept * p.bn
-        b, by = bound_ms(nbytes, flops)
+        # the tiles this run's data holds (counts.sum()), not every slot
+        costs = [(bsr_matmul.cost(M, p.K, p.N, torch.bfloat16, p.max_nnz,
+                                  p.bk, p.bn, nnz=int(p.counts.sum()))
+                  if fmt == "block" else
+                  csa_matmul.cost(M, p.K, p.N, torch.bfloat16, p.max_nnz,
+                                  p.bk, p.bn, p.n, p.m,
+                                  nnz=int(p.counts.sum())))
+                 for p in packs[:7]]
+        b, by = bound_ms(sum(c["bytes"] for c in costs),
+                         sum(c["flops"] for c in costs))
         rows[M] = dict(
             **timings(lambda: [kernel(xs[p.K], p) for p in packs],
                       lambda: [plain(xs[p.K], p) for p in packs],
@@ -926,11 +951,9 @@ def check_lookahead(cfg, dev, copies: int = 4) -> dict:
         err = max(err, err_m)
         if M not in TIMED_M:
             continue
-        nbytes = flops = 0.0
-        for p in packs[:7]:
-            nbytes += (M * p.K + M * p.N) * 2 + p.K * p.N + p.N * 4
-            flops += 2.0 * M * p.K * p.N
-        b, by = bound_ms(nbytes, flops)
+        costs = [K.cost(M, p.K, p.N, torch.bfloat16) for p in packs[:7]]
+        b, by = bound_ms(sum(c["bytes"] for c in costs),
+                         sum(c["flops"] for c in costs))
         rows[M] = dict(
             **timings(lambda: [K.lookahead_matmul(xs[p.K], p)
                                for p in packs],
@@ -1108,6 +1131,11 @@ def serve_prompts(eng, prompts, counters) -> tuple:
     }, launches
 
 
+#: phase 4's warm graph ms per decode step, per format (phase 16 (a)
+#: prints the dry run's bound against nm's)
+WARM_MS_PER_STEP: dict = {}
+
+
 def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
                      max_new: int = 64, zero_tiles: bool = False,
                      profile: bool = True) -> dict:
@@ -1141,6 +1169,7 @@ def serve_full_width(cfg, dev, counters, path, *, requests: int = 16,
         warm = [ms for name, _, (_, rep, _) in turns if name == "graph warm"
                 for ms in rep["chunk_ms"]]
         profile_decode_chunk(eng, prompts, sum(warm) / len(warm))
+        WARM_MS_PER_STEP[fmt] = sum(warm) / len(warm) / scfg.decode_chunk
     return launches
 
 
@@ -1689,8 +1718,11 @@ def prefix_vs_cpu(cfg, dev) -> None:
 # --- phase 8: speculative decoding ------------------------------------------
 
 SPEC_K = 3                         # drafted tokens per verify block
-#: phase 8's depth: 12 serves of 28 layers took ~200 s of the run
-SPEC_LAYERS = 8
+#: phase 8's depth: 12 serves of 28 layers took ~200 s of the run; cut
+#: from 8 to 6 with phase 16 (PR 30's first whole run took 1086 s on a
+#: host whose eager steps ran 1.3-1.7x slower than PR 21's, phase 8
+#: 78.3 s of it: the host-bound turns scale with the layers)
+SPEC_LAYERS = 6
 
 
 def spec_config(**kw):
@@ -1838,10 +1870,12 @@ def spec_vs_cpu(cfg, dev, counters) -> None:
 #: full depth (a dense bf16 init of qwen2-vl's 80 layers is ~141 GB,
 #: dbrx's 40 packed layers ~134 GB).  Phase 15 came with stablelm cut
 #: again from 10 layers to 8 (its first whole run took 898 s, phase 9
-#: 78.7 s of it, against the script's 950 s cap).
-FORMAT_LAYERS = 14
-STABLELM_LAYERS = 8
-QWEN2_VL_LAYERS = 8
+#: 78.7 s of it, against the script's 950 s cap).  Phase 16 came with
+#: both cut again, to 6 (phase 9 took 94.6 s of a 1086 s run, see
+#: ``SPEC_LAYERS``), and phase 4's other formats from 14 layers to 10.
+FORMAT_LAYERS = 10
+STABLELM_LAYERS = 6
+QWEN2_VL_LAYERS = 6
 
 
 def cut_depth(cfg, n_layers: int):
@@ -1969,9 +2003,10 @@ def family_vs_cpu(cfg, dev, counters) -> None:
 
 #: phase 10's depths (see ``FORMAT_LAYERS``): qwen2-moe's eager step is
 #: ~230 ms at 12 layers (183 nm_spmm launches a layer and step); cut from
-#: 6 layers to 4 for phase 15 (phase 10 took 99.9 s of its first run)
-QWEN2_MOE_LAYERS = 4
-DBRX_LAYERS = 4
+#: 6 layers to 4 for phase 15 (phase 10 took 99.9 s of its first run),
+#: and both to 3 for phase 16 (97.6 s of a 1086 s run, see ``SPEC_LAYERS``)
+QWEN2_MOE_LAYERS = 3
+DBRX_LAYERS = 3
 #: rows each expert takes in phase 10's serve: C at 8 decode slots
 #: (qwen2-moe 1, dbrx 3) and in a 128-row prompt (11, 40)
 EXPERT_M = (1, 3, 11, 40)
@@ -2156,10 +2191,11 @@ def moe_vs_cpu(cfg, dev, counters) -> None:
     small = dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
                                 dtype="float32")
     params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
-    # 8 new tokens: the CPU path streams a dbrx layer's 6.3 GB of fp32
-    # packs per forward, a second or more each
+    # 4 new tokens (8 before PR 30): the CPU path streams a dbrx layer's
+    # 6.3 GB of fp32 packs per forward, a second or more each (dbrx's CPU
+    # path took 43.0 s of phase 10 at 8 tokens)
     scfg = ServeConfig(slots=4, max_len=160, prompt_pad=32, page_size=16,
-                       decode_chunk=8, max_new_tokens=8, eos_token=-1)
+                       decode_chunk=4, max_new_tokens=4, eos_token=-1)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, small.vocab_size, size=int(n)).astype(np.int32)
                for n in (5, 17, 26, 32)]
@@ -2476,8 +2512,9 @@ NONCAUSAL_SHAPES = (("encoder L=512", 512, 512), ("encoder L=300", 300, 300),
 FID_ATOL = 1e-3                    # phase 12 (c): fp32 logits, card vs CPU
 
 
-#: phase 12's depth (see ``FORMAT_LAYERS``): encoder and decoder layers
-SEAMLESS_LAYERS = 8
+#: phase 12's depth (see ``FORMAT_LAYERS``): encoder and decoder layers,
+#: cut from 8 to 6 with phase 16 (PR 30's whole runs took 1083-1110 s)
+SEAMLESS_LAYERS = 6
 
 
 def encdec_config():
@@ -3095,10 +3132,12 @@ def gemma_spec(cfg, dev, counters) -> dict:
 #: phase 14's stages: the dense stage of examples/train_sparse_lm.py (lr
 #: 3e-3, warmup 20), then the masked fine-tune (lr 1e-3, warmup 10), cut
 #: from 60 steps: phase 14 took ~230 s of its 240 at 60 (a step is
-#: ~0.55-0.65 s of host-bound eager work on the card's host)
-DENSE_STEPS = 120
+#: ~0.55-0.65 s of host-bound eager work on the card's host).  The dense
+#: stage was cut from 120 steps to 60 with phase 16: PR 30's whole runs
+#: took 1086 and 1092 s, phase 14 197-200 s of them (the dense stage 86 s)
+DENSE_STEPS = 60
 FT_STEPS = 40
-CKPT_STEP = 60                     # the one asynchronous checkpoint
+CKPT_STEP = 40                     # the one asynchronous checkpoint
 #: launch/train.py's defaults
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TIMED_STEPS = 4                    # steps instrumented with CUDA events
@@ -3956,6 +3995,343 @@ def launchers_and_cnn(dev, counters) -> tuple:
     return total, report
 
 
+# --- phase 16: the dry run, the autotune rows, roofline and perf trend ------
+
+#: phase 4's serving geometry, the one phase 16 predicts and warms
+PHASE4_SERVE = dict(slots=8, max_len=512, prompt_pad=128, page_size=16,
+                    decode_chunk=16, eos_token=-1)
+#: (a): the dry run's decode-chunk peak against the card's, at least
+PEAK_FLOOR = 0.9
+#: (b): depth of the serves under the cache and without it
+AUTOTUNE_LAYERS = 4
+#: (a): steps of the decode chunk the meta trace runs (each step is the
+#: same work; a whole chunk of 16 took 22.2 s of host time at full width)
+TRACE_STEPS = 2
+
+
+def requested() -> int:
+    """Bytes the live tensors on the card asked the allocator for (its
+    ``allocated`` rounds each block up, and keeps a large block's
+    remainder under 1 MiB unsplit)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def check_allocated(what: str, asked: int, allocated: int, want: int,
+                    n: int) -> None:
+    """The card's bytes for ``n`` tensors against the dry run's ``want``:
+    the bytes they asked for equal to it, the allocator's blocks at least
+    as large."""
+    log(f"[dryrun] {what}: predicted {want} B; the card: {asked} B asked "
+        f"for, {allocated} B allocated, {n} tensors")
+    if asked != want or allocated < want:
+        raise AssertionError(f"{what}: the dry run's {want} B is not what "
+                             f"the card holds ({asked} B asked for)")
+
+
+def dryrun_vs_card(cfg, dev) -> dict:
+    """(a) ``cfg`` (full-width qwen3-0.6b, 2:4 MLPs) at phase 4's serve
+    geometry: the dry run's param and cache bytes against what the built
+    engine allocates, its decode-chunk peak against the card's peak for
+    one eager chunk, and its step bound against phase 4's warm ms."""
+    from repro_torch import models as MZ
+    from repro_torch.launch.analysis import (count_step, memory_traffic,
+                                             tensors_of)
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS, tree_bytes
+    from repro_torch.serving import (Engine, ServeConfig, init_decode_state,
+                                     loops)
+    scfg = ServeConfig(max_new_tokens=64, **PHASE4_SERVE)
+    traced = dataclasses.replace(scfg, decode_chunk=TRACE_STEPS)
+    t0 = time.perf_counter()
+    params_m = MZ.abstract_model(cfg, packed=True)
+    cache_m = MZ.abstract_cache(cfg, scfg.slots, scfg.max_len,
+                                page_size=scfg.page_size,
+                                num_pages=scfg.pool_pages)
+    meta = functools.partial(torch.empty, device="meta")
+    with torch.no_grad():
+        count = count_step(
+            loops.build_decode_loop(cfg, traced, paged=True), params_m,
+            cache_m, init_decode_state(scfg.slots, "meta"),
+            meta((scfg.slots,), dtype=torch.float32), None,
+            meta((scfg.slots, scfg.max_pages), dtype=torch.int32))
+    want_p, want_c = tree_bytes(params_m), tree_bytes(cache_m)
+    log(f"[dryrun] {cfg.name} decode chunk, {TRACE_STEPS} of its "
+        f"{scfg.decode_chunk} steps on meta in "
+        f"{time.perf_counter() - t0:.1f} s: {count.flops:.4g} "
+        f"FLOPs, peak {count.peak_live_bytes} B ({count.temp_bytes} B past "
+        f"the inputs), kernels {json.dumps(count.kernel_calls)}")
+    # one layer first: whatever the build allocates once per process (a
+    # library's workspace) is then part of the baseline
+    del params_m, cache_m
+    sparse_model(cut_depth(cfg, 1), dev, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_req = torch.cuda.memory_allocated(), requested()
+    params = sparse_model(cfg, dev, SEED)
+    torch.cuda.synchronize()
+    after_p, after_req = torch.cuda.memory_allocated(), requested()
+    if tree_bytes(params) != want_p:
+        raise AssertionError(f"params: {tree_bytes(params)} B built, "
+                             f"{want_p} B predicted")
+    check_allocated("params", after_req - base_req, after_p - base, want_p,
+                    len(tensors_of(params)))
+    eng = Engine(cfg, scfg, params, device=dev)
+    eng._backend._graphs = False        # the eager chunk the dry run ran
+    eng._ensure_device_state()
+    torch.cuda.synchronize()
+    bufs = [eng._bufs.state, eng._bufs.temps, eng._bufs.tokens,
+            eng._bufs.emitted, eng._bufs.tally, eng._bufs.ptab]
+    if tree_bytes(eng._cache) != want_c:
+        raise AssertionError(f"cache: {tree_bytes(eng._cache)} B built, "
+                             f"{want_c} B predicted")
+    check_allocated("cache and chunk buffers", requested() - after_req,
+                    torch.cuda.memory_allocated() - after_p,
+                    want_c + tree_bytes(bufs),
+                    len(tensors_of(eng._cache)) + len(tensors_of(bufs)))
+    for p in phase4_prompts(cfg.vocab_size, scfg.slots):
+        eng.submit(p)
+    eng.step()                          # admits every slot, one chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.step()                          # one chunk, nothing admitted
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    card_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
+        - base_req
+    log(f"[dryrun] decode chunk peak: predicted {count.peak_live_bytes} B; "
+        f"the card {card} B allocated ({card_req} B asked for) above what "
+        f"it held before the params: {count.peak_live_bytes / card:.4f} "
+        f"of the allocated peak")
+    if count.peak_live_bytes < PEAK_FLOOR * card:
+        raise AssertionError(f"the dry run's decode-chunk peak is under "
+                             f"{PEAK_FLOOR} of the card's")
+    eng.run()
+    per_step = count.flops / TRACE_STEPS / PEAK_FLOPS
+    traffic = memory_traffic(want_p, count.temp_bytes // TRACE_STEPS, want_c)
+    bound_ms = max(per_step, traffic / HBM_BW) * 1e3
+    warm = WARM_MS_PER_STEP.get("nm")
+    log(f"[dryrun] finding: predicted decode step bound {bound_ms:.4f} ms "
+        f"({'compute' if per_step * 1e3 >= bound_ms else 'memory'}: "
+        f"{count.flops / TRACE_STEPS:.4g} FLOPs, {traffic} B); "
+        f"phase 4's warm graph step "
+        + (f"{warm:.4f} ms, {warm / bound_ms:.2f}x the bound" if warm
+           else "not measured in this run"))
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"param_bytes": want_p, "cache_bytes": want_c,
+            "chunk_peak_bytes": count.peak_live_bytes,
+            "card_chunk_peak_bytes": card, "step_bound_ms": bound_ms,
+            "warm_ms_per_step": warm}
+
+
+def check_cached_plans(models, paged, dev) -> float:
+    """Each cached plan of (b)'s keys launched on fresh inputs against the
+    plain version; returns the largest abs error."""
+    from repro_torch.benchmarks import warm_autotune as W
+    from repro_torch.kernels import autotune, dispatch, ref
+    from repro_torch.kernels.paged_attention import PagedKV
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    err = 0.0
+    for fmt, (_, params) in models.items():
+        for pack in W.layer_packs(params):
+            for M in W.serving_ms(PHASE4_SERVE["slots"],
+                                  PHASE4_SERVE["prompt_pad"], wave=True):
+                d = dispatch.select(pack, M=M, device=dev)
+                if d.reason != "cached":
+                    raise AssertionError(f"{d.key}: no cached row")
+                x = torch.randn((M, pack.K), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                mod = dispatch.registry()[d.kernel].module
+                got = getattr(mod, d.kernel)(x, pack, use_plan=d.plan)
+                err = max(err, check_close(f"{d.key} cached plan", got,
+                                           dispatch.registry()[d.kernel]
+                                           .run(x, pack, "ref")))
+    for g in paged:
+        for view in g["views"]:
+            P = PHASE4_SERVE["slots"] * view + 1
+            pools = [torch.randn((P, g["page_size"], g["Hk"], g["D"]),
+                                 generator=gen, device=dev
+                                 ).to(torch.bfloat16) for _ in range(2)]
+            ptab = torch.randperm(P - 1, generator=gen, device=dev
+                                  ).add(1).to(torch.int32).reshape(-1, view)
+            for Q in [1] + [k + 1 for k in W.SPEC_KS]:
+                lens = torch.randint(Q, view * g["page_size"] + 1,
+                                     (PHASE4_SERVE["slots"],), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                shape = (PHASE4_SERVE["slots"], g["H"], g["D"]) if Q == 1 \
+                    else (PHASE4_SERVE["slots"], Q, g["H"], g["D"])
+                q = torch.randn(shape, generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                key = dispatch.paged_key(PHASE4_SERVE["slots"], g["H"],
+                                         g["Hk"], Q, view, g["D"],
+                                         (torch.bfloat16,) * 2,
+                                         g["page_size"], g["window"])
+                entry = dispatch.autotune_cache().get(key)
+                if entry is None:
+                    raise AssertionError(f"{key}: no cached row")
+                got = pa(q, *pools, ptab, lens,
+                         use_plan=autotune.plan_of(entry))
+                err = max(err, check_close(
+                    f"{key} cached plan", got, ref.paged_attention_ref(
+                        q, *pools, ptab, lens)))
+    return err
+
+
+def autotune_rows(cfg, dev, counters) -> dict:
+    """(b) ``warm_autotune`` on qwen3-0.6b's nm and combined MLP keys and
+    its paged geometry at phase 4's serve geometry (one layer of each
+    format holds every distinct key); every row written with no skipped
+    candidate, each cached plan against the plain version, then a serve
+    at ``AUTOTUNE_LAYERS`` layers under the cache against the same serve
+    under an empty one (the tiling rule): the cached plans must be what
+    ran, and the tokens equal or split only at a near tie."""
+    from repro_torch.benchmarks import warm_autotune as W
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.kernels import autotune, dispatch
+    from repro_torch.serving import Engine, ServeConfig
+    scfg = ServeConfig(max_new_tokens=64, **PHASE4_SERVE)
+    models = {"nm": (cut_depth(cfg, 1), None),
+              "combined": (with_format(cut_depth(qwen3_0_6b.config(), 1),
+                                       "combined"), None)}
+    models = {fmt: (c, sparse_model(c, dev, SEED,
+                                    zero_tiles=fmt == "combined"))
+              for fmt, (c, _) in models.items()}
+    paged = [dict(H=cfg.n_heads, Hk=cfg.n_kv_heads, D=cfg.head_dim,
+                  page_size=scfg.page_size, views=W.paged_views(scfg),
+                  window=None)]
+    t0 = time.perf_counter()
+    out = W.run(slots=scfg.slots, prompt_pad=scfg.prompt_pad, reps=5,
+                device=dev, models=models, paged=paged)
+    sweep_s = time.perf_counter() - t0
+    cache = dispatch.autotune_cache()
+    bad = [e["key"] for e in out["entries"]
+           if e["skipped"] or cache.get(e["key"]) is None]
+    if bad:
+        raise AssertionError(f"rows skipped candidates or are missing: {bad}")
+    moved = sum(e["us"] < e["rule_us"] for e in out["entries"])
+    for e in out["entries"]:
+        log(f"[autotune] {e['key']}: {json.dumps(e['plan'])} "
+            f"{e['us']:.3f} us (rule {e['rule_us']:.3f} us)")
+    log(f"[autotune] {len(out['entries'])} rows in {sweep_s:.1f} s, none "
+        f"skipped; {moved} beat the tiling rule's plan")
+    err = check_cached_plans(models, paged, dev)
+    log(f"[autotune] every cached plan against the plain version: max abs "
+        f"err {err:.3e} (rtol {RTOL}, atol {ATOL})")
+    del models
+
+    small = cut_depth(cfg, AUTOTUNE_LAYERS)
+    params = sparse_model(small, dev, SEED)
+    prompts = phase4_prompts(small.vocab_size)
+    warm_cache = dispatch.set_autotune_cache(dispatch.AutotuneCache(
+        str(Path(cache.path).with_suffix(".empty.json"))))
+    try:
+        rule, rule_rep, _ = serve_prompts(Engine(small, scfg, params,
+                                                 device=dev), prompts,
+                                          counters)
+    finally:
+        dispatch.set_autotune_cache(warm_cache)
+    autotune.hits.clear()
+    outs, rep, launches = serve_prompts(Engine(small, scfg, params,
+                                               device=dev), prompts, counters)
+    hit = dict(autotune.hits)
+    decode_keys = {e["key"] for e in out["entries"]
+                   if e["format"] == "nm" and "|M8|" in e["key"]} | {
+        e["key"] for e in out["entries"]
+        if e["format"] == "paged" and "Q1w" in e["key"]}
+    if not hit or not set(hit) <= set(cache.keys()) or \
+            not decode_keys & set(hit):
+        raise AssertionError(f"the serve did not run the cached plans: "
+                             f"{hit}")
+    missed = sorted(k for k in decode_keys
+                    if k not in hit and k.startswith("nm_spmm|"))
+    if missed:
+        raise AssertionError(f"decode keys the serve did not hit: {missed}")
+    log(f"[autotune] the serve under the cache ran {len(hit)} cached keys "
+        f"({sum(hit.values())} launches resolved in Python, the replays "
+        f"repeat them): {json.dumps(hit)}")
+    log(f"[autotune] serve {AUTOTUNE_LAYERS} layers: tiling rule "
+        f"{rule_rep['tok_per_s']:.1f} tok/s, cached plans "
+        f"{rep['tok_per_s']:.1f} tok/s (one serve each, not a gain claim)")
+    far = []
+    for i, (p, a, b) in enumerate(zip(prompts, outs, rule)):
+        split = first_split(a, b)
+        if split is None:
+            continue
+        with torch.no_grad():
+            _, gaps, tops = greedy(params, small, p, len(b),
+                                   scfg.prompt_pad, scfg.max_len,
+                                   device=dev, forced=b)
+        tie = near_tie(gaps[split], tops[split], torch.bfloat16)
+        log(f"[autotune] request {i}: first split at {split}, top-2 gap "
+            f"{gaps[split]:.3e} at top logit {tops[split]:.4f}: "
+            f"{'a near tie' if tie else 'NOT a tie'}")
+        if not tie:
+            far.append(i)
+    same = sum(first_split(a, b) is None for a, b in zip(outs, rule))
+    log(f"[autotune] {same}/{len(outs)} requests token-equal to the tiling "
+        "rule's serve")
+    if far:
+        raise AssertionError(f"requests {far} split from the rule's serve "
+                             "away from a near tie")
+    return launches
+
+
+def roofline_and_trend(dev) -> None:
+    """(c) the dry run's cells of qwen3-0.6b through ``roofline``, and
+    ``perf_trend`` between two ``run.py --json`` records of the kernels
+    section (at its smoke shape)."""
+    from repro_torch.benchmarks import bench_kernels, perf_trend, roofline
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.launch import dryrun
+    out = ROOT / "build" / "chip_smoke"
+    for cell in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell("qwen3-0.6b", cell)
+        path = Path(dryrun._out_path(str(out / "dryrun"), rec["arch"], cell))
+        path.write_text(json.dumps(rec, indent=1))
+    data = roofline.run(str(out / "dryrun"))
+    roofline.main(data)
+    if len(data["rows"]) != 2:
+        raise AssertionError(f"roofline read {len(data['rows'])} records")
+    records = [out / f"BENCH_{i}.json" for i in (0, 1)]
+    shape = bench_kernels.SHAPE
+    bench_kernels.SHAPE = bench_kernels.SMOKE_SHAPE
+    try:
+        for path in records:
+            if bench_run.main(["--sections", "kernels", "--device", "cuda",
+                               "--json", str(path)]):
+                raise AssertionError(f"run.py --json {path} failed")
+    finally:
+        bench_kernels.SHAPE = shape
+    rc = perf_trend.main(["--baseline", str(records[0]), "--current",
+                          str(records[1])])
+    rows = json.loads(records[1].read_text())["sections"]["kernels"][
+        "data"]["rows"]
+    lines, _ = perf_trend.compare(*(json.loads(r.read_text())
+                                    for r in records), 0.30)
+    if rc not in (0, 1) or len(lines) != len(rows):
+        raise AssertionError(f"perf_trend: exit {rc}, {len(lines)} lines "
+                             f"for {len(rows)} rows")
+    log(f"[trend] perf_trend over two kernels records: exit {rc} (1 only "
+        "when a row moved past 30%), one line per row")
+
+
+def dryrun_and_autotune(dev, counters) -> tuple:
+    """Phase 16: (a) ``dryrun_vs_card``, (b) ``autotune_rows``, (c)
+    ``roofline_and_trend``."""
+    from repro_torch.configs import qwen3_0_6b
+    cfg = qwen3_0_6b.sparse()
+    t0 = time.perf_counter()
+    found = dryrun_vs_card(cfg, dev)
+    log(f"[phase 16] (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = autotune_rows(cfg, dev, counters)
+    log(f"[phase 16] (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    roofline_and_trend(dev)
+    log(f"[phase 16] (c) {time.perf_counter() - t0:.1f} s")
+    return launches, found
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -3967,6 +4343,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # a fresh autotune cache inside the checkout, before any import of the
+    # port: a stale one would change the plans phases 3-15 pin
+    fresh = ROOT / "build" / "chip_smoke" / "autotune.json"
+    fresh.parent.mkdir(parents=True, exist_ok=True)
+    for stale in fresh.parent.glob("autotune*.json"):
+        stale.unlink()
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(fresh)
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.configs import qwen3_0_6b
@@ -4134,6 +4517,12 @@ def main() -> int:
         launches[name] += n
     timed("15 launchers and CNN training", t0)
 
+    t0 = time.perf_counter()
+    got, dryrun_found = dryrun_and_autotune(dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    timed("16 dry run and autotune", t0)
+
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -4143,6 +4532,7 @@ def main() -> int:
     log(f"[phase] seconds {json.dumps(seconds)}")
     log(json.dumps({"train": train}))
     log(json.dumps({"launchers": launchers}, default=str))
+    log(json.dumps({"dryrun": dryrun_found}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

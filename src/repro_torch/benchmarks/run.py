@@ -5,14 +5,18 @@
 
 Sections: ``fig8_ussa``, ``fig9_sssa``, ``fig10_csa_models`` (the whole
 grid, ~30 s of host numpy), ``table2_int7``, ``table3_resources``,
-``kernels`` and ``serving``.  Figs. 8–10 and Table III are simulated CFU
-cycles and byte counts on the host; ``kernels`` runs the hand-written
-kernels on the card (``--device cuda``, the default) or their plain
-versions (``--device cpu``); ``table2_int7`` trains three CNNs and
-``serving`` serves its request mixes on ``--device``.  The JAX
-aggregator's ``roofline`` section comes with ROADMAP queue 1 item 14c.
-``--json PATH`` writes each section's wall time, ok flag and its
-``run()`` payload.  Exits 1 if a section raised or printed a FAIL line.
+``kernels``, ``serving`` and ``roofline``.  Figs. 8–10 and Table III are
+simulated CFU cycles and byte counts on the host; ``kernels`` runs the
+hand-written kernels on the card (``--device cuda``, the default) or
+their plain versions (``--device cpu``); ``table2_int7`` trains three
+CNNs and ``serving`` serves its request mixes on ``--device``;
+``roofline`` tabulates the dry run's records (``launch.dryrun --all``,
+host-computed predictions).  ``--json PATH`` writes each section's wall
+time, ok flag and its ``run()`` payload.  Exits 1 if a section raised or
+printed a FAIL line.
+
+``--warm-autotune`` sweeps the serving keys into the autotune cache
+(``benchmarks.warm_autotune``; ``--slots``, ``--prompt-pad``) and exits.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ SECTIONS = {
     "table3_resources": "repro_torch.benchmarks.bench_resources",
     "kernels": "repro_torch.benchmarks.bench_kernels",
     "serving": "repro_torch.benchmarks.bench_serving",
+    "roofline": "repro_torch.benchmarks.roofline",
 }
 #: the sections that run on ``--device``; the others are host numpy
 ON_DEVICE = ("table2_int7", "kernels", "serving")
@@ -85,7 +90,27 @@ def main(argv=None) -> int:
                          "sections (cuda or cpu)")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="write per-section wall time + results")
+    ap.add_argument("--warm-autotune", action="store_true",
+                    help="sweep the serving keys into the autotune cache "
+                         "on --device, then exit")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="--warm-autotune: serving slots (decode M)")
+    ap.add_argument("--prompt-pad", type=int, default=128,
+                    help="--warm-autotune: prompt pad (per-slot refill M; "
+                         "slots * prompt_pad is the wave M, swept on the "
+                         "card only)")
     args = ap.parse_args(argv)
+    if args.warm_autotune:
+        from repro_torch.benchmarks import warm_autotune
+        out = warm_autotune.run(slots=args.slots,
+                                prompt_pad=args.prompt_pad,
+                                device=args.device)
+        warm_autotune.main(out)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(_jsonable(out), f, indent=1, sort_keys=True)
+            print(f"wrote {args.json}")
+        return 0
     wanted = args.sections.split(",")
     unknown = sorted(set(wanted) - set(SECTIONS))
     if unknown:

@@ -7,11 +7,17 @@ dbrx-132b, the SSM/hybrid pair mamba2-130m and zamba2-1.2b, the
 encoder-decoder seamless-m4t-large-v2, and the gemma pair gemma2-27b and
 gemma3-1b (sliding windows, softcaps, post-norms, scaled embeds): every
 architecture of the JAX package's registry.
+
+The shape cells of the dry run (``launch.dryrun``) are the JAX
+package's: ``train_4k``, ``prefill_32k``, ``decode_32k`` and, for
+sub-quadratic architectures only (``cells_for``), ``long_500k``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,6 +31,23 @@ ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "stablelm-12b": "stablelm_12b",
            "mamba2-130m": "mamba2_130m", "zamba2-1.2b": "zamba2_1_2b",
            "seamless-m4t-large-v2": "seamless_m4t_large_v2",
            "gemma2-27b": "gemma2_27b", "gemma3-1b": "gemma3_1b"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq: int
+    batch: int
+    microbatches: int = 1    # grad-accumulation factor for train cells
+
+
+CELLS: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256, microbatches=8),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
 
 
 def _module(arch: str):
@@ -41,3 +64,14 @@ def get(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def cells_for(cfg: ModelConfig) -> List[ShapeCell]:
+    cells = [CELLS["train_4k"], CELLS["prefill_32k"], CELLS["decode_32k"]]
+    if cfg.sub_quadratic:
+        cells.append(CELLS["long_500k"])
+    return cells
+
+
+def list_archs() -> List[str]:
+    return list(ARCHS)

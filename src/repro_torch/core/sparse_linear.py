@@ -21,7 +21,8 @@ from typing import Any, Optional, Sequence
 import torch
 
 from repro_torch.core import pruning, sparsity
-from repro_torch.core.sparsity import PACK_TYPES, LookaheadPack
+from repro_torch.core.sparsity import (PACK_TYPES, BlockSparsePack,
+                                       CombinedPack, LookaheadPack, NMPack)
 from repro_torch.kernels import dispatch
 
 
@@ -180,6 +181,75 @@ def make_draft_params(params: Any, cfg: Any) -> Any:
     if all(f.format == "dense" for f in families):
         return params
     return pack_params(params, cfg)
+
+
+# --- abstract (meta) packs for the dry run ----------------------------------
+
+def abstract_pack(K: int, N: int, cfg: SparsityConfig,
+                  dtype: torch.dtype = torch.bfloat16,
+                  density: Optional[float] = None, device="meta"):
+    """The pack of a ``(K, N)`` weight with ``meta`` tensors (nothing
+    allocated): the layout :func:`pack_weight` gives, a block or combined
+    pack sized at the nominal tile density ``1 - cfg.sparsity`` (or
+    ``density``), as the JAX package's ``abstract_pack`` sizes it."""
+    def t(shape, dt):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    if cfg.format == "dense":
+        return t((K, N), dtype)
+    if cfg.format == "lookahead":
+        return LookaheadPack(enc=t((K, N), torch.int8),
+                             scale=t((1, N), torch.float32), K=K, N=N)
+    d = density if density is not None else (1.0 - cfg.sparsity)
+    Kb, Nb = K // cfg.block_k, N // cfg.block_n
+    max_nnz = max(1, math.ceil(Kb * d))
+    if cfg.format == "block":
+        return BlockSparsePack(
+            values=t((Nb, max_nnz, cfg.block_k, cfg.block_n), dtype),
+            indices=t((Nb, max_nnz), torch.int32),
+            counts=t((Nb,), torch.int32), K=K, N=N, bk=cfg.block_k,
+            bn=cfg.block_n, max_nnz=max_nnz)
+    if cfg.format == "nm":
+        Kc = K * cfg.n // cfg.m
+        return NMPack(values=t((Kc, N), dtype),
+                      idx=t((Kc, N // cfg.block_n), torch.int32),
+                      K=K, N=N, n=cfg.n, m=cfg.m, g=cfg.block_n)
+    if cfg.format == "combined":
+        bkc = cfg.block_k * cfg.n // cfg.m
+        return CombinedPack(
+            values=t((Nb, max_nnz, bkc, cfg.block_n), dtype),
+            gidx=t((Nb, max_nnz, bkc), torch.int32),
+            indices=t((Nb, max_nnz), torch.int32),
+            counts=t((Nb,), torch.int32), K=K, N=N, n=cfg.n, m=cfg.m,
+            bk=cfg.block_k, bn=cfg.block_n, max_nnz=max_nnz)
+    raise ValueError(cfg.format)
+
+
+def sparsify_abstract(abstract_params: Any, cfg: Any) -> Any:
+    """:func:`pack_params` on an abstract (``meta``) param tree: every
+    weight a family's :class:`SparsityConfig` governs becomes an
+    :func:`abstract_pack` (an ``(E, K, N)`` expert stack a list of ``E``
+    of them), the rest stays as it is — the layout
+    ``models.init_model(packed=True)`` gives, sized at the nominal
+    density, so byte counts agree with the JAX ``sparsify_abstract``."""
+
+    def visit(node, names):
+        if isinstance(node, dict):
+            return {k: visit(v, names + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, names) for v in node]
+        scfg = _family_sparsity(names, cfg)
+        if scfg is None or scfg.format == "dense" or node.ndim not in (2, 3):
+            return node
+        K, N = node.shape[-2:]
+        if not _geometry_ok(K, N, scfg):
+            return node
+        if node.ndim == 3:
+            return [abstract_pack(K, N, scfg, node.dtype, device=node.device)
+                    for _ in range(node.shape[0])]
+        return abstract_pack(K, N, scfg, node.dtype, device=node.device)
+
+    return visit(abstract_params, ())
 
 
 def apply_linear(x: torch.Tensor, weight: Any,

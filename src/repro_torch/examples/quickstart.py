@@ -7,14 +7,13 @@
 3. Run the four sparse matmul kernels (block skip, 2:4, combined,
    lookahead int7) against their plain versions (``kernels/ref.py``) in
    float32 and bfloat16: on the card (``--device cuda``, the default) the
-   hand-written kernels, each with the route its plan picks; on the CPU
-   the wrappers run the plain versions themselves.
+   hand-written kernels, each with the route of the plan
+   ``dispatch.select`` resolves (the autotune cache's, else the tiling
+   rule's); on the CPU the wrappers run the plain versions themselves.
 4. Report the cycle-model speedups the FPGA design would see and the
    FLOP fractions of the formats.
 
-The JAX package's ``examples/quickstart.py`` is the reference; its
-``dispatch.select`` line waits for the autotune rows (ROADMAP queue 1
-item 14c), so step 3 calls each kernel and its plain version directly.
+The JAX package's ``examples/quickstart.py`` is the reference.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -28,8 +27,8 @@ import torch
 
 from repro_torch.core import analytical, encoding, pruning, sparsity
 from repro_torch.core.cycle_model import Design, linear_layer_cycles
-from repro_torch.kernels import (bsr_matmul, csa_matmul, lookahead_decode,
-                                 nm_spmm, ref)
+from repro_torch.kernels import (bsr_matmul, csa_matmul, dispatch,
+                                 lookahead_decode, nm_spmm, ref)
 
 #: the error a kernel may show against its plain version, per dtype:
 #: float32 sums in another order; bfloat16 rounds its output
@@ -37,12 +36,12 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 
 def kernel_rows(w: torch.Tensor, w_ss, w_nm, w_cs, device) -> list:
-    """``(name, kernel, plan, max abs err)`` of each pack format's kernel
+    """``(name, kernel, route, max abs err)`` of each pack format's kernel
     against its plain version at 128 rows of x, in float32 and bfloat16;
     raises past ``TOL``."""
     rng = np.random.default_rng(1)
-    K, N = w.shape
-    x32 = torch.from_numpy(rng.normal(size=(128, K)).astype(np.float32))
+    x32 = torch.from_numpy(rng.normal(size=(128, w.shape[0]))
+                           .astype(np.float32))
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         def on(t):
@@ -50,26 +49,22 @@ def kernel_rows(w: torch.Tensor, w_ss, w_nm, w_cs, device) -> list:
         x = on(x32)
         blk = pruning.block_semi_structured(w, 0.5, block=128)[0]
         cases = (
-            ("block-skip (SSSA)", bsr_matmul,
+            ("block-skip (SSSA)",
              sparsity.pack_block_sparse(on(blk), 128, 128),
              bsr_matmul.bsr_matmul, ref.bsr_matmul_ref),
-            ("2:4 compressed (USSA)", nm_spmm,
+            ("2:4 compressed (USSA)",
              sparsity.pack_nm(on(w_nm), 2, 4, g=128),
              nm_spmm.nm_spmm, ref.nm_spmm_ref),
-            ("combined (CSA)", csa_matmul,
+            ("combined (CSA)",
              sparsity.pack_combined(on(w_cs), 2, 4, 128, 128),
              csa_matmul.csa_matmul, ref.csa_matmul_ref),
-            ("lookahead int7", lookahead_decode,
+            ("lookahead int7",
              sparsity.LookaheadPack.from_float(w_ss).to(device),
              lookahead_decode.lookahead_matmul, ref.lookahead_matmul_ref),
         )
-        for name, mod, pack, kernel, plain in cases:
-            if mod is lookahead_decode:
-                plan = mod.plan(128, K, N, dtype)
-            elif mod is nm_spmm:
-                plan = mod.plan(128, K, N, dtype, 2, 4, 128)
-            else:
-                plan = mod.plan(128, K, N, dtype, pack.max_nnz, 128, 128)
+        for name, pack, kernel, plain in cases:
+            sel = dispatch.select(pack, M=x.shape[0], device=device,
+                                  dtype=dtype)
             got, want = kernel(x, pack).float(), plain(x, pack).float()
             err = float((got - want).abs().max())
             rtol, atol = TOL[dtype]
@@ -78,7 +73,7 @@ def kernel_rows(w: torch.Tensor, w_ss, w_nm, w_cs, device) -> list:
                 raise AssertionError(f"{name} {dtype}: kernel-vs-plain max "
                                      f"err {err:.3e} > {bound:.3e}")
             rows.append((f"{name} {str(dtype).split('.')[-1]}",
-                         kernel.__name__, plan["route"], err))
+                         sel.kernel, sel.plan.get("route", sel.mode), err))
     return rows
 
 

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -31,6 +31,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+#: Receivers of the meta route's costs, ``sink(kernel, cost)``:
+#: ``launch.analysis`` adds one while it counts a step.
+COST_SINKS: List[Callable[[str, dict], None]] = []
+#: Above 0 while a wrapper's meta route builds its output: the ops it
+#: issues are the kernel's, whose work its ``cost`` already reported.
+META_DEPTH = 0
 
 
 def _nvcc() -> str:
@@ -108,6 +115,26 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{what}: an input requires grad, and the kernel "
                            "has no backward (train through the cache-less "
                            "forward)")
+
+
+def on_meta(name: str, cost: dict, make: Callable[[], torch.Tensor],
+            *tensors: torch.Tensor) -> torch.Tensor:
+    """The shape-only route of a kernel wrapper on ``meta`` tensors: report
+    the call's ``cost`` (``{"flops", "bytes"}``) to every sink and return
+    ``make()``, the output's shape on ``meta``; no arithmetic runs.  Every
+    operand must lie on ``meta`` too."""
+    global META_DEPTH
+    if any(t.device.type != "meta" for t in tensors):
+        raise ValueError(f"{name}: unsupported device mix: a meta tensor "
+                         "with operands on " + ", ".join(
+                             sorted({str(t.device) for t in tensors})))
+    for sink in COST_SINKS:
+        sink(name, cost)
+    META_DEPTH += 1
+    try:
+        return make()
+    finally:
+        META_DEPTH -= 1
 
 
 def smem_bytes(name: str, symbol: str, *args: int) -> int:

@@ -6,21 +6,26 @@ On a CUDA tensor it launches ``csrc/bsr_matmul.cu`` (the port of
 ``repro/kernels/bsr_matmul.py``; the source's head says what bounds it
 and how it is laid out), which walks each strip's ``counts[j]`` tiles and
 never reads a padding slot: bfloat16 x runs on the tensor cores, float32
-x on CUDA-core FMAs, as :func:`plan` says.  On a CPU tensor it runs the
-plain version ``ref.bsr_matmul_ref``.  There is no fallback between them.
+x on CUDA-core FMAs, as :func:`plan` says, or the plan the autotune cache
+holds for the call (``kernels/autotune.py``).  On a CPU tensor it runs the
+plain version ``ref.bsr_matmul_ref``, and on ``meta`` tensors it only
+gives the output's shape and reports :func:`cost` (the dry run's route).
+There is no fallback between them.
 
-``check_strip_pack`` and ``strip_plan`` are shared with ``csa_matmul``.
+``check_strip_pack``, ``strip_plan``, ``strip_candidates`` and
+``slot_density`` are shared with ``csa_matmul``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
 
 from repro_torch.core.sparsity import BlockSparsePack
-from repro_torch.kernels import _build, ref, tiling
+from repro_torch.kernels import _build, autotune, ref, tiling
 
 KS = 64                      # kept rows per stage of the mma route
 HALF_KS = 32                 # the half stage, where KS does not divide
@@ -71,6 +76,25 @@ def strip_plan(M: int, K: int, N: int, dtype: torch.dtype, bk: int,
                                  ceil=True), ks=ks)
 
 
+def strip_candidates(p: dict, M: int, K: int, N: int, bk: int, bn: int,
+                     max_nnz: int, rows: int, gather: bool) -> List[dict]:
+    """Every plan the built strip instances take for a call whose rule
+    plan is ``p`` (:func:`strip_plan`'s), ``p`` first."""
+    if p["route"] != "mma":
+        return [p]
+    window = bk if gather else p["ks"]
+    widths = [w for w in tiling.WIDTHS if bn % w == 0 and w <= window]
+    return [dict(c, ks=p["ks"]) for c in tiling.mma_candidates(
+        M, K, N, max_nnz * rows // p["ks"], widths, ceil=True)]
+
+
+def slot_density(K: int, bk: int, max_nnz: int) -> float:
+    """The share of a strip's K-tiles its slots hold, ``max_nnz / (K /
+    bk)``: what a strip kernel's plan depends on, read without the card
+    (the autotune key's density, and the dry run's nominal one)."""
+    return min(1.0, max_nnz / max(K // bk, 1))
+
+
 @functools.lru_cache(maxsize=None)
 def plan(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
          bk: int = 128, bn: int = 128) -> dict:
@@ -78,6 +102,33 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
     ``(bk, bn)`` tiles and ``max_nnz`` slots per strip; a 128-row tile is
     two stages of the mma route."""
     return strip_plan(M, K, N, dtype, bk, bn, max_nnz, bk, gather=False)
+
+
+def candidates(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
+               bk: int = 128, bn: int = 128) -> List[dict]:
+    """Every plan the built instances take for this call, :func:`plan`'s
+    first: what ``dispatch.tune`` sweeps."""
+    return strip_candidates(plan(M, K, N, dtype, max_nnz, bk, bn), M, K, N,
+                            bk, bn, max_nnz, bk, gather=False)
+
+
+def pattern(K: int, bk: int, bn: int, max_nnz: int) -> str:
+    """The autotune key's pattern, at the slot density."""
+    return f"bsr{bk}x{bn}d{slot_density(K, bk, max_nnz):.2f}"
+
+
+def cost(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
+         bk: int = 128, bn: int = 128, nnz: Optional[int] = None) -> dict:
+    """FLOPs and HBM bytes of one call over ``nnz`` kept tiles (default
+    every slot, ``N / bn * max_nnz``: what the JAX ``bsr_matmul_ref``
+    counts; the card's data count is ``counts.sum()``): ``2 M bk bn`` per
+    tile, and x, the tiles, their indices and the counts read once, the
+    output written once."""
+    Nb = N // bn
+    tiles = Nb * max_nnz if nnz is None else nnz
+    return {"flops": 2.0 * M * tiles * bk * bn,
+            "bytes": (M * K + M * N + tiles * bk * bn) * dtype.itemsize
+            + (tiles + Nb) * 4}
 
 
 def smem_bytes(M: int, K: int, N: int, max_nnz: int, bk: int = 128,
@@ -136,18 +187,31 @@ def check_strip_pack(x: torch.Tensor, pack, rows: int, metadata) -> None:
         raise ValueError("values (and bf16 x) must be 16-byte aligned")
 
 
-def bsr_matmul(x: torch.Tensor, pack: BlockSparsePack) -> torch.Tensor:
+def bsr_matmul(x: torch.Tensor, pack: BlockSparsePack,
+               use_plan: Optional[dict] = None) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
-    accumulation."""
+    accumulation; ``use_plan`` launches that plan (a sweep's candidate)
+    instead of the cached or the rule's."""
     global launches, half_launches
     _build.refuse_grad("bsr_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.bsr_matmul_ref(x, pack)
+    if x.device.type == "meta":
+        M = x.shape[0]
+        return _build.on_meta(
+            "bsr_matmul", cost(M, pack.K, pack.N, x.dtype, pack.max_nnz,
+                               pack.bk, pack.bn),
+            lambda: x.new_empty((M, pack.N)), x, pack.values, pack.indices,
+            pack.counts)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul: unsupported device {x.device}")
     check_strip_pack(x, pack, pack.bk, {})
     M, K = x.shape
-    p = plan(M, K, pack.N, x.dtype, pack.max_nnz, pack.bk, pack.bn)
+    p = autotune.resolve(
+        "bsr_matmul", M, K, pack.N, autotune.dtype_name(x.dtype),
+        pattern(K, pack.bk, pack.bn, pack.max_nnz),
+        lambda: plan(M, K, pack.N, x.dtype, pack.max_nnz, pack.bk, pack.bn),
+        use_plan)
     out = torch.empty((M, pack.N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out

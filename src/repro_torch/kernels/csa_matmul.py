@@ -7,20 +7,26 @@ K-tiles and, inside each, only the ``bkc = bk·n/m`` rows ``gidx`` keeps.
 On a CUDA tensor it launches ``csrc/csa_matmul.cu`` (the port of
 ``repro/kernels/csa_matmul.py``; the source's head says what bounds it
 and how it is laid out): bfloat16 x runs on the tensor cores, float32 x
-on CUDA-core FMAs, as :func:`plan` says.  On a CPU tensor it runs the
-plain version ``ref.csa_matmul_ref``.  There is no fallback between them.
+on CUDA-core FMAs, as :func:`plan` says, or the plan the autotune cache
+holds for the call (``kernels/autotune.py``).  On a CPU tensor it runs the
+plain version ``ref.csa_matmul_ref``, and on ``meta`` tensors it only
+gives the output's shape and reports :func:`cost` (the dry run's route).
+There is no fallback between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
 
 from repro_torch.core.sparsity import CombinedPack
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.bsr_matmul import KS, check_strip_pack, strip_plan
+from repro_torch.kernels import _build, autotune, ref
+from repro_torch.kernels.bsr_matmul import (KS, check_strip_pack,
+                                            slot_density, strip_candidates,
+                                            strip_plan)
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
@@ -40,6 +46,36 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
         raise ValueError(f"bk={bk} keeps no whole number of {n}:{m} rows")
     return strip_plan(M, K, N, dtype, bk, bn, max_nnz, bk * n // m,
                       gather=True)
+
+
+def candidates(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
+               bk: int = 128, bn: int = 128, n: int = 2, m: int = 4
+               ) -> List[dict]:
+    """Every plan the built instances take for this call, :func:`plan`'s
+    first: what ``dispatch.tune`` sweeps."""
+    return strip_candidates(plan(M, K, N, dtype, max_nnz, bk, bn, n, m), M,
+                            K, N, bk, bn, max_nnz, bk * n // m, gather=True)
+
+
+def pattern(K: int, bk: int, bn: int, max_nnz: int, n: int, m: int) -> str:
+    """The autotune key's pattern, at the slot density."""
+    return f"csa{bk}x{bn}d{slot_density(K, bk, max_nnz):.2f}+{n}:{m}"
+
+
+def cost(M: int, K: int, N: int, dtype: torch.dtype, max_nnz: int,
+         bk: int = 128, bn: int = 128, n: int = 2, m: int = 4,
+         nnz: Optional[int] = None) -> dict:
+    """FLOPs and HBM bytes of one call over ``nnz`` kept tiles (default
+    every slot, ``N / bn * max_nnz``: what the JAX ``csa_matmul_ref``
+    counts; the card's data count is ``counts.sum()``): ``2 M bkc bn`` per
+    tile of ``bkc = bk n / m`` kept rows, and x, the kept rows, their
+    positions, the tile indices and the counts read once, the output
+    written once."""
+    Nb, bkc = N // bn, bk * n // m
+    tiles = Nb * max_nnz if nnz is None else nnz
+    return {"flops": 2.0 * M * tiles * bkc * bn,
+            "bytes": (M * K + M * N + tiles * bkc * bn) * dtype.itemsize
+            + (tiles * bkc + tiles + Nb) * 4}
 
 
 def smem_bytes(M: int, K: int, N: int, max_nnz: int, bk: int = 128,
@@ -65,21 +101,33 @@ def _fns():
     return mma, fma
 
 
-def csa_matmul(x: torch.Tensor, pack: CombinedPack) -> torch.Tensor:
+def csa_matmul(x: torch.Tensor, pack: CombinedPack,
+               use_plan: Optional[dict] = None) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
-    accumulation."""
+    accumulation; ``use_plan`` launches that plan (a sweep's candidate)
+    instead of the cached or the rule's."""
     global launches, half_launches
     _build.refuse_grad("csa_matmul", x, pack.values)
     if x.device.type == "cpu":
         return ref.csa_matmul_ref(x, pack)
+    if x.device.type == "meta":
+        M = x.shape[0]
+        return _build.on_meta(
+            "csa_matmul", cost(M, pack.K, pack.N, x.dtype, pack.max_nnz,
+                               pack.bk, pack.bn, pack.n, pack.m),
+            lambda: x.new_empty((M, pack.N)), x, pack.values, pack.gidx,
+            pack.indices, pack.counts)
     if x.device.type != "cuda":
         raise ValueError(f"csa_matmul: unsupported device {x.device}")
     Nb = pack.N // pack.bn
     check_strip_pack(x, pack, pack.bkc,
                      {"gidx": (Nb, pack.max_nnz, pack.bkc)})
     M, K = x.shape
-    p = plan(M, K, pack.N, x.dtype, pack.max_nnz, pack.bk, pack.bn, pack.n,
-             pack.m)
+    p = autotune.resolve(
+        "csa_matmul", M, K, pack.N, autotune.dtype_name(x.dtype),
+        pattern(K, pack.bk, pack.bn, pack.max_nnz, pack.n, pack.m),
+        lambda: plan(M, K, pack.N, x.dtype, pack.max_nnz, pack.bk, pack.bn,
+                     pack.n, pack.m), use_plan)
     out = torch.empty((M, pack.N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out

@@ -3,23 +3,44 @@
 A :class:`SparsityDescriptor` summarizes a weight (or a paged cache);
 the registry picks the kernel that serves its kind.  The mode follows
 the tensor's device: a CUDA tensor runs the hand-written kernel, a CPU
-tensor the plain PyTorch version.  On a CUDA tensor the kernel runs or
-the call raises — there is no fallback to the plain version, no mode
-override and no autotune sweep (the kernels take no tunable blocks
-yet).  Callers (``core.sparse_linear``, the model layers) go through
-:func:`sparse_matmul`, :func:`attention` and :func:`paged_attention`.
+tensor the plain PyTorch version, and a ``meta`` tensor (the dry run,
+``launch.dryrun``) the wrapper's shape-only route, which reports the
+kernel's ``cost`` and runs no arithmetic.  On a CUDA tensor the kernel
+runs or the call raises — there is no fallback to the plain version and
+no mode override.  Callers (``core.sparse_linear``, the model layers) go
+through :func:`sparse_matmul`, :func:`attention` and
+:func:`paged_attention`.
+
+Autotune rows (``kernels/autotune.py``): on the card each wrapper runs
+the plan the cache holds for its key (:func:`cache_key`), else the
+tiling rule's.  :func:`tune` sweeps a key's candidate plans (the
+``candidates`` of each kernel module, from ``kernels/tiling.py``) by
+their device time (CUDA events over a captured graph) and persists the
+fastest; it and :func:`select` with
+``autotune=True`` are the only places a sweep runs, never inside a
+CUDA-graph capture.  A cached plan that fails to launch raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.sparsity import (PACK_TYPES, BlockSparsePack,
                                        CombinedPack, LookaheadPack, NMPack)
+from repro_torch.kernels import autotune as _at
+from repro_torch.kernels import bsr_matmul as _bsr
+from repro_torch.kernels import csa_matmul as _csa
+from repro_torch.kernels import lookahead_decode as _la
+from repro_torch.kernels import nm_spmm as _nm
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels.autotune import (ARCH, AutotuneCache,
+                                          autotune_cache, set_autotune_cache)
 from repro_torch.kernels.bsr_matmul import bsr_matmul
 from repro_torch.kernels.csa_matmul import csa_matmul
 from repro_torch.kernels.flash_attention import flash_attention
@@ -28,6 +49,12 @@ from repro_torch.kernels.nm_spmm import nm_spmm
 from repro_torch.kernels.paged_attention import PagedKV
 from repro_torch.kernels.paged_attention import \
     paged_attention as _paged_attention
+
+__all__ = ["ARCH", "AutotuneCache", "Decision", "KernelEntry",
+           "SparsityDescriptor", "attention", "autotune_cache", "cache_key",
+           "paged_attention", "plan_params", "registry", "resolve_device",
+           "resolve_mode", "select", "set_autotune_cache", "sparse_matmul",
+           "tune"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +93,22 @@ class SparsityDescriptor:
         return self.kind
 
     @classmethod
-    def of(cls, weight: Any) -> "SparsityDescriptor":
+    def of(cls, weight: Any, nominal: bool = False) -> "SparsityDescriptor":
         """The descriptor of a dense tensor, a pack or a paged cache; a
         block or combined pack's density reads its ``counts`` on the
-        host."""
+        host, except with ``nominal`` or on ``meta`` (nothing to read):
+        then it is the slot density ``max_nnz / (K / bk)``, what the
+        kernel's plan depends on (the autotune keys' density, and the
+        JAX package's for abstract packs)."""
+        if isinstance(weight, (BlockSparsePack, CombinedPack)) and (
+                nominal or weight.counts.device.type == "meta"):
+            kw = dict(K=weight.K, N=weight.N, dtype=_dtype(weight.values),
+                      bk=weight.bk, bn=weight.bn,
+                      density=_bsr.slot_density(weight.K, weight.bk,
+                                                weight.max_nnz))
+            if isinstance(weight, CombinedPack):
+                return cls(kind="combined", n=weight.n, m=weight.m, **kw)
+            return cls(kind="block", **kw)
         if isinstance(weight, NMPack):
             return cls(kind="nm", K=weight.K, N=weight.N,
                        dtype=_dtype(weight.values), n=weight.n, m=weight.m,
@@ -107,36 +146,45 @@ _KINDS = {NMPack: "nm", BlockSparsePack: "block", CombinedPack: "combined",
           LookaheadPack: "lookahead", torch.Tensor: "dense"}
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, allow_meta: bool = False) -> torch.device:
     """The device an entry point runs on.  Entry points default to
     ``"cuda"``; without a CUDA device they raise instead of silently
-    running the plain versions — the caller asks for ``"cpu"``."""
+    running the plain versions — the caller asks for ``"cpu"``.  ``meta``
+    is accepted only where ``allow_meta`` says so: the abstract builders
+    of the dry run (``models.abstract_model``, ``models.abstract_cache``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' to run the plain PyTorch path")
-    if device.type not in ("cuda", "cpu"):
+    if device.type not in ("cuda", "cpu") and not (
+            allow_meta and device.type == "meta"):
         raise ValueError(f"unsupported device {device}")
     return device
 
 
 def resolve_mode(device: torch.device) -> str:
     """``kernel`` for a CUDA device, ``ref`` (the plain version) for the
-    CPU; anything else raises."""
+    CPU, ``meta`` (the wrappers' shape-only route) for ``meta``; anything
+    else raises."""
     device = torch.device(device)
     if device.type == "cuda":
         return "kernel"
     if device.type == "cpu":
         return "ref"
+    if device.type == "meta":
+        return "meta"
     raise ValueError(f"no kernels for device {device}")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:
-    """One dispatchable kernel: ``run(x, weight, mode)``."""
+    """One dispatchable kernel: ``run(x, weight, mode)``; ``module`` is its
+    wrapper's module (``plan``, ``candidates``, ``cost``), ``None`` for
+    the dense product."""
     name: str
     kind: str
     run: Callable[[torch.Tensor, Any, str], torch.Tensor]
+    module: Any = None
 
 
 def _nm_run(x, pack, mode):
@@ -167,11 +215,11 @@ def _paged_run(q, kv, mode, window=None, softcap=None):
 
 
 _REGISTRY: Dict[str, KernelEntry] = {e.name: e for e in (
-    KernelEntry("nm_spmm", "nm", _nm_run),
-    KernelEntry("bsr_matmul", "block", _bsr_run),
-    KernelEntry("csa_matmul", "combined", _csa_run),
-    KernelEntry("lookahead_decode", "lookahead", _lookahead_run),
-    KernelEntry("paged_attention", "paged", _paged_run),
+    KernelEntry("nm_spmm", "nm", _nm_run, _nm),
+    KernelEntry("bsr_matmul", "block", _bsr_run, _bsr),
+    KernelEntry("csa_matmul", "combined", _csa_run, _csa),
+    KernelEntry("lookahead_decode", "lookahead", _lookahead_run, _la),
+    KernelEntry("paged_attention", "paged", _paged_run, _paged),
     # a plain matrix product: what the JAX package leaves to XLA
     KernelEntry("dense", "dense", lambda x, w, mode: x @ w),
 )}
@@ -223,13 +271,249 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            softcap=softcap, scale=scale)
 
 
+# --- autotune rows -----------------------------------------------------------
+
+def cache_key(kernel: str, M: int, desc: SparsityDescriptor,
+              arch: str = ARCH) -> str:
+    """``kernel|M|K|N|dtype|pattern|arch``: the key of a launch of
+    ``kernel`` at ``M`` rows on a weight described by ``desc`` (with the
+    slot density of ``SparsityDescriptor.of(..., nominal=True)``, and
+    ``dtype`` the dtype of ``x``); ``arch`` is ``sm90`` for the card and
+    ``ref`` for the plain version's rows."""
+    return _at.key(kernel, M, desc.K, desc.N, desc.dtype, desc.pattern, arch)
+
+
+@dataclasses.dataclass(frozen=True)
+class Decision:
+    """What dispatch resolves for one call: the kernel, the mode, the
+    launch plan (``{}`` off the card), whether it came from the cache,
+    the descriptor and the cache key."""
+    kernel: str
+    mode: str
+    plan: Dict[str, Any]
+    descriptor: SparsityDescriptor
+    reason: str = ""
+    key: str = ""
+
+    @property
+    def blocks(self) -> Dict[str, Any]:
+        """The JAX ``Decision``'s name for the plan."""
+        return self.plan
+
+
+def _x_dtype(weight: Any) -> torch.dtype:
+    """The dtype of ``x`` a pack is multiplied in on the card: its values'
+    (a lookahead pack's int8 codes take bfloat16)."""
+    if isinstance(weight, LookaheadPack):
+        return torch.bfloat16
+    return weight.values.dtype
+
+
+def _rule_plan(entry: KernelEntry, M: int, weight: Any,
+               dtype: torch.dtype) -> dict:
+    args = _plan_args(entry, M, weight, dtype)
+    return entry.module.plan(*args)
+
+
+def _plan_args(entry: KernelEntry, M: int, weight: Any,
+               dtype: torch.dtype) -> tuple:
+    """The arguments of ``entry.module.plan``/``candidates`` for ``x (M,
+    K)`` of ``dtype`` times ``weight``."""
+    w = weight
+    if entry.kind == "nm":
+        return (M, w.K, w.N, dtype, w.n, w.m, w.g)
+    if entry.kind == "block":
+        return (M, w.K, w.N, dtype, w.max_nnz, w.bk, w.bn)
+    if entry.kind == "combined":
+        return (M, w.K, w.N, dtype, w.max_nnz, w.bk, w.bn, w.n, w.m)
+    return (M, w.K, w.N, dtype)
+
+
+def _weight_key(entry: KernelEntry, M: int, weight: Any,
+                dtype: torch.dtype, arch: str) -> str:
+    desc = dataclasses.replace(SparsityDescriptor.of(weight, nominal=True),
+                               dtype=_at.dtype_name(dtype))
+    return cache_key(entry.name, M, desc, arch)
+
+
+def paged_key(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
+              dtypes, page_size: int, window: Optional[int] = None,
+              arch: str = ARCH) -> str:
+    """The autotune key of a ``paged_attention`` launch: B, H, Hk, Q, the
+    view's pages, D, the dtypes and the window (the JAX
+    ``_paged_attn_run`` row's geometry, with the heads and queries the
+    port's plans depend on)."""
+    return _at.key("paged_attention", *_paged.key_fields(
+        B, H, Hk, Q, n_pages, D, dtypes, page_size, window), arch)
+
+
+def select(weight: Any, M: int = 128, device=None, *,
+           autotune: bool = False, dtype: Optional[torch.dtype] = None
+           ) -> Decision:
+    """Kernel, mode and launch plan for ``x (M, K) @ weight`` on ``device``
+    (default the weight's), ``x`` of ``dtype`` (default the pack's).  On
+    the card the plan is the cached one (``reason="cached"``), else —
+    with ``autotune`` — the winner of a sweep at this key run now on
+    random ``x`` (``"tuned"``), else the tiling rule's (``"tiling
+    rule"``).  Off the card the plan is ``{}``.  No launch happens
+    without ``autotune``."""
+    desc = SparsityDescriptor.of(weight, nominal=True)
+    if device is None:
+        leaf = weight if isinstance(weight, torch.Tensor) else (
+            weight.enc if isinstance(weight, LookaheadPack)
+            else weight.values)
+        device = leaf.device
+    mode = resolve_mode(device)
+    entry = _entry_for(desc.kind)
+    if entry.module is None or mode in ("ref", "meta"):
+        return Decision(entry.name, mode, {}, desc,
+                        "dense weight" if entry.module is None else
+                        "no plan off the card")
+    dtype = dtype or _x_dtype(weight)
+    key = _weight_key(entry, M, weight, dtype, ARCH)
+    hit = autotune_cache().get(key)
+    if hit is not None:
+        return Decision(entry.name, mode, _at.plan_of(hit), desc, "cached",
+                        key)
+    if autotune:
+        x = torch.randn((M, desc.K), device=device).to(dtype)
+        plan = tune(x, weight)
+        return Decision(entry.name, mode, plan, desc, "tuned", key)
+    return Decision(entry.name, mode, _rule_plan(entry, M, weight, dtype),
+                    desc, "tiling rule", key)
+
+
+#: Candidates :func:`tune` skipped because they failed to launch, since
+#: the count was last set to 0.
+skipped = 0
+
+
+def _timer(device: torch.device):
+    """``time(fn, reps) -> µs per call``.  On the card: ``reps`` calls
+    captured in one CUDA graph (after two eager warm calls, which raise
+    for a plan that does not launch) and replayed between CUDA events,
+    so the device's time counts and not the host's launch cost.  On the
+    CPU: the host clock."""
+    def cuda_us(fn, reps):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) * 1e3 / (3 * reps)
+
+    def host_us(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e6 / reps
+
+    return cuda_us if device.type == "cuda" else host_us
+
+
+def tune(x: torch.Tensor, weight: Any,
+         candidates: Optional[Sequence[dict]] = None,
+         cache: Optional[AutotuneCache] = None, reps: int = 10, *,
+         window: Optional[int] = None) -> dict:
+    """Sweep the launch plans of ``x (M, K) @ weight`` (or of
+    ``paged_attention`` for ``x = q (B, [Q,] H, D)`` and a
+    :class:`PagedKV` ``weight`` under ``window``), persist the fastest and
+    return it.  ``candidates`` defaults to the kernel module's (the
+    tiling rule's plan first).  On the card each is timed with CUDA
+    events over a captured graph of ``reps`` calls (its device time); one
+    that fails to launch is skipped and counted in
+    :data:`skipped` and in the entry's ``skipped``.  On the CPU the plain
+    version runs for each (the plan does not apply there) and the row is
+    keyed ``ref``, exercising the cache on the same keys.  A hit returns
+    the cached plan without a sweep.  Raises inside a CUDA-graph
+    capture: a sweep there would land in the graph."""
+    global skipped
+    if x.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("autotune sweeps never run inside a CUDA-graph "
+                           "capture; warm the cache first "
+                           "(benchmarks.warm_autotune)")
+    mode = resolve_mode(x.device)
+    if mode == "meta":
+        raise ValueError("nothing to time on meta tensors")
+    arch = ARCH if mode == "kernel" else "ref"
+    if isinstance(weight, PagedKV):
+        B, Q, H, D = x.shape if x.dim() == 4 else \
+            (x.shape[0], 1, *x.shape[1:])
+        args = (B, H, weight.k.shape[2], Q, weight.max_pages, D,
+                (x.dtype, weight.k.dtype), weight.page_size)
+        key = paged_key(*args, window=window, arch=arch)
+        default = _paged.candidates(*args)
+
+        def run(plan):
+            if mode == "ref":
+                return _paged_run(x, weight, "ref", window)
+            return _paged_attention(x, weight.k, weight.v, weight.ptab,
+                                    weight.lens, window=window,
+                                    use_plan=plan)
+    else:
+        entry = _entry_for(SparsityDescriptor.of(weight, nominal=True).kind)
+        if entry.module is None:
+            return {}
+        key = _weight_key(entry, x.shape[0], weight, x.dtype, arch)
+        wrapper = {"nm": nm_spmm, "block": bsr_matmul, "combined": csa_matmul,
+                   "lookahead": lookahead_matmul}[entry.kind]
+        default = entry.module.candidates(
+            *_plan_args(entry, x.shape[0], weight, x.dtype))
+
+        def run(plan):
+            if mode == "ref":
+                return entry.run(x, weight, "ref")
+            return wrapper(x, weight, use_plan=plan)
+    cache = cache or autotune_cache()
+    hit = cache.get(key)
+    if hit is not None:
+        return _at.plan_of(hit)
+    cands = list(candidates) if candidates is not None else default
+    time_us = _timer(x.device)
+    best, best_us, rule_us, missed = None, math.inf, None, 0
+    for i, plan in enumerate(cands):
+        try:
+            us = time_us(lambda p=plan: run(p), reps)
+        except Exception:
+            missed += 1
+            continue
+        if i == 0:
+            rule_us = us
+        if us < best_us:
+            best, best_us = dict(plan), us
+    skipped += missed
+    if best is None:            # nothing launched: the first candidate
+        return dict(cands[0]) if cands else {}
+    cache.put(key, {**best, "us": round(best_us, 3),
+                    "rule_us": None if rule_us is None else round(rule_us, 3),
+                    "skipped": missed})
+    return best
+
+
 def plan_params(params: Any, M: int, device,
-                expert_M: Optional[int] = None) -> List[dict]:
+                expert_M: Optional[int] = None,
+                with_plans: bool = False) -> List[dict]:
     """The dispatch decision for every packed weight of a param tree at
     ``M`` rows on ``device`` — what the engine records per phase.  A
     routed expert's packs (``moe/w_in|w_gate|w_out/<e>``) take
     ``expert_M`` rows when it is given: the rows a capacity dispatch
-    hands each expert (``models.moe.expert_rows``)."""
+    hands each expert (``models.moe.expert_rows``).  ``with_plans`` adds
+    each row's card launch plan (``"plan"``) and where it comes from
+    (``"source"``: ``"cache"`` or ``"rule"``), read without a launch."""
     mode = resolve_mode(device)
     plan: List[dict] = []
 
@@ -244,10 +528,18 @@ def plan_params(params: Any, M: int, device,
             d = SparsityDescriptor.of(node)
             routed = expert_M is not None and len(path) >= 3 and \
                 path[-3] == "moe" and path[-2] in ("w_in", "w_gate", "w_out")
-            plan.append({"param": "/".join(path),
-                         "M": expert_M if routed else M,
-                         "kernel": _entry_for(d.kind).name, "mode": mode,
-                         "pattern": d.pattern})
+            rows = expert_M if routed else M
+            entry = _entry_for(d.kind)
+            row = {"param": "/".join(path), "M": rows, "kernel": entry.name,
+                   "mode": mode, "pattern": d.pattern}
+            if with_plans:
+                dtype = _x_dtype(node)
+                hit = autotune_cache().get(
+                    _weight_key(entry, rows, node, dtype, ARCH))
+                row["plan"] = _at.plan_of(hit) if hit is not None else \
+                    _rule_plan(entry, rows, node, dtype)
+                row["source"] = "cache" if hit is not None else "rule"
+            plan.append(row)
 
     visit(params, ())
     return plan

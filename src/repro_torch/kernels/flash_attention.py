@@ -9,7 +9,9 @@ it launches ``csrc/flash_attention.cu`` (the port of
 it and how it is laid out): bfloat16 at D = 64, 128 or 160 runs on the
 tensor cores, float32 (and bfloat16 at D = 16, 32 or 256) on CUDA-core FMAs,
 as :func:`plan` says.  On a CPU tensor it runs the plain version
-``ref.mha_ref``.  There is no fallback between them.
+``ref.mha_ref``, and on ``meta`` tensors it only gives the output's shape
+and reports :func:`cost` (the dry run's route).  There is no fallback
+between them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,17 @@ window_launches = 0
 plan = tiling.flash_plan
 
 
+def cost(B: int, H: int, Hk: int, Lq: int, Lk: int, D: int,
+         dtype: torch.dtype, pairs: Optional[float] = None) -> dict:
+    """FLOPs and HBM bytes of one call: ``4 D`` per (query, key) pair of
+    each head, over ``pairs`` pairs per head (default the whole ``Lq Lk``
+    rectangle, what the JAX ``mha_ref`` counts; a causal call attends
+    about half), and q, k, v read once, the output written once."""
+    pairs = Lq * Lk if pairs is None else pairs
+    return {"flops": 4.0 * B * H * D * pairs,
+            "bytes": B * (2 * H * Lq + 2 * Hk * Lk) * D * dtype.itemsize}
+
+
 @functools.cache
 def _fns():
     lib = _build.load("flash_attention")
@@ -68,6 +81,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        B, H, Lq, D = q.shape
+        return _build.on_meta(
+            "flash_attention", cost(B, H, k.shape[1], Lq, k.shape[2], D,
+                                    q.dtype),
+            lambda: torch.empty_like(q), q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Lq, D = q.shape

@@ -8,20 +8,23 @@ launches ``csrc/lookahead_decode.cu`` (the port of
 ``repro/kernels/lookahead_decode.py``; the source's head says what bounds
 it and how it is laid out), which decodes the bytes in registers and
 applies the per-column scale once at the end: bfloat16 x runs on the
-tensor cores, float32 x on CUDA-core FMAs, as :func:`plan` says.  On a
-CPU tensor it runs the plain version ``ref.lookahead_matmul_ref``.
-There is no fallback between them.
+tensor cores, float32 x on CUDA-core FMAs, as :func:`plan` says, or the
+plan the autotune cache holds for the call (``kernels/autotune.py``).  On
+a CPU tensor it runs the plain version ``ref.lookahead_matmul_ref``, and
+on ``meta`` tensors it only gives the output's shape and reports
+:func:`cost` (the dry run's route).  There is no fallback between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
 
 from repro_torch.core.sparsity import LookaheadPack
-from repro_torch.kernels import _build, ref, tiling
+from repro_torch.kernels import _build, autotune, ref, tiling
 
 KS = 128                     # K rows per stage of the mma route
 FMA_BN = 32                  # widest column slice of the fma route
@@ -49,6 +52,24 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype) -> dict:
     return tiling.mma_tiles(M, K, N, K // KS, widths)
 
 
+def candidates(M: int, K: int, N: int, dtype: torch.dtype) -> List[dict]:
+    """Every plan the built instances take for this call, :func:`plan`'s
+    first: what ``dispatch.tune`` sweeps (the fma route has one)."""
+    p = plan(M, K, N, dtype)
+    if p["route"] != "mma":
+        return [p]
+    widths = [w for w in tiling.WIDTHS if N % w == 0]
+    return tiling.mma_candidates(M, K, N, K // KS, widths)
+
+
+def cost(M: int, K: int, N: int, dtype: torch.dtype) -> dict:
+    """FLOPs and HBM bytes of one call: the dense ``2 M K N`` (what the
+    JAX ``lookahead_matmul_ref`` counts), and x, the int8 codes and the
+    scales read once, the output written once."""
+    return {"flops": 2.0 * M * K * N,
+            "bytes": (M * K + M * N) * dtype.itemsize + K * N + N * 4}
+
+
 def smem_bytes(M: int, K: int, N: int) -> int:
     """The dynamic shared memory per block that the bfloat16 launcher
     passes for ``x (M, K) @ decode(pack) (K, N)`` under :func:`plan`, as
@@ -70,13 +91,20 @@ def _fns():
     return mma, fma
 
 
-def lookahead_matmul(x: torch.Tensor, pack: LookaheadPack) -> torch.Tensor:
+def lookahead_matmul(x: torch.Tensor, pack: LookaheadPack,
+                     use_plan: Optional[dict] = None) -> torch.Tensor:
     """``x (M, K) @ decode(pack) (K, N) -> (M, N)`` in ``x.dtype``, fp32
-    accumulation."""
+    accumulation; ``use_plan`` launches that plan (a sweep's candidate)
+    instead of the cached or the rule's."""
     global launches
     _build.refuse_grad("lookahead_matmul", x, pack.scale)
     if x.device.type == "cpu":
         return ref.lookahead_matmul_ref(x, pack)
+    if x.device.type == "meta":
+        M = x.shape[0]
+        return _build.on_meta(
+            "lookahead_matmul", cost(M, pack.K, pack.N, x.dtype),
+            lambda: x.new_empty((M, pack.N)), x, pack.enc, pack.scale)
     if x.device.type != "cuda":
         raise ValueError(f"lookahead_matmul: unsupported device {x.device}")
     M, K = x.shape
@@ -91,7 +119,9 @@ def lookahead_matmul(x: torch.Tensor, pack: LookaheadPack) -> torch.Tensor:
     for name, t in (("x", x), ("enc", pack.enc), ("scale", pack.scale)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    p = plan(M, K, pack.N, x.dtype)
+    p = autotune.resolve("lookahead_decode", M, K, pack.N,
+                         autotune.dtype_name(x.dtype), "lookahead",
+                         lambda: plan(M, K, pack.N, x.dtype), use_plan)
     if p["route"] == "mma":
         if any(t.data_ptr() % 16 for t in (x, pack.enc, pack.scale)):
             raise ValueError("bf16 x, enc and scale must be 16-byte aligned")

@@ -5,19 +5,23 @@ keeps ``n`` of every ``m`` weights along K (positions shared over ``g``
 output columns).  On a CUDA tensor it launches ``csrc/nm_spmm.cu`` (the
 port of ``repro/kernels/nm_spmm.py``; the source's head says what bounds
 it and how it is laid out): bfloat16 x runs on the tensor cores, float32
-x on CUDA-core FMAs, as :func:`plan` says.  On a CPU tensor it runs the
-plain version ``ref.nm_spmm_ref``.  There is no fallback between them.
+x on CUDA-core FMAs, as :func:`plan` says, or the plan the autotune cache
+holds for the call (``kernels/autotune.py``).  On a CPU tensor it runs the
+plain version ``ref.nm_spmm_ref``, and on ``meta`` tensors it only gives
+the output's shape and reports :func:`cost` (the dry run's route).
+There is no fallback between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
 
 from repro_torch.core.sparsity import NMPack
-from repro_torch.kernels import _build, ref, tiling
+from repro_torch.kernels import _build, autotune, ref, tiling
 
 KS = 64                      # compressed rows per stage of the mma route
 HALF_KS = 32                 # the half stage, where KS does not divide
@@ -59,6 +63,33 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2, m: int = 4,
     return dict(tiling.mma_tiles(M, K, N, Kc // ks, widths), ks=ks)
 
 
+def candidates(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2,
+               m: int = 4, g: int = 128) -> List[dict]:
+    """Every plan the built instances take for this call, :func:`plan`'s
+    first: what ``dispatch.tune`` sweeps (the fma route has one)."""
+    p = plan(M, K, N, dtype, n, m, g)
+    if p["route"] != "mma":
+        return [p]
+    widths = [w for w in tiling.WIDTHS if g % w == 0 and N % w == 0]
+    return [dict(c, ks=p["ks"]) for c in tiling.mma_candidates(
+        M, K, N, K // m * n // p["ks"], widths)]
+
+
+def pattern(n: int, m: int, g: int) -> str:
+    """The autotune key's pattern (``SparsityDescriptor.pattern``)."""
+    return f"{n}:{m}g{g}"
+
+
+def cost(M: int, K: int, N: int, dtype: torch.dtype, n: int = 2, m: int = 4,
+         g: int = 128) -> dict:
+    """FLOPs and HBM bytes of one call: the ``2 M Kc N`` of the compressed
+    product (what the JAX ``nm_spmm_ref`` counts), and x, the kept values
+    and their positions read once, the output written once."""
+    Kc, es = K // m * n, dtype.itemsize
+    return {"flops": 2.0 * M * Kc * N,
+            "bytes": (M * K + Kc * N + M * N) * es + Kc * (N // g) * 4}
+
+
 def smem_bytes(M: int, K: int, N: int, n: int = 2, m: int = 4,
                g: int = 128) -> int:
     """The dynamic shared memory per block that the bfloat16 launcher
@@ -80,13 +111,21 @@ def _fns():
     return mma, fma
 
 
-def nm_spmm(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
+def nm_spmm(x: torch.Tensor, pack: NMPack,
+            use_plan: Optional[dict] = None) -> torch.Tensor:
     """``x (M, K) @ pack (K, N) -> (M, N)`` in ``x.dtype``, fp32
-    accumulation."""
+    accumulation; ``use_plan`` launches that plan (a sweep's candidate)
+    instead of the cached or the rule's."""
     global launches, half_launches
     _build.refuse_grad("nm_spmm", x, pack.values)
     if x.device.type == "cpu":
         return ref.nm_spmm_ref(x, pack)
+    if x.device.type == "meta":
+        M = x.shape[0]
+        return _build.on_meta(
+            "nm_spmm", cost(M, pack.K, pack.N, x.dtype, pack.n, pack.m,
+                            pack.g),
+            lambda: x.new_empty((M, pack.N)), x, pack.values, pack.idx)
     if x.device.type != "cuda":
         raise ValueError(f"nm_spmm: unsupported device {x.device}")
     M, K = x.shape
@@ -103,7 +142,11 @@ def nm_spmm(x: torch.Tensor, pack: NMPack) -> torch.Tensor:
     if pack.values.shape != (pack.Kc, pack.N) or \
             pack.idx.shape != (pack.Kc, pack.N // pack.g):
         raise ValueError("pack arrays do not match its geometry")
-    p = plan(M, K, pack.N, x.dtype, pack.n, pack.m, pack.g)
+    p = autotune.resolve(
+        "nm_spmm", M, K, pack.N, autotune.dtype_name(x.dtype),
+        pattern(pack.n, pack.m, pack.g),
+        lambda: plan(M, K, pack.N, x.dtype, pack.n, pack.m, pack.g),
+        use_plan)
     if pack.values.data_ptr() % 16 or (p["route"] == "mma"
                                        and x.data_ptr() % 16):
         raise ValueError("values (and bf16 x) must be 16-byte aligned")

@@ -14,8 +14,11 @@ float32 q (and bfloat16 at D = 16, 32 or 256) on CUDA-core FMAs, as
 :func:`plan` says; both take a ``(B, Q, H, D)`` verify block of any ``Q``,
 a sliding ``window`` and a tanh ``softcap`` of the logits (gemma's local
 layers and attention softcap).
-On a CPU tensor it runs the plain version ``ref.paged_attention_ref``.
-There is no fallback between them.
+The plan may also come from the autotune cache (``kernels/autotune.py``,
+keyed by B, H, Hk, Q, the view's pages, D, the dtypes and the window).
+On a CPU tensor it runs the plain version ``ref.paged_attention_ref``,
+and on ``meta`` tensors it only gives the output's shape and reports
+:func:`cost` (the dry run's route).  There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref, tiling
+from repro_torch.kernels import _build, autotune, ref, tiling
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,6 +68,39 @@ class PagedKV(NamedTuple):
 #: ``plan(B, H, Hk, Q, n_pages, D, (q dtype, pool dtype), page_size)``:
 #: route, split and grid of a call.
 plan = tiling.paged_plan
+#: ``candidates(...)`` with ``plan``'s arguments: every plan the built
+#: instances take, the rule's first (what ``dispatch.tune`` sweeps).
+candidates = tiling.paged_candidates
+
+
+def key_fields(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
+               dtypes, page_size: int, window: Optional[int]) -> tuple:
+    """``(M, K, N, dtype, pattern)`` of the call's autotune key: B rows, the
+    view's ``n_pages * page_size`` keys, D, the q (and pool, where it
+    differs) dtype, and the page shape, heads, queries and window."""
+    qn, kvn = (autotune.dtype_name(t) for t in dtypes)
+    return (B, n_pages * page_size, D, qn if qn == kvn else f"{qn}/{kvn}",
+            f"paged{page_size}x{n_pages}H{H}Hk{Hk}Q{Q}w{window or 0}")
+
+
+def cost(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int, dtypes,
+         page_size: int = 16, pairs: Optional[float] = None,
+         rows: Optional[int] = None, pages: Optional[int] = None) -> dict:
+    """FLOPs and HBM bytes of one call: ``4 D`` per (query, key) pair of
+    each head, over ``pairs`` pairs in all (default every query over the
+    whole view, ``B Q n_pages page_size``: what the JAX
+    ``paged_attention_ref`` counts), and q read and the output written
+    once, the ``rows`` pool rows of K and V the call reads (default every
+    view row, ``B n_pages page_size``), their ``pages`` table entries
+    (default ``B n_pages``) and the lengths."""
+    view = n_pages * page_size
+    pairs = B * Q * view if pairs is None else pairs
+    rows = B * view if rows is None else rows
+    pages = B * n_pages if pages is None else pages
+    q_es, kv_es = (t.itemsize for t in dtypes)
+    return {"flops": 4.0 * H * D * pairs,
+            "bytes": 2 * B * Q * H * D * q_es + 2 * rows * Hk * D * kv_es
+            + pages * 4 + B * 4}
 
 
 @functools.cache
@@ -85,7 +121,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     lens: torch.Tensor,
                     scale: Optional[float] = None, *,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    use_plan: Optional[dict] = None) -> torch.Tensor:
     """``q (B, H, D)`` or ``(B, Q, H, D)`` × pools ``(P, ps, Hk, D)`` ×
     ``ptab (B, np)`` → the shape of ``q``.
 
@@ -99,13 +136,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     columns must be).  Rows with no key in reach (``lens == 0``) give
     zeros.  Both routes take any ``Q``: the ``Q * H / Hk`` query rows of
     a kv head run in row tiles of 16 (tensor cores) or 8 (FMA) rows
-    (:func:`plan`).
+    (:func:`plan`).  ``use_plan`` launches that plan (a sweep's
+    candidate) instead of the cached or the rule's.
     """
     global launches, block_launches, mma_launches, window_launches
     _build.refuse_grad("paged_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, ptab, lens, scale,
                                        window=window, softcap=softcap)
+    if q.device.type == "meta":
+        B, Q, H, D = q.shape if q.dim() == 4 else \
+            (q.shape[0], 1, *q.shape[1:])
+        return _build.on_meta(
+            "paged_attention", cost(B, H, k_pool.shape[2], Q, ptab.shape[1],
+                                    D, (q.dtype, k_pool.dtype),
+                                    k_pool.shape[1]),
+            lambda: torch.empty_like(q), q, k_pool, v_pool, ptab, lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if q.dim() not in (3, 4):
@@ -125,6 +171,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"ptab {tuple(ptab.shape)} / lens "
                          f"{tuple(lens.shape)} do not match B={B}")
     p = plan(B, H, Hk, Q, ptab.shape[1], D, (q.dtype, k_pool.dtype), ps)
+    p = autotune.resolve("paged_attention", *key_fields(
+        B, H, Hk, Q, ptab.shape[1], D, (q.dtype, k_pool.dtype), ps, window),
+        lambda: p, use_plan)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("lens", lens)):
         if t.device != q.device or not t.is_contiguous():

@@ -12,16 +12,21 @@ its strip, at most ``ceil(steps / split)``.  The rules were chosen by
 timing every feasible (bm, bn, split) on the qwen3-0.6b projections on an
 H100 (``tools/mma_tile_sweep.py``).  Pure Python, so the CPU tests check
 it and ``chip_smoke.py`` prints it.
+
+:func:`mma_candidates` and :func:`paged_candidates` list every plan the
+built template instances take for a call, the rule's first: what
+``dispatch.tune`` times for the autotune cache.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 TARGET_BLOCKS = 128     # about one block per SM of the 132
 MAX_BLOCKS = 264        # two blocks per SM: one wave
 MAX_SPLIT = 8           # the largest portable cluster
 WIDTHS = (128, 64, 32)  # column tiles the kernels are built for
+MMA_ROWS = (8, 32, 64)  # row tiles the kernels are built for
 
 
 def mma_tiles(M: int, K: int, N: int, steps: int,
@@ -69,6 +74,30 @@ def mma_tiles(M: int, K: int, N: int, steps: int,
     return dict(route="mma", bm=bm, bn=bn, split=split,
                 steps_per_block=per_block(split),
                 grid=(N // bn * split, -(-M // bm)))
+
+
+def mma_candidates(M: int, K: int, N: int, steps: int,
+                   widths: Sequence[int], ceil: bool = False) -> List[dict]:
+    """Every tensor-core plan the built instances take for this call, the
+    rule's (:func:`mma_tiles`) first: each column tile of ``widths``, each
+    split :func:`mma_tiles` would consider, and the row tiles below ``M``
+    with the smallest that covers it (a larger one only pads dead
+    rows)."""
+    rule = mma_tiles(M, K, N, steps, widths, ceil)
+    splits = [s for s in (1, 2, 4, MAX_SPLIT)
+              if (s < 2 * steps if ceil else steps % s == 0)]
+    rows = [b for b in MMA_ROWS if b < M]
+    rows.append(next((b for b in MMA_ROWS if b >= M), MMA_ROWS[-1]))
+    out = [rule]
+    for bm in dict.fromkeys(rows):
+        for bn in widths:
+            for split in splits:
+                c = dict(route="mma", bm=bm, bn=bn, split=split,
+                         steps_per_block=-(-steps // split),
+                         grid=(N // bn * split, -(-M // bm)))
+                if c not in out:
+                    out.append(c)
+    return out
 
 
 def fma_tiles(M: int, N: int, narrow: int) -> dict:
@@ -187,6 +216,29 @@ def paged_plan(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
     return dict(route="mma", warps=warps, split=split,
                 ring=paged_ring(chunks, split * warps), rows=rows,
                 grid=(tiles * B * Hk * split,))
+
+
+def paged_candidates(B: int, H: int, Hk: int, Q: int, n_pages: int, D: int,
+                     dtypes, page_size: int = PAGED_CHUNK) -> List[dict]:
+    """Every plan of ``paged_attention`` the built instances take for this
+    call, the rule's (:func:`paged_plan`) first: on the tensor-core route
+    each warp count of ``PAGED_WARPS`` by each split of ``SPLITS``, the
+    ring sized by :func:`paged_ring`; the FMA route has the rule's
+    only."""
+    rule = paged_plan(B, H, Hk, Q, n_pages, D, dtypes, page_size)
+    if rule["route"] != "mma":
+        return [rule]
+    tiles = -(-rule["rows"] // PAGED_ROWS)
+    chunks = -(-n_pages * page_size // PAGED_CHUNK)
+    out = [rule]
+    for warps in PAGED_WARPS:
+        for split in SPLITS:
+            c = dict(route="mma", warps=warps, split=split,
+                     ring=paged_ring(chunks, split * warps), rows=rule["rows"],
+                     grid=(tiles * B * Hk * split,))
+            if c not in out:
+                out.append(c)
+    return out
 
 
 def paged_ring(chunks: int, parts: int) -> int:

@@ -17,9 +17,15 @@ The report has the JAX report's keys but its robustness counters
 (``timeouts`` … ``degraded_recoveries``): the mechanisms they count come
 with ROADMAP queue 1 item 12.  Flags of unported work raise
 ``NotImplementedError`` when given another value than their default:
-``--dry-run`` (item 14c), ``--model-parallel`` and ``--devices`` (item
-13), and the queue, deadline, supervisor, journal, snapshot and watchdog
-flags (item 12).
+``--model-parallel`` and ``--devices`` (item 13), and the queue,
+deadline, supervisor, journal, snapshot and watchdog flags (item 12).
+
+``--dry-run`` builds nothing: it runs the per-slot prefill and one decode
+chunk of the paged serving loops on ``meta`` tensors (``--page-size``,
+16 by default) and prints their peak live bytes and FLOPs, the param and
+cache bytes, the pool's pages and the dispatch plan rows with the
+launch plans the card would run (``launch.analysis``; host-computed, no
+kernel runs).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 
 #: flag (its ``args`` name) → the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
-    "dry_run": "item 14c", "model_parallel": "item 13", "devices": "item 13",
+    "model_parallel": "item 13", "devices": "item 13",
     "max_queue": "item 12", "deadline_ms": "item 12", "supervise": "item 12",
     "journal": "item 12", "snapshot_dir": "item 12",
     "snapshot_every": "item 12", "watchdog_ms": "item 12",
@@ -101,6 +107,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise NotImplementedError(
                 f"{flag} is not served by the port yet (ROADMAP queue 1 "
                 f"{item})")
+    if args.dry_run:
+        print(json.dumps(dry_run(args)))
+        return 0
 
     from repro_torch import configs as C
     from repro_torch import models as MZ
@@ -186,6 +195,76 @@ def main(argv: Optional[List[str]] = None) -> int:
         })
     print(json.dumps(report))
     return 0
+
+
+def dry_run(args) -> dict:
+    """The serving programs on ``meta`` (see the module docstring): the
+    counterpart of the JAX launcher's AOT compile of the per-slot prefill
+    and the chunked decode loop."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch import models as MZ
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.analysis import count_step
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.serving import ServeConfig, init_decode_state, loops
+
+    t0 = time.time()
+    mod = C._module(args.arch)
+    cfg = mod.reduced() if args.reduced else mod.config()
+    scfg = ServeConfig(slots=args.slots, max_len=args.max_len,
+                       prompt_pad=args.prompt_pad,
+                       max_new_tokens=args.max_new,
+                       decode_chunk=args.decode_chunk,
+                       page_size=args.page_size or 16,
+                       num_pages=args.num_pages, seed=args.seed)
+    params = MZ.abstract_model(cfg)
+    cache = MZ.abstract_cache(cfg, scfg.slots, scfg.max_len,
+                              page_size=scfg.page_size,
+                              num_pages=scfg.pool_pages)
+
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def program(count) -> dict:
+        return {"flops": count.flops, "kernel_calls": count.kernel_calls,
+                "memory": {"entry_bytes": count.entry_bytes,
+                           "peak_live_bytes": count.peak_live_bytes,
+                           "temp_bytes": count.temp_bytes}}
+
+    state = init_decode_state(scfg.slots, "meta")
+    prefill = loops.build_prefill_slot_step(cfg, scfg, scfg.prompt_pad,
+                                            paged=True)
+    decode = loops.build_decode_loop(cfg, scfg, paged=True)
+    with torch.no_grad():
+        programs = {
+            "prefill_slot": program(count_step(
+                prefill, params, meta((1, scfg.prompt_pad)), cache, state,
+                0, scfg.max_new_tokens, 0.0, None, meta((scfg.max_pages,)))),
+            "decode_chunk": program(count_step(
+                decode, params, cache, state,
+                meta((scfg.slots,), torch.float32), None,
+                meta((scfg.slots, scfg.max_pages))))}
+    plans = {"prefill": dispatch.plan_params(
+                 params, scfg.prompt_pad, "meta",
+                 MZ.expert_rows(cfg, scfg.prompt_pad), with_plans=True),
+             "decode": dispatch.plan_params(
+                 params, scfg.slots, "meta", MZ.expert_rows(cfg, scfg.slots),
+                 with_plans=True)}
+    return {
+        "arch": cfg.name, "dry_run": True, "devices": 1,
+        "params": cfg.param_count(),
+        "param_bytes_global": tree_bytes(params),
+        "cache_bytes_global": tree_bytes(cache),
+        "slots": scfg.slots, "max_len": scfg.max_len,
+        "page_size": scfg.page_size, "pool_pages": scfg.pool_pages,
+        "decode_chunk": scfg.decode_chunk,
+        "programs": programs,
+        "plan_rows": {k: len(v) for k, v in plans.items()},
+        "decode_plan_sample": plans["decode"][:3],
+        "wall_s": round(time.time() - t0, 2),
+    }
 
 
 if __name__ == "__main__":

@@ -16,6 +16,10 @@ families:
     ``batch["src"]``, or a null (all-zero) source sized to the cross
     cache when the batch holds tokens only (what the ``Engine`` feeds).
 
+``abstract_model`` and ``abstract_cache`` build the same trees on
+``meta`` without drawing a number (the counterpart of
+``jax.eval_shape(init_model)``, what the dry run lowers).
+
 ``init_model`` → ``init_cache`` → ``prefill`` / ``decode_step`` /
 ``decode_block``, plus the cache helpers the serving loops use
 (``blank_slot_cache``, ``merge_cache_slot``, ``copy_page``,
@@ -38,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.sparse_linear import sparsify_abstract
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
@@ -50,6 +55,7 @@ from repro_torch.models import moe as MOE
 Params = Dict[str, Any]
 
 __all__ = ["LayerKind", "ModelConfig", "family", "expert_rows", "init_model",
+           "abstract_model", "abstract_cache",
            "model_loss", "model_logits", "init_cache", "prefill", "decode_step", "decode_block",
            "blank_slot_cache", "merge_cache_slot", "copy_page",
            "set_page_table", "page_view", "unpage_view", "paged_max_pages",
@@ -96,11 +102,29 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return _init_model(cfg, gen, device, packed)
+
+
+def _init_model(cfg: ModelConfig, gen: torch.Generator, device,
+                packed: bool) -> Params:
     if family(cfg) == "encdec":
         return ED.init_encdec(cfg, gen, device, packed=packed)
     if family(cfg) == "hybrid":
         return HY.init_hybrid_lm(cfg, gen, device, packed=packed)
     return TR.init_lm(cfg, gen, device, packed=packed)
+
+
+def abstract_model(cfg: ModelConfig, *, packed: bool = False) -> Params:
+    """:func:`init_model`'s tree on ``meta``: every tensor's shape and
+    dtype, no storage, no number drawn (a ``meta`` tensor takes a CPU
+    generator and reads nothing from it).  ``packed`` replaces the
+    governed weights by ``core.sparse_linear.sparsify_abstract``'s packs
+    at the nominal density: the layout ``init_model(packed=True)``
+    gives."""
+    _check_ported(cfg)
+    device = resolve_device("meta", allow_meta=True)
+    params = _init_model(cfg, torch.Generator(), device, packed=False)
+    return sparsify_abstract(params, cfg) if packed else params
 
 
 def model_loss(params: Params, cfg: ModelConfig,
@@ -144,7 +168,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     monolithic cross K/V of ``src_len`` source rows (default
     ``max_len``, what the ``Engine`` serves)."""
     _check_ported(cfg)
-    device = resolve_device(device)
+    return _init_cache(cfg, batch, max_len, src_len, dtype, page_size,
+                       num_pages, resolve_device(device))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   src_len: Optional[int] = None,
+                   dtype: torch.dtype = torch.bfloat16, page_size: int = 0,
+                   num_pages: int = 0) -> Params:
+    """:func:`init_cache`'s tree on ``meta`` (shapes and dtypes only)."""
+    _check_ported(cfg)
+    return _init_cache(cfg, batch, max_len, src_len, dtype, page_size,
+                       num_pages, resolve_device("meta", allow_meta=True))
+
+
+def _init_cache(cfg, batch, max_len, src_len, dtype, page_size, num_pages,
+                device) -> Params:
     if family(cfg) == "encdec":
         return ED.init_encdec_cache(cfg, batch, max_len, src_len or max_len,
                                     dtype=dtype, page_size=page_size,

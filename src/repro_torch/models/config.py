@@ -137,6 +137,15 @@ class ModelConfig:
         return any(k in (LayerKind.MAMBA, LayerKind.SHARED_ATTN)
                    for k in self.layer_kinds)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when decoding at 500k context is feasible (the JAX
+        config's rule): at most one layer in five, and at least one, is
+        global attention; the rest are windowed or attention-free."""
+        kinds = [LayerKind(k) for k in self.layer_kinds]
+        n_global = sum(k == LayerKind.ATTN_GLOBAL for k in kinds)
+        return n_global <= max(1, len(kinds) // 5)
+
     def param_count(self) -> int:
         """Approximate parameter count N of the matrices (for 6·N·D
         training FLOPs), the JAX config's: the embedding table (once when
@@ -169,6 +178,19 @@ class ModelConfig:
             n += self.n_encoder_layers * (per_attn + per_mlp)
             n += self.n_layers * per_attn          # cross-attention
         return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (the JAX config's): with routed experts
+        only ``top_k`` of them (and the shared ones) count."""
+        if not self.n_experts:
+            return self.param_count()
+        per_expert = self.d_model * self.d_expert * \
+            (3 if self.mlp_gated else 2)
+        n_moe = sum(LayerKind(k) in (LayerKind.ATTN_GLOBAL,
+                                     LayerKind.ATTN_LOCAL)
+                    for k in self.layer_kinds)
+        return self.param_count() - n_moe * (self.n_experts - self.top_k) \
+            * per_expert
 
 
 def interleave_kinds(n_layers: int, local: int, global_: int,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,19 +159,29 @@ class ChunkBuffers:
         self._staged = torch.cuda.Event()
         self._staged.record()
 
-    def fetch(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-                             np.ndarray]:
+    def fetch(self, transfer: Optional[Callable[[torch.Tensor],
+                                                 np.ndarray]] = None
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """The chunk's one device→host transfer: ``(tokens, emitted, done,
-        tally)`` as host arrays."""
+        tally)`` as host arrays, moved by ``transfer`` (default
+        :func:`_device_fetch`)."""
         rows, slots = self.tokens.shape
         packed = torch.cat([self.tokens.flatten(),
                             self.emitted.flatten().to(torch.int32),
                             self.state["done"].to(torch.int32), self.tally])
-        host = packed.cpu().numpy()
+        host = (transfer or _device_fetch)(packed)
         n = rows * slots
         return (host[:n].reshape(rows, slots),
                 host[n:2 * n].reshape(rows, slots) != 0,
                 host[2 * n:2 * n + slots] != 0, host[2 * n + slots:])
+
+
+def _device_fetch(t: torch.Tensor) -> np.ndarray:
+    """The engine's single device→host transfer point: every chunk's
+    tokens come back through here (resolved through the deprecated
+    ``repro_torch.serving.engine`` module while it is imported, so a
+    test that patches ``engine._device_fetch`` counts every sync)."""
+    return t.cpu().numpy()
 
 
 def sample_token_slots(logits: torch.Tensor, temps: torch.Tensor,

@@ -1345,3 +1345,145 @@ def test_bench_models_serve_through_the_kernels(cuda, fmt, kernel):
         [rng.integers(1, cfg.vocab_size, size=n) for n in (3, 9, 16, 12, 5)])
     assert [len(o) for o in outs] == [8] * 5
     assert all(m.launches > b for m, b in zip(mods, before))
+
+
+# --- autotune rows and the dry run --------------------------------------------
+
+@pytest.fixture
+def fresh_cache(tmp_path):
+    from repro_torch.kernels import dispatch
+    cache = dispatch.AutotuneCache(str(tmp_path / "autotune.json"))
+    old = dispatch.set_autotune_cache(cache)
+    yield cache
+    dispatch.set_autotune_cache(old)
+
+
+@pytest.mark.parametrize("fmt", ["nm", "combined", "block", "lookahead"])
+@pytest.mark.parametrize("M", [8, 64])
+def test_tune_sweeps_every_candidate_on_the_card(cuda, fresh_cache, fmt, M):
+    """Every candidate plan launches (none skipped), the winner is
+    persisted with its time and the rule's, and the wrapper then runs the
+    cached plan (counted in ``autotune.hits``) within the bf16 tolerance
+    of the plain version."""
+    from repro_torch.kernels import autotune, dispatch
+    K, N = 1024, 1024
+    w = (randn(0, (K, N), cuda) / K ** 0.5)
+    if fmt == "nm":
+        pack = sparsity.pack_nm(pruning.n_m(w, 2, 4, group=128)[0], 2, 4,
+                                g=128)
+    elif fmt == "lookahead":
+        pack = sparsity.LookaheadPack.from_float(
+            pruning.block_semi_structured(w.float(), 0.5, block=4)[0]
+        ).to(cuda)
+    else:
+        blk = pruning.block_semi_structured(w, 0.5, block=128)[0]
+        pack = sparsity.pack_block_sparse(blk, 128, 128) if fmt == "block" \
+            else sparsity.pack_combined(pruning.combined_nm(
+                w, 0.5, 2, 4, group=128, block=128)[0], 2, 4, 128, 128)
+    x = randn(1, (M, K), cuda)
+    before = dispatch.skipped
+    plan = dispatch.tune(x, pack, reps=3)
+    assert dispatch.skipped == before
+    d = dispatch.select(pack, M=M, device=cuda, dtype=torch.bfloat16)
+    entry = fresh_cache.get(d.key)
+    assert d.reason == "cached" and d.plan == plan
+    assert entry["skipped"] == 0 and entry["us"] <= entry["rule_us"]
+    autotune.hits.clear()
+    got = dispatch.sparse_matmul(x, pack)
+    assert autotune.hits == {d.key: 1}
+    close(got, dispatch.registry()[d.kernel].run(x, pack, "ref"))
+
+
+def test_tune_refuses_inside_a_capture(cuda, fresh_cache):
+    from repro_torch.kernels import dispatch
+    pack = sparsity.pack_nm(pruning.n_m(randn(0, (256, 256), cuda), 2, 4,
+                                        group=128)[0], 2, 4, g=128)
+    x = randn(1, (8, 256), cuda)
+    nm_mod.nm_spmm(x, pack)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            dispatch.tune(x, pack)
+    assert len(fresh_cache) == 0
+
+
+def test_paged_tune_and_cached_plan(cuda, fresh_cache):
+    from repro_torch.kernels import autotune, dispatch
+    B, H, Hk, D, ps, n_pages = 4, 16, 8, 128, 16, 8
+    pool_k = randn(2, (B * n_pages + 1, ps, Hk, D), cuda)
+    pool_v = randn(3, (B * n_pages + 1, ps, Hk, D), cuda)
+    ptab = torch.arange(1, B * n_pages + 1, dtype=torch.int32,
+                        device=cuda).reshape(B, n_pages)
+    lens = torch.tensor([5, 40, 77, 128], dtype=torch.int32, device=cuda)
+    kv = paged_mod.PagedKV(pool_k, pool_v, ptab, lens)
+    q = randn(4, (B, H, D), cuda)
+    before = dispatch.skipped
+    plan = dispatch.tune(q, kv, reps=3)
+    assert dispatch.skipped == before
+    key = dispatch.paged_key(B, H, Hk, 1, n_pages, D, (torch.bfloat16,) * 2,
+                             ps)
+    assert autotune.plan_of(fresh_cache.get(key)) == plan
+    autotune.hits.clear()
+    close(dispatch.paged_attention(q, kv),
+          ref.paged_attention_ref(q, pool_k, pool_v, ptab, lens))
+    assert autotune.hits == {key: 1}
+
+
+def test_cached_plans_serve_the_same_tokens(cuda, fresh_cache):
+    """The bench's nm model warmed with ``warm_autotune`` serves under its
+    cached plans (every cached key it reaches is a hit) and gives the
+    tiling rule's tokens (its bf16 logits may split only at near ties, so
+    the check is the shared prefix's length)."""
+    from repro_torch.benchmarks import bench_serving, warm_autotune
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import Engine, ServeConfig
+    cfg, params = bench_serving._model("nm", cuda)
+    scfg = ServeConfig(slots=4, max_len=64, prompt_pad=16, max_new_tokens=8,
+                       decode_chunk=4, eos_token=-1, page_size=16)
+    prompts = [np.arange(1, n + 1) for n in (3, 9, 16, 12)]
+    rule = Engine(cfg, scfg, params, device=cuda).generate(prompts)
+    out = warm_autotune.run(
+        slots=4, prompt_pad=16, reps=2, device=cuda,
+        models={"nm": (cfg, params)},
+        paged=[dict(H=4, Hk=2, D=16, page_size=16,
+                    views=warm_autotune.paged_views(scfg), window=None)])
+    assert all(e["skipped"] == 0 for e in out["entries"])
+    autotune.hits.clear()
+    cached = Engine(cfg, scfg, params, device=cuda).generate(prompts)
+    assert autotune.hits and set(autotune.hits) <= set(fresh_cache.keys())
+    assert [len(o) for o in cached] == [8] * 4
+    assert sum(a == b for a, b in zip(rule, cached)) >= 3
+
+
+def test_dry_run_bytes_equal_the_card(cuda):
+    """The serve dry run's param and cache bytes equal what the card
+    allocates for the same model and cache."""
+    from repro_torch import configs as C
+    from repro_torch import models as MZ
+    from repro_torch.launch.dryrun import tree_bytes
+    cfg = C.get_reduced("qwen3-0.6b")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = MZ.init_model(cfg, seed=0, device=cuda)
+    mid = torch.cuda.memory_allocated()
+    cache = MZ.init_cache(cfg, 4, 128, page_size=16, num_pages=32,
+                          device=cuda)
+    end = torch.cuda.memory_allocated()
+    assert tree_bytes(MZ.abstract_model(cfg)) == tree_bytes(params)
+    assert tree_bytes(MZ.abstract_cache(cfg, 4, 128, page_size=16,
+                                        num_pages=32)) == tree_bytes(cache)
+    # the allocator rounds each tensor up to 512 bytes
+    n_p, n_c = (sum(1 for _ in _tensors(t)) for t in (params, cache))
+    assert 0 <= (mid - base) - tree_bytes(params) < 512 * n_p
+    assert 0 <= (end - mid) - tree_bytes(cache) < 512 * n_c
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)

@@ -33,7 +33,12 @@ assert {"repro_torch.configs.stablelm_12b",
         "repro_torch.benchmarks.bench_int7",
         "repro_torch.examples.quickstart", "repro_torch.examples.serve_lm",
         "repro_torch.examples.serve_stream",
-        "repro_torch.examples.tinyml_repro"} <= set(names), names
+        "repro_torch.examples.tinyml_repro", "repro_torch.launch.analysis",
+        "repro_torch.launch.dryrun", "repro_torch.benchmarks.roofline",
+        "repro_torch.benchmarks.warm_autotune",
+        "repro_torch.benchmarks.perf_trend", "repro_torch.kernels.ops",
+        "repro_torch.kernels.autotune",
+        "repro_torch.serving.engine"} <= set(names), names
 import chip_smoke
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "repro"))]

@@ -118,8 +118,10 @@ def test_dispatch_mode_follows_the_device():
     assert dispatch.resolve_mode(torch.device("cuda")) == "kernel"
     assert dispatch.resolve_mode(torch.device("cuda", 0)) == "kernel"
     assert dispatch.resolve_mode(torch.device("cpu")) == "ref"
+    # meta takes the wrappers' shape-only route (the dry run's)
+    assert dispatch.resolve_mode(torch.device("meta")) == "meta"
     with pytest.raises(ValueError):
-        dispatch.resolve_mode(torch.device("meta"))
+        dispatch.resolve_mode(torch.device("mps"))
     _, tp = nm_case(6)
     params = {"layers": [{"mlp": {"w_in": tp}}]}
     plan = dispatch.plan_params(params, M=8, device="cuda")

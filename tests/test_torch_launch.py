@@ -113,7 +113,7 @@ def test_restores_the_checkpoint(reports):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dry-run"], "item 14c"),
+    (["--dry-run", "--model-parallel", "2"], "item 13"),
     (["--model-parallel", "2"], "item 13"), (["--devices", "8"], "item 13"),
     (["--max-queue", "4"], "item 12"), (["--deadline-ms", "50"], "item 12"),
     (["--supervise"], "item 12"), (["--journal", "wal.jsonl"], "item 12"),
@@ -126,6 +126,35 @@ def test_unported_flags_raise(flags, item):
     the ROADMAP item that ports it; its default value is accepted."""
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu"] + flags)
+
+
+def test_dry_run_reports_on_meta(capsys):
+    """``--dry-run`` builds nothing: it runs the per-slot prefill and one
+    decode chunk on ``meta`` and prints their peaks and FLOPs, the param
+    and cache bytes and the plan rows (here of the reduced config)."""
+    from repro_torch import configs as C
+    from repro_torch import models as MZ
+    from repro_torch.launch.dryrun import tree_bytes
+    assert tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                        "--dry-run", "--slots", "2", "--max-len", "64",
+                        "--decode-chunk", "4"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = C.get_reduced(ARCH)
+    assert rep["dry_run"] and rep["arch"] == cfg.name
+    assert rep["param_bytes_global"] == tree_bytes(MZ.abstract_model(cfg))
+    assert rep["cache_bytes_global"] == tree_bytes(MZ.abstract_cache(
+        cfg, 2, 64, page_size=16, num_pages=rep["pool_pages"]))
+    assert rep["page_size"] == 16 and rep["pool_pages"] == 2 * 64 // 16
+    for name, calls in (("prefill_slot", "flash_attention"),
+                        ("decode_chunk", "paged_attention")):
+        prog = rep["programs"][name]
+        mem = prog["memory"]
+        assert prog["flops"] > 0 and prog["kernel_calls"][calls] > 0
+        assert mem["peak_live_bytes"] >= mem["entry_bytes"] >= \
+            rep["param_bytes_global"] + rep["cache_bytes_global"]
+    assert rep["programs"]["decode_chunk"]["kernel_calls"][
+        "paged_attention"] == 4 * cfg.n_layers
+    assert rep["plan_rows"] == {"prefill": 0, "decode": 0}    # dense
 
 
 def test_defaults_run_on_the_card():
