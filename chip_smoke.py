@@ -350,6 +350,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      section at its smoke shape (a finding: exit 1 only names rows that
      moved past 30%).  The line after ``{"launchers": ...}`` is
      ``{"dryrun": ...}``.
+ 17. faults and chaos (``faults_and_chaos``): qwen3-0.6b ``sparse()`` at
+     published widths cut to ``FAULT_LAYERS`` = 4 of its 28 layers, bf16,
+     paged (16-row pages, 16-row prompt buckets), prefix sharing on,
+     graphs on, 8 slots.  (a) ``preemption``: a pool sized to 8
+     low-priority requests, then 2 arrivals at priority 5; gates:
+     preemptions >= 1, every victim resumes to its budget, each
+     re-admission a prefix hit, tokens equal an uninterrupted serve's or
+     split at a near tie, no new graph key captured for the resumed
+     decode, the audit clean after every tick.  (b) ``chaos_run``:
+     ``ChaosConfig(seed=7, rate=0.05)`` over 24 requests of 16-128
+     tokens at priorities 0, 1 and 5; gates: ``step()`` never raises,
+     the audit after every step, every request terminal, the kernel,
+     drop, delay, nan and pressure sites each fired, a second fresh
+     engine at the seed gives the same schedule, statuses and tokens bit
+     for bit; the counters printed.  (c) ``degraded_mode``: one kernel
+     fault; gates: while degraded no kernel launches and the plain
+     versions' launches counted, after ``RECOVER_CHUNKS`` clean chunks
+     the kernels launch again and every chunk replays its graph, tokens
+     equal a clean serve's or split at a near tie, a monkey at rate 0
+     gives the clean serve's tokens and launches.  (d)
+     ``chaos_vs_cpu``: (b)'s run at 2 layers in fp32 on the card and on
+     the CPU path (in a process of its own, started with the phase and
+     run beside (a)-(c)): the same schedule and statuses, tokens equal
+     (phase 5's rule).  Every other phase fails on a plain launch
+     (``launch_counts``), on a fault counter of a serve (``healthy``) and
+     on an engine entering degraded mode (its warning is an error
+     there).  The line after ``{"dryrun": ...}`` is ``{"faults": ...}``.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -368,6 +395,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1034,7 +1062,8 @@ def pack_summary(params) -> str:
 #: the half-stage launches (the matmul kernels)
 SUB_COUNTS = {"block_launches": "Q>1", "mma_launches": "mma",
               "noncausal_launches": "non-causal",
-              "window_launches": "window", "half_launches": "half"}
+              "window_launches": "window", "half_launches": "half",
+              "plain_launches": "plain"}
 
 
 def zero_counts(counters) -> None:
@@ -1051,17 +1080,34 @@ def counted(launches: dict) -> list:
     return [name for name in launches if " " not in name]
 
 
-def launch_counts(counters) -> dict:
+def launch_counts(counters, plain_ok: bool = False) -> dict:
     """Each wrapper's launches by kernel module name, ``paged_attention
-    Q>1`` (the paged launches of a verify block), and ``<kernel> mma``,
-    the attention launches on the tensor-core route."""
+    Q>1`` (the paged launches of a verify block), ``<kernel> mma``, the
+    attention launches on the tensor-core route, and ``<kernel> plain``,
+    the plain versions a degraded engine ran on the card in the kernel's
+    place: anywhere but phase 17 (c) (``plain_ok``) a plain launch
+    fails the phase, so degraded mode never stands in for a kernel."""
     got = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in counters}
     for mod in counters:
         for attr, tag in SUB_COUNTS.items():
             if hasattr(mod, attr):
                 got[f"{mod.__name__.rsplit('.', 1)[1]} {tag}"] = \
                     getattr(mod, attr)
+    plain = {k: n for k, n in got.items() if k.endswith(" plain") and n}
+    if plain and not plain_ok:
+        raise AssertionError(f"plain versions ran on the card in the "
+                             f"kernels' place: {plain}")
     return got
+
+
+def healthy(tag: str, st) -> None:
+    """A serve outside phase 17 contains no fault: no kernel failure, no
+    fetch error, no numeric fault, and the engine never degraded."""
+    bad = {k: getattr(st, k) for k in ("kernel_failures", "fetch_errors",
+                                        "numeric_faults", "degraded")
+           if getattr(st, k)}
+    if bad:
+        raise AssertionError(f"{tag}: the fault layer acted: {bad}")
 
 
 def phase4_prompts(vocab: int, requests: int = 16) -> list:
@@ -1093,6 +1139,7 @@ def serve_prompts(eng, prompts, counters) -> tuple:
     wall = time.perf_counter() - t0
     launches = launch_counts(counters)
     st = eng.stats()
+    healthy(eng.cfg.name, st)
     outs = [h.tokens for h in handles]
     budget = eng.scfg.max_new_tokens
     if not all(h.status.value == "done" and len(o) == budget
@@ -1594,6 +1641,7 @@ def serve_stream(eng, requests, handle=None) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.stats()
+    healthy(f"prefix {eng.cfg.name}", st)
     outs = [h.tokens for h in handles]
     budget = eng.scfg.max_new_tokens
     if not all(h.status.value == "done" and len(o) == budget
@@ -4332,6 +4380,455 @@ def dryrun_and_autotune(dev, counters) -> tuple:
     return launches, found
 
 
+# --- phase 17: faults and chaos ---------------------------------------------
+
+#: phase 17's depth: qwen3-0.6b ``sparse()`` at published widths, the
+#: first 4 of its 28 layers (as phase 16's serves)
+FAULT_LAYERS = 4
+#: phase 17's serve: paged, bucketed, prefix-shared, graphs on, 8 slots
+FAULT_SERVE = dict(slots=8, max_len=512, prompt_pad=128, page_size=16,
+                   prompt_buckets=16, prefix_cache=True, decode_chunk=8,
+                   eos_token=-1)
+#: (a): 8 low-priority requests of 64 tokens (the last one short, so its
+#: slot frees before the pool has room), then 2 arrivals of 128 tokens at
+#: priority 5 that its pages do not cover
+LO_LEN, LO_NEW, LO_SHORT_NEW = 64, 48, 8
+HI_LEN, HI_NEW, HI_PRIORITY = 128, 32, 5
+#: (b), (d): the chaos run: 24 requests of 16-128 tokens at priorities 0,
+#: 1 and 5, no deadlines, over a pool that holds about half of them
+CHAOS_SEED, CHAOS_RATE = 7, 0.05
+CHAOS_REQUESTS, CHAOS_NEW, CHAOS_CHUNK, CHAOS_POOL = 24, 24, 2, 64
+CHAOS_SITES = ("kernel", "drop", "delay", "nan", "pressure")
+#: (c): the clean chunks a degraded engine runs before its kernels return
+RECOVER_CHUNKS = 3
+#: the fault layer's counters, printed per run
+FAULT_COUNTERS = ("timeouts", "rejections", "preemptions", "numeric_faults",
+                  "kernel_failures", "fetch_errors", "degraded",
+                  "degraded_recoveries", "prefills", "prefix_hits",
+                  "shared_pages", "admission_waits", "sync_count")
+
+
+def fault_config():
+    from repro_torch.configs import qwen3_0_6b
+    return cut_depth(qwen3_0_6b.sparse(), FAULT_LAYERS)
+
+
+def fault_engine(cfg, params, dev, **kw):
+    from repro_torch.serving import Engine, ServeConfig
+    return Engine(cfg, ServeConfig(**{**FAULT_SERVE, **kw}), params,
+                  device=dev)
+
+
+def fault_counters(st) -> dict:
+    return {k: getattr(st, k) for k in FAULT_COUNTERS}
+
+
+def drive(eng, handles, tag: str, limit: int) -> int:
+    """Step ``eng`` until every handle is terminal, auditing the engine
+    after every step; returns the ticks."""
+    from repro_torch.serving import audit_engine
+    ticks = 0
+    while not all(h.done for h in handles):
+        if ticks >= limit:
+            raise AssertionError(f"{tag}: not terminal after {limit} ticks: "
+                                 f"{[h.status.value for h in handles]}")
+        eng.step()
+        audit_engine(eng)
+        ticks += 1
+    return ticks
+
+
+def split_at_tie(tag: str, params, cfg, dev, prompt, rows: int, got, want,
+                 tol_dtype) -> bool:
+    """``got`` equals ``want`` or splits first at a near tie of ``want``
+    (read by replaying ``want`` one sequence at a time on ``dev`` at the
+    engine's padded width ``rows``; ``near_tie`` in ``tol_dtype``).
+    Returns whether they are equal; raises on a split away from a tie."""
+    split = first_split(got, want)
+    if split is None and len(got) == len(want):
+        return True
+    if split is None:
+        raise AssertionError(f"{tag}: {len(got)} tokens against "
+                             f"{len(want)}")
+    _, gaps, tops = greedy(params, cfg, prompt, len(want), rows, 512,
+                           device=dev, forced=want)
+    tie = near_tie(gaps[split], tops[split], tol_dtype)
+    log(f"[{tag}] first split at {split}, top-2 gap there "
+        f"{gaps[split]:.3e} at top logit {tops[split]:.4f}: "
+        f"{'a near tie' if tie else 'NOT a tie'}")
+    if not tie:
+        raise AssertionError(f"{tag}: split away from a near tie")
+    return False
+
+
+def preempt_stream(vocab: int) -> tuple:
+    """(a)'s prompts and budgets: (low, their budgets, high)."""
+    rng = np.random.default_rng(SEED + 17)
+    lo = [rng.integers(1, vocab, size=LO_LEN).astype(np.int32)
+          for _ in range(8)]
+    hi = [rng.integers(1, vocab, size=HI_LEN).astype(np.int32)
+          for _ in range(2)]
+    return lo, [LO_NEW] * 7 + [LO_SHORT_NEW], hi
+
+
+def preempt_pool(scfg, budgets) -> int:
+    """The pool sized to the 8 low-priority requests: what their
+    admission takes, each its reservation and its published prompt
+    pages (the admission check counts both)."""
+    rows = scfg.prompt_rows(LO_LEN)
+    return sum(scfg.rows_pages(rows, n) + rows // scfg.page_size
+               for n in budgets)
+
+
+def preempt_serve(eng, lo, budgets, hi) -> tuple:
+    """Serve (a)'s stream on ``eng``: the low-priority requests, one
+    tick, then the high-priority ones.  Returns (handles, ticks, the
+    length of ``chunk_runs`` before the tick of the first resumption, or
+    ``None``)."""
+    from repro_torch.serving import RequestStatus
+    eng.reset_stats()
+    los = [eng.submit(p, max_new=n) for p, n in zip(lo, budgets)]
+    eng.step()
+    eng.audit()
+    his = [eng.submit(p, max_new=HI_NEW, priority=HI_PRIORITY) for p in hi]
+    handles = los + his
+    resumed_at, ticks = None, 1
+    while not all(h.done for h in handles):
+        if ticks > 200:
+            raise AssertionError("(a): the serve does not drain")
+        before = len(eng.stats().chunk_runs)
+        eng.step()
+        eng.audit()
+        ticks += 1
+        if resumed_at is None and any(
+                h._req.history.count(RequestStatus.RUNNING) > 1
+                for h in los):
+            resumed_at = before
+    return handles, ticks, resumed_at
+
+
+def preemption(cfg, params, dev) -> dict:
+    """(a): priority preemption at full width.  The pool holds the 8
+    low-priority requests; when the short one finishes, its slot frees
+    but not pages enough for a 128-token arrival at priority 5, so the
+    youngest low-priority slot is preempted, its prompt pages kept warm.
+    Gates: preemptions >= 1, every victim resumes and finishes with its
+    budget, each re-admission a prefix hit; every request's tokens equal
+    an uninterrupted serve's (a pool of the full capacity) or split at a
+    near tie; the resumed decode captures no graph of a key that had not
+    run before; the audit is clean after every tick."""
+    from repro_torch.serving import ServeConfig
+    lo, budgets, hi = preempt_stream(cfg.vocab_size)
+    pool = preempt_pool(ServeConfig(**FAULT_SERVE), budgets)
+    eng = fault_engine(cfg, params, dev, num_pages=pool)
+    handles, ticks, resumed_at = preempt_serve(eng, lo, budgets, hi)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    victims = [i for i, h in enumerate(handles[:8]) if h._req.preempts]
+    base_eng = fault_engine(cfg, params, dev)
+    base, _, _ = preempt_serve(base_eng, lo, budgets, hi)
+    rows = [eng.scfg.prompt_rows(len(p)) for p in lo + hi]
+    equal = sum(split_at_tie(f"faults a: request {i}", params, cfg, dev, p,
+                             r, h.tokens, b.tokens, params["embed"].dtype)
+                for i, (p, r, h, b) in enumerate(zip(lo + hi, rows, handles,
+                                                     base)))
+    runs = st.chunk_runs
+    seen = {key for key, _ in runs[:resumed_at or 0]}
+    late = [key for key, how in runs[resumed_at or 0:]
+            if how == "capture" and key not in seen]
+    after = [how for _, how in runs[resumed_at or 0:]]
+    log(f"[faults a] pool {pool} pages; {ticks} ticks; preemptions "
+        f"{st.preemptions}, victims {victims} (histories "
+        f"{[[s.value for s in handles[i]._req.history] for i in victims]}"
+        f"); prefix hits {st.prefix_hits}, shared pages {st.shared_pages}, "
+        f"admission waits {st.admission_waits}; {equal}/10 requests "
+        f"token-equal to the uninterrupted serve; chunks from the first "
+        f"resumption on: {after.count('replay')} replays, "
+        f"{after.count('capture')} captures, {after.count('eager')} eager")
+    if st.preemptions < 1 or not victims or resumed_at is None:
+        raise AssertionError(f"(a): no preemption and resumption "
+                             f"({st.preemptions} preemptions)")
+    for i, h in enumerate(handles):
+        want = (budgets + [HI_NEW] * 2)[i]
+        if h.status.value != "done" or len(h.tokens) != want:
+            raise AssertionError(f"(a): request {i} ended {h.status.value} "
+                                 f"with {len(h.tokens)} of {want} tokens")
+    if st.prefix_hits != sum(handles[i]._req.preempts for i in victims):
+        raise AssertionError(f"(a): {st.prefix_hits} prefix hits for "
+                             f"{len(victims)} resumed victims")
+    if late:
+        raise AssertionError(f"(a): the resumed decode captured new keys "
+                             f"{late}")
+    healthy("faults a", st)
+    return fault_counters(st)
+
+
+def chaos_stream(vocab: int) -> tuple:
+    """(b)'s 24 prompts of 16-128 tokens and their priorities."""
+    rng = np.random.default_rng(SEED + 71)
+    prompts = [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 129, size=CHAOS_REQUESTS)]
+    return prompts, [(0, 1, 5)[i % 3] for i in range(CHAOS_REQUESTS)]
+
+
+def chaos_serve(cfg, params, dev, prompts, prios) -> dict:
+    """One chaos run on a fresh engine: ``ChaosConfig(seed=CHAOS_SEED,
+    rate=CHAOS_RATE)`` attached, the monkey auditing after every step;
+    ``step()`` must never raise and every request must end terminal."""
+    from repro_torch.serving import ChaosConfig, ChaosMonkey
+    eng = fault_engine(cfg, params, dev, decode_chunk=CHAOS_CHUNK,
+                       num_pages=CHAOS_POOL)
+    mk = ChaosMonkey(eng, ChaosConfig(seed=CHAOS_SEED,
+                                      rate=CHAOS_RATE)).attach()
+    handles = [eng.submit(p, max_new=CHAOS_NEW, priority=q)
+               for p, q in zip(prompts, prios)]
+    ticks = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while not all(h.done for h in handles):
+            if ticks > 40 * len(prompts):
+                raise AssertionError("(b): the chaos serve does not drain")
+            eng.step()
+            ticks += 1
+    mk.detach()
+    return {"schedule": list(mk.schedule),
+            "status": [h.status.value for h in handles],
+            "tokens": [h.tokens for h in handles],
+            "rows": [h._req.rows0 for h in handles], "ticks": ticks,
+            "stats": fault_counters(eng.stats())}
+
+
+def chaos_run(cfg, params, dev, prompts, prios) -> dict:
+    """(b): the chaos run twice, each on a fresh engine.  Gates: every
+    request terminal; each of ``CHAOS_SITES`` fired; the second run's
+    schedule, statuses and tokens equal the first's bit for bit."""
+    a = chaos_serve(cfg, params, dev, prompts, prios)
+    b = chaos_serve(cfg, params, dev, prompts, prios)
+    fired = {site: sum(s == site for _, s, _ in a["schedule"])
+             for site in CHAOS_SITES}
+    statuses = {s: a["status"].count(s) for s in sorted(set(a["status"]))}
+    log(f"[faults b] seed {CHAOS_SEED} rate {CHAOS_RATE}: {a['ticks']} "
+        f"ticks, sites fired {fired}, statuses {statuses}, counters "
+        f"{json.dumps(a['stats'])}")
+    if any(s not in ("done", "failed") for s in a["status"]):
+        raise AssertionError(f"(b): a request is not terminal: {statuses}")
+    missing = [site for site, n in fired.items() if not n]
+    if missing:
+        raise AssertionError(f"(b): sites that never fired: {missing}")
+    for key in ("schedule", "status", "tokens", "ticks"):
+        if a[key] != b[key]:
+            raise AssertionError(f"(b): a second engine at seed "
+                                 f"{CHAOS_SEED} gave another {key}")
+    return a
+
+
+def fault_serve(eng, prompts, counters, monkey=None) -> tuple:
+    """Serve ``prompts`` on ``eng`` (counts set to 0 just before, read
+    just after): (tokens, launches, stats)."""
+    eng.reset_stats()
+    zero_counts(counters)
+    handles = [eng.submit(p) for p in prompts]
+    drive(eng, handles, "faults c", 100)
+    torch.cuda.synchronize()
+    return ([h.tokens for h in handles], launch_counts(counters),
+            eng.stats())
+
+
+def degraded_mode(cfg, params, dev, counters) -> dict:
+    """(c): degraded mode.  One engine serves 8 prompts cold and warm
+    (every key captured), then with a monkey at rate 0 (the warm serve's
+    tokens and launches exactly), then with one kernel fault on the
+    first chunk: it is retried on the plain versions and the engine
+    stays degraded for ``RECOVER_CHUNKS`` clean chunks.  Gates: while
+    degraded no kernel launches, the plain launches are counted and the
+    chunks run as ``plain``; after recovery the kernels launch again and
+    each chunk replays its key's graph, with no new capture; tokens equal
+    the warm serve's or split at a near tie.  Returns the warm serve's
+    launches."""
+    from repro_torch.serving import ChaosConfig, ChaosMonkey
+    prompts = phase4_prompts(cfg.vocab_size, requests=8)
+    eng = fault_engine(cfg, params, dev, decode_chunk=4, max_new_tokens=32,
+                       degraded_recover_chunks=RECOVER_CHUNKS)
+    fault_serve(eng, prompts, counters)
+    warm, warm_launches, warm_st = fault_serve(eng, prompts, counters)
+    healthy("faults c warm", warm_st)
+    mk = ChaosMonkey(eng, ChaosConfig(seed=0, rate=0.0)).attach()
+    zero, zero_launches, _ = fault_serve(eng, prompts, counters)
+    mk.detach()
+    if (zero, zero_launches) != (warm, warm_launches):
+        raise AssertionError("(c): a monkey at rate 0 changed the serve")
+
+    eng.reset_stats()
+    zero_counts(counters)
+    handles = [eng.submit(p) for p in prompts]
+    mk = ChaosMonkey(eng, ChaosConfig(seed=0, rate=0.0,
+                                      kernel_rate=1.0)).attach()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng.step()          # prefills on the kernels; the chunk raises
+        mk.detach()
+        eng.audit()
+        if not eng.degraded or eng.stats().chunk_runs[-1][1] != "plain":
+            raise AssertionError("(c): the kernel fault did not degrade "
+                                 "the engine onto the plain versions")
+        plain_chunks, kernel_chunks = 0, []
+        while not all(h.done for h in handles):
+            was = eng.degraded
+            before = launch_counts(counters, plain_ok=True)
+            eng.step()
+            eng.audit()
+            after = launch_counts(counters, plain_ok=True)
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            how = eng.stats().chunk_runs[-1][1]
+            kernels = sum(n for k, n in moved.items() if " " not in k)
+            plain = sum(n for k, n in moved.items() if k.endswith(" plain"))
+            if was and (how != "plain" or kernels or not plain):
+                raise AssertionError(f"(c): a degraded chunk ran {how} "
+                                     f"with launches {moved}")
+            if not was and (how != "replay" or plain or not kernels):
+                raise AssertionError(f"(c): a recovered chunk ran {how} "
+                                     f"with launches {moved}")
+            plain_chunks += was
+            if not was:
+                kernel_chunks.append(moved)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    equal = sum(split_at_tie(f"faults c: request {i}", params, cfg, dev, p,
+                             eng.scfg.prompt_rows(len(p)), h.tokens, w,
+                             params["embed"].dtype)
+                for i, (p, h, w) in enumerate(zip(prompts, handles, warm)))
+    plain = {k: n for k, n in launch_counts(counters, True).items()
+             if k.endswith(" plain") and n}
+    log(f"[faults c] kernel failures {st.kernel_failures}, plain chunks "
+        f"{plain_chunks + 1} (the retried one included), recoveries "
+        f"{st.degraded_recoveries}, replayed chunks after it "
+        f"{len(kernel_chunks)}, captures {len(st.graph_captures)}; plain "
+        f"launches {plain}; {equal}/{len(prompts)} requests token-equal "
+        "to the warm serve")
+    if st.kernel_failures != 1 or st.degraded_recoveries != 1 or \
+            plain_chunks < RECOVER_CHUNKS or not kernel_chunks or \
+            st.graph_captures:
+        raise AssertionError(f"(c): {st.kernel_failures} kernel failures, "
+                             f"{st.degraded_recoveries} recoveries, "
+                             f"{plain_chunks} plain and {len(kernel_chunks)} "
+                             f"kernel chunks, {len(st.graph_captures)} "
+                             "captures")
+    if any(h.status.value != "done" for h in handles):
+        raise AssertionError("(c): a request did not finish")
+    return warm_launches
+
+
+#: the flag of this script's own CPU-reference mode (phase 17 (d))
+CPU_REFERENCE = "--faults-cpu-reference"
+
+
+def chaos_small(cfg):
+    """(d)'s model: ``cfg`` at 2 layers in fp32."""
+    return dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
+                               dtype="float32")
+
+
+def chaos_cpu_reference(out: str) -> int:
+    """This script's CPU-reference mode: (b)'s chaos run on (d)'s model
+    on the port's CPU path, its result written to ``out`` as JSON.  The
+    weights are made on the CPU from the seed, as phase 17 makes the
+    card's copy, so both sides hold the same values."""
+    sys.path.insert(0, str(ROOT / "src"))
+    cpu = torch.device("cpu")
+    small = chaos_small(fault_config())
+    params = sparse_model(small, cpu, SEED + 17)
+    prompts, prios = chaos_stream(small.vocab_size)
+    got = chaos_serve(small, params, cpu, prompts, prios)
+    got["schedule"] = [list(e) for e in got["schedule"]]
+    Path(out).write_text(json.dumps(got))
+    return 0
+
+
+def start_cpu_reference() -> tuple:
+    """Start (d)'s CPU side in a process of its own, so that it runs
+    while the card serves (a)-(c): (process, its output file)."""
+    out = ROOT / "build" / "chip_smoke" / "faults_cpu.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             CPU_REFERENCE, str(out)], cwd=str(ROOT))
+    return proc, out
+
+
+def chaos_vs_cpu(cfg, dev, prompts, prios, proc, out: Path) -> None:
+    """(d): (b)'s chaos run at 2 layers in fp32 on the card, against the
+    same run on the port's CPU path (``chaos_cpu_reference``, started at
+    the phase's beginning).  Gates: the same schedule, statuses and
+    ticks; tokens equal or split first where the CPU's top-2 gap is
+    under ``GAP_TOL`` (phase 5's rule)."""
+    small = chaos_small(cfg)
+    cpu_params = sparse_model(small, torch.device("cpu"), SEED + 17)
+    card = chaos_serve(small, _to(cpu_params, dev), dev, prompts, prios)
+    card["schedule"] = [list(e) for e in card["schedule"]]
+    t0 = time.perf_counter()
+    if proc.wait(timeout=600):
+        raise AssertionError(f"(d): the CPU reference exited "
+                             f"{proc.returncode}")
+    log(f"[faults d] waited {time.perf_counter() - t0:.1f} s for the CPU "
+        "reference")
+    cpu = json.loads(out.read_text())
+    equal = 0
+    for i, (p, r, a, b) in enumerate(zip(prompts, cpu["rows"], card["tokens"],
+                                         cpu["tokens"])):
+        split = first_split(a, b)
+        if split is None and len(a) == len(b):
+            equal += 1
+            continue
+        if split is None:
+            raise AssertionError(f"(d): request {i}: {len(a)} tokens on the "
+                                 f"card, {len(b)} on the CPU")
+        _, gaps, _ = greedy(cpu_params, small, p, len(b), r, 512, forced=b)
+        log(f"[faults d] request {i}: first split at {split}, CPU top-2 gap "
+            f"there {gaps[split]:.3e}")
+        if gaps[split] >= GAP_TOL:
+            raise AssertionError(f"(d): request {i} split from the CPU away "
+                                 "from a near tie")
+    log(f"[faults d] 2 layers fp32: {len(card['schedule'])} faults in "
+        f"{card['ticks']} ticks on both; {equal}/{len(prompts)} requests "
+        f"token-equal to the CPU path; card counters "
+        f"{json.dumps(card['stats'])}")
+    for key in ("schedule", "status", "ticks"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"(d): the card's {key} differs from the "
+                                 "CPU path's")
+
+
+def faults_and_chaos(dev, counters) -> tuple:
+    """Phase 17: (a) ``preemption``, (b) ``chaos_run``, (c)
+    ``degraded_mode``, (d) ``chaos_vs_cpu``.  Returns (c)'s warm launches
+    and the counters of (a) and (b)."""
+    proc, out = start_cpu_reference()
+    try:
+        cfg = fault_config()
+        params = sparse_model(cfg, dev, SEED + 17)
+        prompts, prios = chaos_stream(cfg.vocab_size)
+        found = {}
+        t0 = time.perf_counter()
+        found["preemption"] = preemption(cfg, params, dev)
+        log(f"[phase 17] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        found["chaos"] = chaos_run(cfg, params, dev, prompts, prios)["stats"]
+        log(f"[phase 17] (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches = degraded_mode(cfg, params, dev, counters)
+        log(f"[phase 17] (c) {time.perf_counter() - t0:.1f} s")
+        del params
+        t0 = time.perf_counter()
+        chaos_vs_cpu(cfg, dev, prompts, prios, proc, out)
+        log(f"[phase 17] (d) {time.perf_counter() - t0:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return launches, found
+
+
 def with_format(cfg, fmt: str):
     """``cfg`` with all seven projections in pack format ``fmt``."""
     from repro_torch.core.sparse_linear import SparsityConfig
@@ -4362,6 +4859,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # outside phase 17 an engine entering degraded mode fails the phase
+    # (a kernel failure always degrades): the plain versions never stand
+    # in for a kernel unseen
+    warnings.filterwarnings("error", message="engine entering degraded",
+                            category=RuntimeWarning)
     dev = torch.device("cuda", 0)
     log(nvidia_smi())
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4523,6 +5025,12 @@ def main() -> int:
         launches[name] += got[name]
     timed("16 dry run and autotune", t0)
 
+    t0 = time.perf_counter()
+    got, faults = faults_and_chaos(dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    timed("17 faults and chaos", t0)
+
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -4533,6 +5041,7 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"launchers": launchers}, default=str))
     log(json.dumps({"dryrun": dryrun_found}))
+    log(json.dumps({"faults": faults}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4542,4 +5051,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CPU_REFERENCE]:
+        sys.exit(chaos_cpu_reference(sys.argv[2]))
     sys.exit(main())

@@ -25,11 +25,17 @@ hand-written kernels at these geometries).  Rows:
     drafting for the dense model) on the same mix, against het-paged;
   * ``shared-sys-{64,256}``: 8 slots of prompts led by a pinned head
     (``register_prefix``) against the unshared engine serving the same
-    full prompts: ``ttft_speedup``, ``kv_ratio``, the prefix counters.
+    full prompts: ``ttft_speedup``, ``kv_ratio``, the prefix counters;
+  * ``mixed-priority-preempt``: long batch requests fill the page pool
+    while short interactive ones arrive mid-serve, at priority 1 (a
+    batch slot is preempted and resumes warm) against priority 0 (they
+    wait for a batch slot to drain): interactive TTFT both ways,
+    ``preemptions``, ``ttft_p95_speedup``; ``syncs`` and ``chunks`` of
+    the preempting serve beside the JAX bench's columns.
 
 Left out until their modules are ported (``NOT_PORTED``, printed by
-:func:`main`): the ``mixed-*`` preemption and ``crash-*`` restore rows
-(ROADMAP queue 1 item 12) and the ``sharded-*`` rows (item 13).
+:func:`main`): the ``crash-*`` restore rows (ROADMAP queue 1 item 12b)
+and the ``sharded-*`` rows (item 13).
 
 Times are host wall clock around the engine's own calls, which fetch
 their results (one sync per chunk), so the device has finished when
@@ -93,9 +99,7 @@ SH_REQS = SH_SLOTS * SH_ROUNDS      # the TTFT percentiles
 
 #: the JAX bench's rows the port leaves out, with the item that ports them
 NOT_PORTED = {
-    "mixed-priority-preempt": "ROADMAP queue 1 item 12 (priorities, "
-                              "preemption)",
-    "crash-restore": "ROADMAP queue 1 item 12 (journal, supervisor)",
+    "crash-restore": "ROADMAP queue 1 item 12b (journal, supervisor)",
     "sharded-d*": "ROADMAP queue 1 item 13 (tensor parallelism)",
 }
 
@@ -396,6 +400,106 @@ def _spec_scenario(paged_tok_per_s: float, device) -> list:
     return rows
 
 
+# --- mixed-priority scenario (preemption vs admission wait) ----------------
+# a pool saturated by low-priority batch requests while short interactive
+# requests arrive mid-serve: with priority the scheduler preempts a batch
+# slot (retired; the warm re-admission resumes the suffix), without it
+# the interactive request waits for a batch slot to drain.
+PR_SLOTS = 6                        # slot headroom: arrivals block on
+PR_BATCH = 4                        # *pages*, not slots, so preemption
+PR_BATCH_LEN = 256                  # (not slot-wait) is what's measured
+PR_INTER_LEN = 32                   # interactive prompt tokens
+PR_BATCH_NEW = 16 if SMOKE else 48
+PR_INTER_NEW = 4
+PR_INTER_N = 3                      # interactive arrivals, spaced out
+PR_GAP = 2                          # scheduler ticks between arrivals
+
+
+def _preempt_serve(cfg, params, scfg, batch, inter, priority,
+                   device="cuda") -> dict:
+    """Serve the batch requests and the interactive arrivals (every
+    ``PR_GAP`` ticks, at ``priority``) twice on one engine: a warm pass
+    that visits every geometry the timed one will (greedy, fixed arrival
+    ticks: the same schedule), then the timed pass."""
+    eng = Engine(cfg, scfg, params, device=device)
+
+    def one_pass():
+        t0 = time.perf_counter()
+        for p in batch:
+            eng.submit(p, max_new=PR_BATCH_NEW)
+        ih, tick = [], 0
+        while eng.queue or eng.num_live or len(ih) < len(inter):
+            if tick and tick % PR_GAP == 0 and len(ih) < len(inter):
+                ih.append(eng.submit(inter[len(ih)], max_new=PR_INTER_NEW,
+                                     priority=priority))
+            eng.step()
+            tick += 1
+        return ih, time.perf_counter() - t0
+
+    one_pass()
+    eng.finished.clear()
+    eng.reset_stats()
+    ih, wall = one_pass()
+    stats = eng.stats()
+    toks = sum(len(r.out) for r in eng.finished)
+    ttft = np.asarray([h.ttft_s for h in ih if h.ttft_s is not None]) * 1e3
+    if ttft.size == 0:
+        ttft = np.zeros(1)
+    return {"tokens": toks, "tok_per_s": toks / wall,
+            "inter_ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "inter_ttft_p95_ms": float(np.percentile(ttft, 95)),
+            "preemptions": stats.preemptions,
+            "admission_waits": stats.admission_waits,
+            "syncs": stats.sync_count, "chunks": len(stats.chunk_s),
+            "prefills": stats.prefills, "prefix_hits": stats.prefix_hits}
+
+
+def _preempt_prompts() -> tuple:
+    """(batch prompts, interactive prompts) of the mixed-priority row."""
+    rng = np.random.default_rng(3)
+    batch = [rng.integers(1, VOCAB, size=PR_BATCH_LEN).astype(np.int32)
+             for _ in range(PR_BATCH)]
+    inter = [rng.integers(1, VOCAB, size=PR_INTER_LEN).astype(np.int32)
+             for _ in range(PR_INTER_N)]
+    return batch, inter
+
+
+def _preempt_scfg() -> ServeConfig:
+    """The row's paged config, its pool sized to exactly the batch
+    saturation: an interactive arrival finds a free slot but no pages
+    until a batch request retires (admission wait) or is preempted."""
+    base = ServeConfig(
+        slots=PR_SLOTS, max_len=PR_BATCH_LEN + 2 * PR_BATCH_NEW,
+        prompt_pad=PR_BATCH_LEN, max_new_tokens=PR_BATCH_NEW,
+        decode_chunk=4, temperature=0.0, eos_token=-1,
+        page_size=HET_PAGE, prompt_buckets=HET_BUCKET, page_view_chunk=8)
+    pool = PR_BATCH * base.request_pages(PR_BATCH_LEN, PR_BATCH_NEW)
+    return dataclasses.replace(base, num_pages=pool)
+
+
+def _preempt_scenario(device) -> list:
+    cfg, params = _model("dense", device)
+    batch, inter = _preempt_prompts()
+    scfg = _preempt_scfg()
+    pre = _preempt_serve(cfg, params, scfg, batch, inter, 1, device)
+    wait = _preempt_serve(cfg, params, scfg, batch, inter, 0, device)
+    return [{
+        "config": "mixed-priority-preempt", "slots": PR_SLOTS,
+        "tokens": pre["tokens"],
+        "tok_per_s": round(pre["tok_per_s"], 1),
+        "inter_ttft_p50_ms": round(pre["inter_ttft_p50_ms"], 3),
+        "inter_ttft_p95_ms": round(pre["inter_ttft_p95_ms"], 3),
+        "preemptions": pre["preemptions"],
+        "syncs": pre["syncs"], "chunks": pre["chunks"],
+        "base_tok_per_s": round(wait["tok_per_s"], 1),
+        "base_inter_ttft_p50_ms": round(wait["inter_ttft_p50_ms"], 3),
+        "base_inter_ttft_p95_ms": round(wait["inter_ttft_p95_ms"], 3),
+        "base_admission_waits": wait["admission_waits"],
+        "ttft_p95_speedup": round(
+            wait["inter_ttft_p95_ms"]
+            / max(pre["inter_ttft_p95_ms"], 1e-9), 2)}]
+
+
 def run(device="cuda") -> dict:
     from repro_torch.kernels.dispatch import resolve_device
     device = resolve_device(device)
@@ -429,6 +533,7 @@ def run(device="cuda") -> dict:
                      if r["config"] == "het-paged")
     rows.extend(_spec_scenario(paged_tps, device))
     rows.extend(_shared_scenario(device))
+    rows.extend(_preempt_scenario(device))
     return {"rows": rows, "decode_chunk": DECODE_CHUNK, "max_new": MAX_NEW,
             "het": {"lens": HET_LENS, "page_size": HET_PAGE,
                     "max_len": HET_MAX_LEN, "pool_pages": _het_pool_pages(),
@@ -437,6 +542,11 @@ def run(device="cuda") -> dict:
             "shared": {"heads": list(SH_HEADS), "suffix": SH_SUFFIX,
                        "requests": SH_REQS, "max_new": SH_MAX_NEW,
                        "page_size": HET_PAGE},
+            "preempt": {"slots": PR_SLOTS, "batch_len": PR_BATCH_LEN,
+                        "batch_new": PR_BATCH_NEW,
+                        "inter_len": PR_INTER_LEN,
+                        "inter_new": PR_INTER_NEW,
+                        "interactive": PR_INTER_N},
             "not_ported": dict(NOT_PORTED),
             "device": str(device)}
 
@@ -450,7 +560,7 @@ def main(out=None) -> None:
     print("config,slots,tokens,tok_per_s,p50_ms,p95_ms,ttft_p50_ms,"
           "ttft_p95_ms,syncs,ref_tok_per_s,speedup")
     for r in out["rows"]:
-        if r["config"].startswith(("het-", "spec-", "shared-")):
+        if r["config"].startswith(("het-", "spec-", "shared-", "mixed-")):
             continue
         print(f"{r['config']},{r['slots']},{r['tokens']},"
               f"{r['tok_per_s']},{r['p50_ms']},{r['p95_ms']},"
@@ -507,6 +617,24 @@ def main(out=None) -> None:
                   f"{r['p50_ms']},{r['p95_ms']},{r['ttft_p50_ms']},"
                   f"{r['ttft_p95_ms']},{r['syncs']},"
                   f"{r['speedup_vs_paged']}")
+    mixed = [r for r in out["rows"] if r["config"].startswith("mixed-")]
+    if mixed:
+        pr = out.get("preempt", {})
+        print(f"# mixed-priority serving on {pr.get('slots')} slots — "
+              f"{pr.get('batch_len')}-token batch requests saturate the "
+              f"pool, {pr.get('interactive')} interactive arrivals "
+              f"mid-run: priority preemption vs admission wait")
+        print("config,slots,tokens,tok_per_s,inter_ttft_p50_ms,"
+              "inter_ttft_p95_ms,preemptions,base_tok_per_s,"
+              "base_inter_ttft_p50_ms,base_inter_ttft_p95_ms,"
+              "base_admission_waits,ttft_p95_speedup")
+        for r in mixed:
+            print(f"{r['config']},{r['slots']},{r['tokens']},"
+                  f"{r['tok_per_s']},{r['inter_ttft_p50_ms']},"
+                  f"{r['inter_ttft_p95_ms']},{r['preemptions']},"
+                  f"{r['base_tok_per_s']},{r['base_inter_ttft_p50_ms']},"
+                  f"{r['base_inter_ttft_p95_ms']},"
+                  f"{r['base_admission_waits']},{r['ttft_p95_speedup']}")
     for rows, why in out.get("not_ported", {}).items():
         print(f"# not ported: {rows} rows ({why})")
 

@@ -7,9 +7,20 @@ tensor the plain PyTorch version, and a ``meta`` tensor (the dry run,
 ``launch.dryrun``) the wrapper's shape-only route, which reports the
 kernel's ``cost`` and runs no arithmetic.  On a CUDA tensor the kernel
 runs or the call raises — there is no fallback to the plain version and
-no mode override.  Callers (``core.sparse_linear``, the model layers) go
-through :func:`sparse_matmul`, :func:`attention` and
+no process-wide mode override.  Callers (``core.sparse_linear``, the
+model layers) go through :func:`sparse_matmul`, :func:`attention` and
 :func:`paged_attention`.
+
+The one exception is a scope, not a fallback: inside
+:func:`plain_versions` the three calls run the plain versions on the
+card in the kernels' place, each counted in its kernel module's
+``plain_launches`` (never in ``launches``).  Only a degraded serving
+engine enters it, around its own prefills and decode chunks
+(``serving.faults``); the scope is a context variable, so another
+engine in the same process keeps its kernels.  :func:`load_kernels`
+builds and binds every library up front, so a build or load error
+raises where the engine is made and is never contained as a chunk's
+fault.
 
 Autotune rows (``kernels/autotune.py``): on the card each wrapper runs
 the plan the cache holds for its key (:func:`cache_key`), else the
@@ -23,6 +34,8 @@ CUDA-graph capture.  A cached plan that fails to launch raises.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import time
@@ -32,9 +45,11 @@ import torch
 
 from repro_torch.core.sparsity import (PACK_TYPES, BlockSparsePack,
                                        CombinedPack, LookaheadPack, NMPack)
+from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import bsr_matmul as _bsr
 from repro_torch.kernels import csa_matmul as _csa
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lookahead_decode as _la
 from repro_torch.kernels import nm_spmm as _nm
 from repro_torch.kernels import paged_attention as _paged
@@ -52,9 +67,9 @@ from repro_torch.kernels.paged_attention import \
 
 __all__ = ["ARCH", "AutotuneCache", "Decision", "KernelEntry",
            "SparsityDescriptor", "attention", "autotune_cache", "cache_key",
-           "paged_attention", "plan_params", "registry", "resolve_device",
-           "resolve_mode", "select", "set_autotune_cache", "sparse_matmul",
-           "tune"]
+           "load_kernels", "paged_attention", "plain_active", "plain_versions",
+           "plan_params", "registry", "resolve_device", "resolve_mode",
+           "select", "set_autotune_cache", "sparse_matmul", "tune"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +191,53 @@ def resolve_mode(device: torch.device) -> str:
     raise ValueError(f"no kernels for device {device}")
 
 
+#: On inside :func:`plain_versions`: the card's calls run the plain
+#: versions.  A context variable, so the scope is the caller's alone.
+_PLAIN = contextvars.ContextVar("repro_torch_plain_versions", default=False)
+
+#: The kernel modules, each with a ``_fns()`` that loads and binds its
+#: library.
+KERNEL_MODULES = (_nm, _bsr, _csa, _la, _paged, _flash)
+
+
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """Run the plain PyTorch versions in place of the kernels on the card
+    for the calls made inside the ``with`` block (``on=False`` leaves the
+    kernels on, so a caller can pass its own flag).  Each such call adds
+    one to its kernel module's ``plain_launches``.  CPU and ``meta``
+    calls are unchanged."""
+    token = _PLAIN.set(bool(on))
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def plain_active() -> bool:
+    """Whether the caller is inside :func:`plain_versions`."""
+    return _PLAIN.get()
+
+
+def _call_mode(device: torch.device, module: Any) -> str:
+    """:func:`resolve_mode`, turned to ``ref`` on the card inside
+    :func:`plain_versions` (counted in ``module.plain_launches``)."""
+    mode = resolve_mode(device)
+    if mode == "kernel" and plain_active():
+        if module is not None:
+            module.plain_launches += 1
+        return "ref"
+    return mode
+
+
+def load_kernels() -> None:
+    """Build what is missing and load and bind every kernel library now:
+    a build or load error raises here, not at a kernel's first call."""
+    _build.build_all()
+    for mod in KERNEL_MODULES:
+        mod._fns()
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:
     """One dispatchable kernel: ``run(x, weight, mode)``; ``module`` is its
@@ -244,7 +306,8 @@ def sparse_matmul(x: torch.Tensor, weight: Any) -> torch.Tensor:
     if kind is None or (kind == "dense" and weight.dim() != 2):
         raise TypeError(f"cannot multiply by a weight of type "
                         f"{type(weight)}")
-    return _entry_for(kind).run(x, weight, resolve_mode(x.device))
+    entry = _entry_for(kind)
+    return entry.run(x, weight, _call_mode(x.device, entry.module))
 
 
 def paged_attention(q: torch.Tensor, kv: PagedKV, *,
@@ -255,7 +318,7 @@ def paged_attention(q: torch.Tensor, kv: PagedKV, *,
     ``i`` sits at position ``kv.lens - Q + i`` and sees the keys up to
     it (the last ``window`` of them under a sliding window), its logits
     soft-capped by ``softcap``; the output has ``q``'s shape."""
-    return _paged_run(q, kv, resolve_mode(q.device), window, softcap)
+    return _paged_run(q, kv, _call_mode(q.device, _paged), window, softcap)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -264,7 +327,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention, ``(B, H, Lq, D)`` layout, behind the same mode
     policy as the matmuls."""
-    if resolve_mode(q.device) == "ref":
+    if _call_mode(q.device, _flash) == "ref":
         return ref.mha_ref(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
     return flash_attention(q, k, v, causal=causal, window=window,

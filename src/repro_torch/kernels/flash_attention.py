@@ -28,6 +28,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Calls of the plain version on the card in the kernel's place, under
+#: ``dispatch.plain_versions`` (a degraded engine), since the same reset.
+plain_launches = 0
 #: Those of them with fewer queries than keys (a prompt's suffix over a
 #: shared prefix, or a prompt's cross-attention over a longer source).
 suffix_launches = 0

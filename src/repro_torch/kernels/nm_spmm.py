@@ -29,6 +29,9 @@ FMA_BN = 32                  # widest column slice of the fma route
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Calls of the plain version on the card in the kernel's place, under
+#: ``dispatch.plain_versions`` (a degraded engine), since the same reset.
+plain_launches = 0
 #: Those of them on the mma route's half stage (``plan``'s ``ks`` = 32).
 half_launches = 0
 

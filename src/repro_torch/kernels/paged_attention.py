@@ -35,6 +35,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+#: Calls of the plain version on the card in the kernel's place, under
+#: ``dispatch.plain_versions`` (a degraded engine), since the same reset.
+plain_launches = 0
 #: Of those, the launches with a ``(B, Q, H, D)`` block of Q > 1 queries
 #: (the speculative verify).
 block_launches = 0

@@ -13,12 +13,13 @@ Examples:
       --slots 8 --prompt-len 128 --prompt-pad 128 --max-len 512 \\
       --max-new 64 --page-size 16 --decode-chunk 16
 
-The report has the JAX report's keys but its robustness counters
-(``timeouts`` … ``degraded_recoveries``): the mechanisms they count come
-with ROADMAP queue 1 item 12.  Flags of unported work raise
-``NotImplementedError`` when given another value than their default:
-``--model-parallel`` and ``--devices`` (item 13), and the queue,
-deadline, supervisor, journal, snapshot and watchdog flags (item 12).
+The report has the JAX report's keys, its robustness counters
+(``timeouts`` … ``degraded_recoveries``) included: ``--max-queue``
+bounds the admission queue and ``--deadline-ms`` gives every request a
+wall-clock budget.  Flags of unported work raise ``NotImplementedError``
+when given another value than their default: ``--model-parallel`` and
+``--devices`` (item 13), and the supervisor, journal, snapshot and
+watchdog flags (item 12b).
 
 ``--dry-run`` builds nothing: it runs the per-slot prefill and one decode
 chunk of the paged serving loops on ``meta`` tensors (``--page-size``,
@@ -40,9 +41,9 @@ import numpy as np
 #: flag (its ``args`` name) → the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
     "model_parallel": "item 13", "devices": "item 13",
-    "max_queue": "item 12", "deadline_ms": "item 12", "supervise": "item 12",
-    "journal": "item 12", "snapshot_dir": "item 12",
-    "snapshot_every": "item 12", "watchdog_ms": "item 12",
+    "supervise": "item 12b", "journal": "item 12b",
+    "snapshot_dir": "item 12b", "snapshot_every": "item 12b",
+    "watchdog_ms": "item 12b",
 }
 
 
@@ -89,9 +90,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "checkpoint here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound the admission queue: submissions past it "
+                         "are rejected (0 = unbounded)")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="per-request wall-clock budget from submission; "
+                         "past it the request times out (0 = none)")
     # the JAX launcher's flags of work the port has not taken yet
-    ap.add_argument("--max-queue", type=int, default=0)
-    ap.add_argument("--deadline-ms", type=float, default=0)
     ap.add_argument("--supervise", action="store_true")
     ap.add_argument("--journal", default="")
     ap.add_argument("--snapshot-dir", default=None)
@@ -137,6 +142,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                        page_size=args.page_size, num_pages=args.num_pages,
                        prompt_buckets=args.prompt_buckets,
                        prefix_cache=args.prefix_cache,
+                       max_queue=args.max_queue,
                        spec_k=spec_k, spec_draft=args.spec_draft)
     server = Engine(cfg, scfg, params, device=device)
 
@@ -153,7 +159,7 @@ def main(argv: Optional[List[str]] = None) -> int:
              else int(rng_np.integers(4, args.prompt_len + 1)))
         server.submit(rng_np.integers(
             0, min(cfg.vocab_size, 1024), size=L).astype(np.int32),
-            prefix=handle)
+            prefix=handle, deadline_ms=args.deadline_ms or None)
 
     t0 = time.time()
     done = server.run()
@@ -171,6 +177,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         "host_syncs": stats.sync_count,
         "prefills": stats.prefills,
         "kv_cache_mb": round(stats.cache_bytes / 2**20, 2),
+        # robustness counters: every contained fault shows up here
+        "timeouts": stats.timeouts,
+        "rejections": stats.rejections,
+        "preemptions": stats.preemptions,
+        "numeric_faults": stats.numeric_faults,
+        "kernel_failures": stats.kernel_failures,
+        "fetch_errors": stats.fetch_errors,
+        "degraded": stats.degraded,
+        "degraded_recoveries": stats.degraded_recoveries,
     }
     if scfg.paged:
         report.update({

@@ -1,14 +1,18 @@
 """The streaming :class:`Engine` of the port.
 
-  * ``submit(prompt, *, max_new=None, temperature=None, stream=False)``
-    → :class:`RequestHandle`; admission happens at the next ``step()``.
+  * ``submit(prompt, *, max_new=None, temperature=None, stream=False,
+    priority=0, deadline_ms=None)`` → :class:`RequestHandle`; admission
+    happens at the next ``step()``, highest priority first.  With
+    ``ServeConfig.max_queue`` a submission past the bound comes back
+    ``REJECTED``.
   * ``step()`` → ``list[TokenEvent]`` — one scheduler tick: apply pending
-    cancellations, admit queued requests into free slots (per-slot
-    prefill, zero host syncs; a whole-batch wave prefill when every slot
-    is free and the layout allows it), then run ONE decode chunk on the
-    card and make the single device→host fetch.  On the card every chunk
-    after its key's first is the replay of one captured CUDA graph
-    (``serving.loops.DecodeChunk``).
+    cancellations and deadlines, admit queued requests into free slots
+    (per-slot prefill, zero host syncs; a whole-batch wave prefill when
+    every slot is free and the layout allows it; under pool exhaustion a
+    lower-priority slot is preempted), then run ONE guarded decode chunk
+    on the card, make the single device→host fetch and check the block.
+    On the card every chunk after its key's first is the replay of one
+    captured CUDA graph (``serving.loops.DecodeChunk``).
   * ``cancel(handle)`` — takes effect at the next chunk boundary.
   * ``run()`` / ``generate()`` — drain-the-queue wrappers over ``step()``.
   * ``register_prefix(tokens)`` → :class:`PrefixHandle` — pin a shared
@@ -25,12 +29,17 @@
 Sync contract (as in the JAX engine): ``step()`` performs exactly one
 device→host transfer when any slot is live and zero otherwise — the
 speculative drafted/accepted counts ride in it; ``sync_count`` counts
-them.  Priorities, deadlines, preemption, fault containment, the
-journal and sharding are ROADMAP queue 1 items 12 and 13.
+them (a retried fetch counts once).  Faults are contained by the
+:class:`~repro_torch.serving.faults.FaultTolerance` mixin (its docstring
+holds the policy); ``REPRO_CHAOS_SEED`` attaches a
+:class:`~repro_torch.serving.chaos.ChaosMonkey` at construction.  The
+journal, the supervisor and sharding are ROADMAP queue 1 items 12b and
+13.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -44,11 +53,12 @@ from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.faults import FaultTolerance
 from repro_torch.serving.prefix import PrefixHandle
-from repro_torch.serving.state import (TERMINAL_STATUSES, ChunkBuffers,
-                                       EngineStats, Request, RequestHandle,
-                                       RequestStatus, TokenEvent,
-                                       _device_fetch, fresh_stats)
+from repro_torch.serving.state import (IDLE_TICKS, TERMINAL_STATUSES,
+                                       ChunkBuffers, EngineStats, Request,
+                                       RequestHandle, RequestStatus,
+                                       TokenEvent, _device_fetch, fresh_stats)
 
 __all__ = ["Engine", "RequestHandle"]
 
@@ -63,13 +73,19 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
         return compat._device_fetch(t)
     return _device_fetch(t)
 
+
+def _fetch_chunk(bufs: ChunkBuffers) -> tuple:
+    """The engine's ``_device_fetch`` seam: the chunk's one transfer,
+    unpacked into host ``(tokens, emitted, done, tally)``."""
+    return bufs.fetch(_fetch)
+
+
 _NOT_PORTED = {
-    "max_queue": "ROADMAP queue 1 item 12",
-    "journal_path": "ROADMAP queue 1 item 12",
+    "journal_path": "ROADMAP queue 1 item 12b",
 }
 
 
-class Engine:
+class Engine(FaultTolerance):
     """Slot-based continuous batching on one device, request-level API.
 
     Every slot carries its own position, done flag, token budget and
@@ -78,6 +94,13 @@ class Engine:
     per-slot prefill; in-flight slots never stall.  ``params`` must lie
     on ``device``; the engine keeps its cache and decode buffers at fixed
     addresses for its whole life (its chunk graphs hold them).
+
+    ``priority`` and ``deadline_ms`` per request and ``scfg.max_queue``
+    bound what a request waits for; a contained fault in a chunk (an
+    injected dispatch raise, a dropped fetch, non-finite tokens) costs
+    the requests it touched a retry and degrades the engine onto the
+    plain versions for a while, never the tick; a real kernel error
+    raises (``serving.faults``).
 
     Under speculation (``scfg.spec_k > 0``) ``params`` verify and
     ``draft_params`` draft; without them the draft is ``params`` itself
@@ -142,6 +165,18 @@ class Engine:
         self._temps = np.full((scfg.slots,), scfg.temperature, np.float32)
         self._cache = None
         self._bufs: Optional[ChunkBuffers] = None
+        # --- fault tolerance: the seams a chaos monkey wraps per engine
+        self.degraded = False
+        self._clean_chunks = 0          # fault-free chunks in a row
+        self._device_fetch = _fetch_chunk
+        self._chaos = None
+        if self.device.type == "cuda":
+            # a build or load error raises here, never inside a guarded
+            # chunk, where it would degrade the engine instead
+            dispatch.load_kernels()
+        if os.environ.get("REPRO_CHAOS_SEED"):
+            from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey
+            ChaosMonkey(self, ChaosConfig.from_env()).attach()
 
     # --- introspection ------------------------------------------------
 
@@ -185,7 +220,15 @@ class Engine:
                            cache_bytes=self._cache_nbytes(),
                            acceptance_rate=self.acceptance_rate(),
                            chunk_runs=list(d["chunk_runs"]),
-                           graph_captures=list(d["graph_captures"]))
+                           graph_captures=list(d["graph_captures"]),
+                           timeouts=d["timeouts"],
+                           rejections=d["rejections"],
+                           preemptions=d["preemptions"],
+                           numeric_faults=d["numeric_faults"],
+                           kernel_failures=d["kernel_failures"],
+                           fetch_errors=d["fetch_errors"],
+                           degraded=self.degraded,
+                           degraded_recoveries=d["degraded_recoveries"])
 
     def ttfts_s(self) -> List[float]:
         return [r.ttft_s for r in self.finished if r.ttft_s is not None]
@@ -240,9 +283,10 @@ class Engine:
         nodes, page_row = self._backend.register_prefix(arr)
         if page_row is not None:
             fill = self._backend.prefix_fill_step(len(arr))
-            self._cache = fill(
-                self.params, torch.from_numpy(arr[None]).to(self.device),
-                self._cache, torch.from_numpy(page_row).to(self.device))
+            with dispatch.plain_versions(self.degraded):
+                self._cache = fill(
+                    self.params, torch.from_numpy(arr[None]).to(self.device),
+                    self._cache, torch.from_numpy(page_row).to(self.device))
         return PrefixHandle(self, arr.copy(), nodes)
 
     def _release_prefix(self, handle: PrefixHandle) -> None:
@@ -252,7 +296,9 @@ class Engine:
                max_new: Optional[int] = None,
                temperature: Optional[float] = None,
                stream: bool = False,
-               prefix: Optional[PrefixHandle] = None) -> RequestHandle:
+               prefix: Optional[PrefixHandle] = None,
+               priority: int = 0,
+               deadline_ms: Optional[float] = None) -> RequestHandle:
         """Queue one request.  Prompts longer than the prefill window are
         left-truncated to their last ``prompt_rows`` tokens; shorter ones
         are left-padded with token 0 (the pads are attended, as in the
@@ -260,7 +306,16 @@ class Engine:
         handle's tokens to ``prompt``.  Under speculation every request
         samples at ``ServeConfig.temperature`` (residual acceptance
         needs the draft and verify distributions at one temperature), so
-        another ``temperature`` raises."""
+        another ``temperature`` raises.
+
+        ``priority`` orders admission (higher first, FIFO within a level)
+        and arms preemption: under pool exhaustion the scheduler evicts
+        the lowest-priority running slot strictly below the blocked
+        head's priority.  ``deadline_ms`` is a wall-clock budget from
+        submission: at the first chunk boundary past it the request ends
+        ``TIMED_OUT``, queued or running.  With ``scfg.max_queue`` a
+        submission past the bound returns an already finished
+        ``REJECTED`` handle."""
         scfg = self.scfg
         if prefix is not None:
             if prefix._engine is not self:
@@ -275,6 +330,9 @@ class Engine:
             max_new = scfg.max_new_tokens
         if max_new <= 0:
             raise ValueError(f"max_new must be positive, got {max_new}")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(
+                f"deadline_ms must be positive, got {deadline_ms}")
         if temperature is not None and scfg.spec \
                 and float(temperature) != scfg.temperature:
             raise ValueError(
@@ -287,14 +345,21 @@ class Engine:
                 f"request needs {scfg.request_pages(len(arr), max_new)} "
                 f"pages but the pool only has {scfg.pool_pages}")
         req = Request(uid=self._uid_next, prompt=arr, max_new=max_new,
-                      temperature=temperature, stream=stream)
+                      temperature=temperature, stream=stream,
+                      priority=int(priority), deadline_ms=deadline_ms)
         self._uid_next += 1
-        self.queue.append(req)
+        if scfg.max_queue and len(self.queue) >= scfg.max_queue:
+            self._stats["rejections"] += 1
+            self._finish(req, None, RequestStatus.REJECTED,
+                         time.perf_counter())
+        else:
+            self.queue.append(req)
         return RequestHandle(self, req)
 
     def cancel(self, handle: Union[RequestHandle, Request, int]) -> None:
         """Request cancellation (effective at the next chunk boundary);
-        a no-op on a terminal request."""
+        a no-op on a terminal request — finished, cancelled, timed out,
+        rejected or failed — so pages are never released twice."""
         if isinstance(handle, RequestHandle):
             req = handle._req
         elif isinstance(handle, Request):
@@ -310,9 +375,16 @@ class Engine:
     # --- the scheduler tick ---------------------------------------------
 
     def _pad_prompt(self, r: Request, rows: int) -> np.ndarray:
+        """Left-pad the request's effective prompt (the prompt and any
+        tokens emitted before a preemption) to ``rows``.  A resumed
+        request's width is ``rows0 + emitted``, so its pad count equals
+        the first admission's: the padded layout (so any published prefix
+        pages, and the greedy stream) survives preempt → requeue →
+        re-prefill."""
+        eff = r.eff_prompt
         tokens = np.zeros((1, rows), np.int32)
-        L = min(len(r.prompt), rows)
-        tokens[0, rows - L:] = r.prompt[-L:]                  # left-pad
+        L = min(len(eff), rows)
+        tokens[0, rows - L:] = eff[-L:]                      # left-pad
         return tokens
 
     def _ensure_device_state(self) -> None:
@@ -328,21 +400,24 @@ class Engine:
     def _finish(self, req: Request, slot: Optional[int],
                 status: RequestStatus, now: float) -> None:
         req.done = True
-        req.status = status
+        req.set_status(status)
         req.finish_s = now
         self.finished.append(req)
         if slot is not None:
-            self._slot_req[slot] = None
-            self._backend.retire(slot)
+            self._retire_slot(slot)
 
     def _apply_cancels(self) -> None:
+        """Chunk-boundary cancellation: freeze the slot's decode state in
+        place, retire it (pages freed) and drop cancelled queue entries;
+        each request's flag is consumed exactly once."""
         now = time.perf_counter()
         for i, r in enumerate(self._slot_req):
             if r is not None and r.cancel_requested:
-                self._bufs.state["done"][i] = True
-                self._bufs.state["left"][i] = 0
+                r.cancel_requested = False
+                self._freeze_slot(i)
                 self._finish(r, i, RequestStatus.CANCELLED, now)
         for r in [r for r in self.queue if r.cancel_requested]:
+            r.cancel_requested = False
             self.queue.remove(r)
             self._finish(r, None, RequestStatus.CANCELLED, now)
 
@@ -354,13 +429,20 @@ class Engine:
         return self._gen if np.any(np.asarray(temps) > 0) else None
 
     def _admit(self) -> None:
-        """Fill free slots from the queue in FIFO order: one wave prefill
-        when every slot is free and the backend has one, else per-slot
-        refill gated by the backend's admission check."""
+        """Fill free slots from the queue, highest priority first and FIFO
+        within a level (a stable sort on the submission uid; a preempted
+        request keeps its uid, so it re-admits ahead of later arrivals of
+        its level).  One wave prefill when every slot is free, no queued
+        request is a resumption and the backend has one; else per-slot
+        refill gated by the backend's admission check.  When the head is
+        blocked the lowest-priority running slot strictly below it is
+        preempted, else the head waits (head-of-line blocking keeps FIFO
+        fairness)."""
         scfg = self.scfg
+        self.queue.sort(key=lambda r: (-r.priority, r.uid))
         head = self.queue[:scfg.slots]
         wave = self._backend.wave_step() if head and self.num_live == 0 \
-            else None
+            and all(r.rows0 is None for r in head) else None
         if wave is not None:
             del self.queue[:len(head)]
             prompts = np.zeros((scfg.slots, scfg.prompt_pad), np.int32)
@@ -385,24 +467,31 @@ class Engine:
             if not free:
                 break
             r = self.queue[0]
+            eff_len = len(r.prompt) + len(r.out)
+            rows = r.resume_rows or self._backend.prompt_rows(eff_len)
             # the padded rows are what the prefix index keys on: matching
             # and the copy-on-write plan happen in the backend
-            rows = self._backend.prompt_rows(len(r.prompt))
             padded = self._pad_prompt(r, rows)
-            if not self._backend.can_admit(len(r.prompt), r.max_new,
+            if not self._backend.can_admit(eff_len, r.remaining_new,
                                            tokens=padded[0], rows=rows):
-                self._stats["admission_waits"] += 1
-                break
+                victim = self._victim_slot(r.priority)
+                if victim is None:
+                    self._stats["admission_waits"] += 1
+                    break
+                self._preempt(victim, time.perf_counter())
+                continue
             self.queue.pop(0)
             i = free[0]
-            r.rows0 = self._backend.admit(i, len(r.prompt), r.max_new,
-                                          tokens=padded[0], rows=rows)
+            rows = self._backend.admit(i, eff_len, r.remaining_new,
+                                       tokens=padded[0], rows=rows)
+            if r.rows0 is None:
+                r.rows0 = rows
             start, cow = self._backend.prefill_plan(i)
             temp = self._temp(r)
             tokens = torch.from_numpy(padded[:, start:]).to(self.device)
             self._cache, _ = self._backend.prefill_step(rows, start, cow)(
                 self.params, tokens, self._cache, self._bufs.state, i,
-                r.max_new, temp, self._generator([temp]),
+                r.remaining_new, temp, self._generator([temp]),
                 *self._backend.prefill_args(i))
             self._temps[i] = temp
             self._start(r, i)
@@ -410,7 +499,7 @@ class Engine:
 
     def _start(self, r: Request, slot: int) -> None:
         r.slot = slot
-        r.status = RequestStatus.RUNNING
+        r.set_status(RequestStatus.RUNNING)
         self._slot_req[slot] = r
 
     def _collect(self, blk: np.ndarray, emit: np.ndarray, done: np.ndarray,
@@ -437,25 +526,36 @@ class Engine:
                 for r, idx in emitted]
 
     def step(self) -> List[TokenEvent]:
-        """One scheduler tick: cancellations → admission (+ prefill) →
-        one decode chunk → the single fetch.  Returns the tick's tokens
-        in emission order (empty when nothing is live)."""
+        """One scheduler tick: cancellations → deadlines → admission
+        (+ prefill, preempting lower-priority slots under pool
+        exhaustion) → one guarded decode chunk → the single fetch → the
+        numeric guard → the chunk's health.  Returns the tick's tokens in
+        emission order (empty when nothing is live).  Never raises on an
+        injected or transient fault: the requests it touched end terminal
+        or go back to the queue."""
         self._ensure_device_state()
         self._apply_cancels()
-        self._admit()
+        self._apply_deadlines()
+        with dispatch.plain_versions(self.degraded):
+            self._admit()
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not live:
             return []
         generator = self._generator(self._temps[live])
         chunk = self._backend.begin_chunk(live, sampled=generator is not None)
         t0 = time.perf_counter()
-        chunk(self.params, self._cache, self._bufs, self._temps, generator)
-        tokens, emitted, done, tally = self._bufs.fetch(_fetch)  # one sync
-        self.sync_count += 1
-        self._stats["drafted"] += int(tally[0])
-        self._stats["accepted"] += int(tally[1])
-        events = self._collect(tokens, emitted, done,
-                               time.perf_counter() - t0)
+        f0 = self._fault_count()
+        fetched = self._run_chunk(chunk, generator)
+        dt = time.perf_counter() - t0
+        events: List[TokenEvent] = []
+        if fetched is None:         # every fetch failed: the chunk's
+            now = time.perf_counter()   # tokens are lost
+            for i in live:
+                self._quarantine(i, now)
+        else:
+            blk, emit = self._guard_block(fetched[0], fetched[1])
+            events = self._collect(blk, emit, fetched[2], dt)
+        self._note_chunk_health(self._fault_count() != f0)
         self._backend.end_chunk(
             [i for i in live if self._slot_req[i] is not None])
         return events
@@ -464,9 +564,15 @@ class Engine:
 
     def run(self) -> List[Request]:
         """Serve until the queue drains; returns the finished requests
-        (cumulative across calls)."""
+        (cumulative across calls).  Past ``IDLE_TICKS`` empty ticks in a
+        row a blocked admission with nothing live raises."""
+        idle = 0
         while self.queue or self.num_live:
-            if not self.step() and not self.num_live and self.queue:
+            if self.step() or self.num_live:
+                idle = 0
+                continue
+            idle += 1               # admission blocked with nothing live
+            if idle > IDLE_TICKS:
                 raise RuntimeError("admission is blocked with nothing live")
         return self.finished
 

@@ -52,8 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch import models as MZ
-from repro_torch.kernels import (bsr_matmul, csa_matmul, flash_attention,
-                                 lookahead_decode, nm_spmm, paged_attention)
+from repro_torch.kernels import (bsr_matmul, csa_matmul, dispatch,
+                                 flash_attention, lookahead_decode, nm_spmm,
+                                 paged_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.state import ChunkBuffers, sample_token_slots
@@ -521,6 +522,13 @@ COUNTED = tuple((mod, "launches") for mod in (
         (mod, "half_launches") for mod in (bsr_matmul, csa_matmul, nm_spmm))
 
 
+class ChunkGraphError(RuntimeError):
+    """A decode chunk's graph failed to capture, or its replay found the
+    cache moved: a fault of the program, which the engine's fault layer
+    never contains (a retry would meet the same fault, or a capture
+    stream the failure invalidated)."""
+
+
 def _cache_ptrs(cache) -> Tuple[int, ...]:
     return tuple(t.data_ptr() for t in MZ.cache_leaves(cache))
 
@@ -542,9 +550,15 @@ class DecodeChunk:
         and replays it;
       * every later chunk only replays.
 
-    A failed capture raises; nothing falls back to the eager body.  The
+    A failed capture raises :class:`ChunkGraphError`; nothing falls back
+    to the eager body, and the engine's fault layer lets it through.  The
     graph holds the addresses of ``params``, ``cache`` and the
     :class:`ChunkBuffers`, which the engine never rebinds.
+
+    Inside ``dispatch.plain_versions`` (a degraded engine) it runs the
+    body eagerly on the current stream, recorded as ``"plain"``:
+    it is never captured and does not count as the key's warm-up, so the
+    key's graph, if it has one, replays again once the engine recovers.
     """
 
     def __init__(self, body: Callable, key: Tuple[Optional[int], bool],
@@ -562,8 +576,9 @@ class DecodeChunk:
                  ptab: Optional[np.ndarray] = None, *,
                  graphs: bool = False) -> None:
         bufs.stage(temps, ptab)
-        if not graphs:
-            how = "eager"
+        plain = dispatch.plain_active()
+        if plain or not graphs:
+            how = "plain" if plain else "eager"
             self.body(params, cache, bufs, generator)
         elif self.graph is not None:
             how = "replay"
@@ -575,7 +590,7 @@ class DecodeChunk:
             how = "capture"
             self._capture(params, cache, bufs, generator)
             self._replay(cache)
-        self.runs += 1
+        self.runs += not plain      # a plain chunk is no warm-up
         self.stats["chunk_runs"].append((self.key, how))
 
     def _warm_up(self, params, cache, bufs, generator) -> None:
@@ -591,12 +606,16 @@ class DecodeChunk:
             graph.register_generator_state(generator)
         before = [getattr(mod, attr) for mod, attr in COUNTED]
         t0 = time.perf_counter()
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                self.body(params, cache, bufs, generator)
-            finally:
-                graph.capture_end()
+        try:
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    self.body(params, cache, bufs, generator)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            raise ChunkGraphError(f"decode chunk {self.key}: the capture "
+                                  f"failed: {e}") from e
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()
@@ -612,7 +631,7 @@ class DecodeChunk:
 
     def _replay(self, cache) -> None:
         if _cache_ptrs(cache) != self._bound:
-            raise RuntimeError(
+            raise ChunkGraphError(
                 f"decode chunk {self.key}: the cache's storage moved since "
                 "its graph was captured")
         self.graph.replay()

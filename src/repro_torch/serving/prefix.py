@@ -31,9 +31,9 @@ Refcounts are chain-monotone: a slot always maps a root-anchored chain,
 so a node's refcount is never below any descendant's — the retained set
 is downward-closed and always has a leaf to evict.
 
-The port keeps its own copy of the JAX package's numpy-only module; the
-journal's pin ids and the audit walk are not ported (ROADMAP queue 1
-item 12).
+The port keeps its own copy of the JAX package's numpy-only module,
+with the walk the engine audit makes (:meth:`PrefixIndex.iter_nodes`);
+the journal's pin ids are not ported (ROADMAP queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -178,6 +178,15 @@ class PrefixIndex:
         del kids[victim.tokens.tobytes()]
         victim.parent = None
         return victim.page
+
+    def iter_nodes(self):
+        """Every node in the trie, live and retained, depth-first: what
+        ``Engine.audit()`` walks for page-id conservation."""
+        stack = list(self.children.values())
+        while stack:
+            node = stack.pop()
+            yield node
+            stack.extend(node.children.values())
 
     @property
     def retained_pages(self) -> int:

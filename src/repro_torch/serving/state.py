@@ -1,6 +1,8 @@
 """Per-request and per-slot serving state, and sampling.
 
-``Request`` is the host-side record of one submission; the device-side
+``Request`` is the host-side record of one submission (with the fault
+layer's fields: priority, deadline, faults, preemptions and the status
+history the audit checks against :data:`LEGAL_TRANSITIONS`); the device-side
 decode state is the 4-tensor dict of :func:`init_decode_state` that the
 prefill steps and the decode loop update on the card between host
 fetches.  :class:`ChunkBuffers` holds it with the chunk's other inputs
@@ -24,10 +26,40 @@ class RequestStatus(enum.Enum):
     RUNNING = "running"             # prefilled into a slot, decoding
     DONE = "done"                   # finished (EOS / budget / capacity)
     CANCELLED = "cancelled"         # cancel() took effect
+    TIMED_OUT = "timed_out"         # deadline_ms elapsed (queued or live)
+    PREEMPTED = "preempted"         # evicted from its slot, re-queued
+    REJECTED = "rejected"           # the bounded admission queue was full
+    FAILED = "failed"               # second numeric/device fault
 
 
-#: States a request can never leave.
-TERMINAL_STATUSES = frozenset({RequestStatus.DONE, RequestStatus.CANCELLED})
+#: States a request can never leave.  PREEMPTED is not terminal: a
+#: preempted request sits back in the queue and re-admits.
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.DONE, RequestStatus.CANCELLED, RequestStatus.TIMED_OUT,
+    RequestStatus.REJECTED, RequestStatus.FAILED,
+})
+
+#: The request state machine: ``Engine.audit()`` checks every recorded
+#: history against this map.
+LEGAL_TRANSITIONS = {
+    RequestStatus.QUEUED: {RequestStatus.RUNNING, RequestStatus.CANCELLED,
+                           RequestStatus.TIMED_OUT, RequestStatus.REJECTED},
+    RequestStatus.PREEMPTED: {RequestStatus.RUNNING,
+                              RequestStatus.CANCELLED,
+                              RequestStatus.TIMED_OUT},
+    RequestStatus.RUNNING: {RequestStatus.DONE, RequestStatus.CANCELLED,
+                            RequestStatus.TIMED_OUT,
+                            RequestStatus.PREEMPTED, RequestStatus.FAILED},
+    RequestStatus.DONE: set(), RequestStatus.CANCELLED: set(),
+    RequestStatus.TIMED_OUT: set(), RequestStatus.REJECTED: set(),
+    RequestStatus.FAILED: set(),
+}
+
+#: Empty ticks with nothing live and the queue blocked that ``Engine.run``
+#: and ``RequestHandle.__iter__`` wait out before they call the engine
+#: wedged: transient pool pressure, or a slot quarantined with nothing
+#: else live, clears within a tick or two.
+IDLE_TICKS = 8
 
 
 @dataclasses.dataclass
@@ -45,7 +77,21 @@ class Request:
     arrival_s: float = dataclasses.field(default_factory=time.perf_counter)
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
-    rows0: Optional[int] = None           # prompt rows at admission
+    rows0: Optional[int] = None           # prompt rows at FIRST admission
+    priority: int = 0                     # higher admits first, preempts
+    deadline_ms: Optional[float] = None   # wall budget from arrival
+    faults: int = 0                       # numeric/device faults charged
+    preempts: int = 0                     # times evicted from a slot
+    history: List[RequestStatus] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.history.append(self.status)
+
+    def set_status(self, status: RequestStatus) -> None:
+        """Record a state transition (its legality is audited, not
+        enforced: the engine never raises mid-tick)."""
+        self.status = status
+        self.history.append(status)
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -54,6 +100,38 @@ class Request:
         if self.first_token_s is None:
             return None
         return self.first_token_s - self.arrival_s
+
+    # --- resumption (preempt / quarantine -> requeue) ------------------
+
+    @property
+    def eff_prompt(self) -> np.ndarray:
+        """The prompt a re-admission prefills: the original prompt plus
+        every token already emitted."""
+        if not self.out:
+            return self.prompt
+        return np.concatenate([self.prompt, np.asarray(self.out, np.int32)])
+
+    @property
+    def remaining_new(self) -> int:
+        """Token budget left after what was already emitted."""
+        return self.max_new - len(self.out)
+
+    @property
+    def resume_rows(self) -> Optional[int]:
+        """The exact prefill width of a re-admission: the first
+        admission's rows plus one per emitted token.  No re-bucketing, so
+        the padded layout (and any published prefix pages) line up and
+        the greedy continuation stays on the original stream.  ``None``
+        until first admitted."""
+        if self.rows0 is None:
+            return None
+        return self.rows0 + len(self.out)
+
+    def past_deadline(self, now: float) -> bool:
+        """Past ``deadline_ms``, counted from the original arrival
+        (preemption and resumption do not restart the clock)."""
+        return (self.deadline_ms is not None
+                and (now - self.arrival_s) * 1e3 >= self.deadline_ms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +148,9 @@ def fresh_stats() -> Dict[str, Any]:
             "peak_pages": 0, "admission_waits": 0,
             "drafted": 0, "accepted": 0,
             "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0,
+            "timeouts": 0, "rejections": 0, "preemptions": 0,
+            "numeric_faults": 0, "kernel_failures": 0, "fetch_errors": 0,
+            "degraded_recoveries": 0,
             "chunk_runs": [], "graph_captures": []}
 
 
@@ -90,9 +171,18 @@ class EngineStats:
     cache_bytes: int                # allocated KV cache footprint
     acceptance_rate: float          # accepted / drafted (0 if no spec)
     chunk_runs: List[Tuple[Any, str]]   # per chunk: (program key, "eager"
-    #                                     | "capture" | "replay")
+    #                                     | "capture" | "replay" | "plain")
     graph_captures: List[Dict[str, Any]]  # per capture: key, capture_s,
     #                                       instantiate_s
+    # --- fault tolerance ------------------------------------------------
+    timeouts: int = 0               # requests past deadline_ms
+    rejections: int = 0             # bounced off the bounded queue
+    preemptions: int = 0            # slots evicted for a higher priority
+    numeric_faults: int = 0         # non-finite fetched blocks (per slot)
+    kernel_failures: int = 0        # decode chunk raised, plain retry
+    fetch_errors: int = 0           # device->host fetch attempts that raised
+    degraded: bool = False          # the engine runs the plain versions
+    degraded_recoveries: int = 0    # degraded -> kernels again
 
 
 def init_decode_state(slots: int, device) -> Dict[str, torch.Tensor]:
@@ -249,7 +339,7 @@ class RequestHandle:
         return self.tokens
 
     def __iter__(self) -> Iterator[int]:
-        i = 0
+        i = stalls = 0
         while True:
             out = self._req.out
             while i < len(out):
@@ -257,11 +347,18 @@ class RequestHandle:
                 i += 1
             if self.done:
                 return
-            if not self._engine.step() and not self._engine.num_live \
-                    and self._req.status == RequestStatus.QUEUED:
-                raise RuntimeError(
-                    f"engine made no progress on request {self.uid} "
-                    "(queued, no live slots, empty tick)")
+            events = self._engine.step()
+            if (not events and not self.done
+                    and self._req.status in (RequestStatus.QUEUED,
+                                             RequestStatus.PREEMPTED)
+                    and not self._engine.num_live):
+                stalls += 1
+                if stalls > IDLE_TICKS:
+                    raise RuntimeError(
+                        f"engine made no progress on request {self.uid} "
+                        "(queued, no live slots, empty tick)")
+            else:
+                stalls = 0
 
     def __repr__(self) -> str:
         return (f"RequestHandle(uid={self.uid}, "

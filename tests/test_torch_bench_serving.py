@@ -13,9 +13,10 @@ cache, every bucket visited in the warm-up).  What a serve counts must
 be equal: tokens, host syncs, KV bytes, peak pages in use, admission
 waits and the prefix counters (the bench's ``eos_token=-1`` makes every
 request run its budget, so the counts do not hang on bf16 ties).  The
-port's ``run()`` must give the JAX rows minus the ``mixed-*``,
-``crash-*`` and ``sharded-*`` ones, in order.  One JAX engine per
-served cell.
+``mixed-priority-preempt`` cell's two serves (priority 1 and 0) must
+count the same tokens, preemptions and admission waits.  The port's
+``run()`` must give the JAX rows minus the ``crash-*`` and
+``sharded-*`` ones, in order.  One JAX engine per served cell.
 """
 
 import dataclasses
@@ -32,7 +33,7 @@ from test_torch_model import flatten, jax_mesh
 #: what ``_serve_chunked`` counts, in both benches' result dicts
 COUNTS = ("tokens", "syncs", "kv_bytes", "peak_used_bytes",
           "admission_waits", "prefix_hits", "shared_pages", "cow_copies")
-LEFT_OUT = ("mixed-", "crash-", "sharded-")
+LEFT_OUT = ("crash-", "sharded-")
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +146,31 @@ def test_het_paged_cell_matches_jax(benches, models):
         len(reqs) * jbench.HET_MAX_NEW
 
 
+@pytest.mark.parametrize("priority", [1, 0], ids=["preempt", "wait"])
+def test_mixed_priority_cell_matches_jax(benches, models, priority):
+    """The mixed-priority row's serve at priority 1 (a batch slot is
+    preempted for each interactive arrival) and 0 (they wait): the same
+    prompts, config and arrival ticks count the same on both sides."""
+    jbench, tbench = benches
+    jcfg, jparams, tcfg, tparams = models("dense")
+    for name in ("PR_SLOTS", "PR_BATCH", "PR_BATCH_LEN", "PR_INTER_LEN",
+                 "PR_BATCH_NEW", "PR_INTER_NEW", "PR_INTER_N", "PR_GAP"):
+        assert getattr(tbench, name) == getattr(jbench, name), name
+    batch, inter = tbench._preempt_prompts()
+    scfg = tbench._preempt_scfg()
+    jscfg = jbench.ServeConfig(**dataclasses.asdict(scfg))
+    want = jbench._preempt_serve(jcfg, jax_mesh(), jparams, jscfg, batch,
+                                 inter, priority)
+    got = tbench._preempt_serve(tcfg, tparams, scfg, batch, inter,
+                                priority, "cpu")
+    for key in ("tokens", "preemptions", "admission_waits"):
+        assert got[key] == want[key], key
+    assert got["tokens"] == jbench.PR_BATCH * jbench.PR_BATCH_NEW + \
+        jbench.PR_INTER_N * jbench.PR_INTER_NEW
+    assert (got["preemptions"] > 0) == (priority > 0)
+    assert got["syncs"] == got["chunks"] > 0
+
+
 def jax_rows(jbench):
     """The (config, slots) rows the JAX bench's ``run()`` gives on one
     device, from its constants."""
@@ -161,9 +187,10 @@ def jax_rows(jbench):
 
 
 def test_run_rows_are_the_jax_rows_but_unported(benches, capsys):
-    """``run()`` on the CPU: the JAX rows minus ``mixed-*``, ``crash-*``
-    and ``sharded-*``, in order; ``main`` names each left-out group with
-    its ROADMAP item; the chunked and per-token rows count equal tokens."""
+    """``run()`` on the CPU: the JAX rows minus ``crash-*`` and
+    ``sharded-*``, in order; ``main`` names each left-out group with its
+    ROADMAP item and prints the mixed-priority row; the chunked and
+    per-token rows count equal tokens."""
     jbench, tbench = benches
     out = tbench.run(device="cpu")
     got = [(r["config"], r["slots"]) for r in out["rows"]]
@@ -173,7 +200,8 @@ def test_run_rows_are_the_jax_rows_but_unported(benches, capsys):
         assert r["tokens"] == r["ref_tokens"] > 0
     tbench.main(out)
     printed = capsys.readouterr().out
-    for prefix, item in (("mixed-", "item 12"), ("crash-", "item 12"),
-                         ("sharded-", "item 13")):
+    assert any(line.startswith("mixed-priority-preempt,")
+               for line in printed.splitlines())
+    for prefix, item in (("crash-", "item 12b"), ("sharded-", "item 13")):
         assert any(line.startswith(f"# not ported: {prefix}") and item in
                    line for line in printed.splitlines()), prefix

@@ -102,5 +102,9 @@ def test_engine_validates_requests(served):
     for bad in ([], [[1, 2]], [1.5, 2.0], list(range(70)), [tcfg.vocab_size]):
         with pytest.raises(ValueError):
             eng.submit(bad)
-    with pytest.raises(NotImplementedError):    # not ported yet
-        TEngine(tcfg, TServeConfig(**SERVE, max_queue=2), tp, device="cpu")
+    # the bounded queue is served (its rejections are held against the
+    # JAX engine in tests/test_torch_chaos.py); the journal is not yet
+    TEngine(tcfg, TServeConfig(**SERVE, max_queue=2), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        TEngine(tcfg, TServeConfig(**SERVE, journal_path="j"), tp,
+                device="cpu")

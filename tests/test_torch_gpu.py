@@ -1487,3 +1487,57 @@ def _tensors(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _tensors(v)
+
+
+# --- the fault layer on the card ---------------------------------------------
+
+def test_chaos_degraded_engine_runs_the_plain_versions_and_recovers(cuda):
+    """One kernel fault on a warm engine (every key captured): the chunk
+    is retried on the plain versions and the engine stays degraded for
+    ``degraded_recover_chunks`` clean chunks, in which no kernel launches
+    and the plain versions' launches are counted; then the kernels launch
+    again and each chunk replays its key's graph, with no new capture.
+    The tokens (fp32) are the clean serve's; a second engine in the same
+    process is not degraded."""
+    import warnings
+
+    from repro_torch.serving import ChaosConfig, ChaosMonkey
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (an H100)")
+    make = _graph_engine(cuda, degraded_recover_chunks=2)
+    eng, other = make(), make()
+    _serve(eng)
+    want = _serve(eng)
+    assert not want[3].graph_captures          # every key warm
+    eng.reset_stats()
+    for m in COUNTERS:
+        m.plain_launches = 0
+    handles = [eng.submit(p) for p in GRAPH_PROMPTS]
+    mk = ChaosMonkey(eng, ChaosConfig(seed=0, rate=0.0,
+                                      kernel_rate=1.0)).attach()
+    hows = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng.step()
+        mk.detach()
+        assert eng.degraded and not other.degraded
+        while eng.num_queued or eng.num_live:
+            was = eng.degraded
+            before = [(m.launches, m.plain_launches) for m in COUNTERS]
+            eng.step()
+            torch.cuda.synchronize()
+            moved = [(m.launches - a, m.plain_launches - b)
+                     for m, (a, b) in zip(COUNTERS, before)]
+            how = eng.stats().chunk_runs[-1][1]
+            hows.append(how)
+            kernels, plain = (sum(x[j] for x in moved) for j in (0, 1))
+            if was:
+                assert how == "plain" and kernels == 0 and plain > 0
+            else:
+                assert how == "replay" and kernels > 0 and plain == 0
+    st = eng.stats()
+    assert st.kernel_failures == 1 and st.degraded_recoveries == 1
+    assert "plain" in hows and "replay" in hows
+    assert not st.graph_captures and not eng.degraded
+    assert [h.tokens for h in handles] == want[0]
+    eng.audit()

@@ -11,8 +11,9 @@ by the JAX engine) and the port's ``main`` with the same flags and
 the launcher's submit loop (prompts from ``np.random.default_rng(seed)``)
 and print one JSON report: every field but the wall-clock ones (wall
 time, tok/s, TTFT) must be equal, and the port's keys are the JAX
-report's minus exactly its robustness counters (ROADMAP queue 1 item
-12).  One JAX launch per case.
+report's, its robustness counters included (``robust`` bounds the queue
+so that two requests are rejected, and gives every request a deadline
+no serve reaches).  One JAX launch per case.
 """
 
 import contextlib
@@ -41,11 +42,15 @@ CASES = {
     "paged-prefix": ["--page-size", "16", "--prefix-cache",
                      "--shared-prefix", "16", "--prompt-len", "16"],
     "spec": ["--spec-k", "3"],
+    "robust": ["--max-queue", "4", "--deadline-ms", "600000"],
 }
-#: the JAX report's robustness counters, left out until item 12
+#: the JAX report's robustness counters (ROADMAP queue 1 item 12a)
 ROBUSTNESS = {"timeouts", "rejections", "preemptions", "numeric_faults",
               "kernel_failures", "fetch_errors", "degraded",
               "degraded_recoveries"}
+#: item 12a's flags, served since: each case of them in
+#: ``test_unported_flags_raise`` checks the counter it is reported by
+SERVED = {"--max-queue": "rejections", "--deadline-ms": "timeouts"}
 #: wall-clock fields: the only ones allowed to differ
 TIMED = {"wall_s", "tok_per_s", "ttft_p50_ms"}
 
@@ -92,9 +97,11 @@ def reports(request, checkpoint):
 
 
 def test_report_keys_are_the_jax_keys_but_robustness(reports):
+    """The keys are the JAX report's, the robustness counters included
+    (the test's name is kept from when they were left out)."""
     jrep, trep, _ = reports
     assert ROBUSTNESS <= set(jrep)
-    assert set(trep) == set(jrep) - ROBUSTNESS
+    assert set(trep) == set(jrep)
 
 
 def test_report_matches_jax(reports):
@@ -121,11 +128,25 @@ def test_restores_the_checkpoint(reports):
     (["--snapshot-every", "2"], "item 12"),
     (["--watchdog-ms", "100"], "item 12"),
 ])
-def test_unported_flags_raise(flags, item):
+def test_unported_flags_raise(flags, item, capsys):
     """A flag of unported work raises before any model is built, naming
-    the ROADMAP item that ports it; its default value is accepted."""
+    the ROADMAP item that ports it; its default value is accepted.  The
+    flags of item 12a, served now, run a short serve instead and are
+    reported: 8 requests over a queue of 4 reject 4, and a deadline
+    ends every request timed out or done."""
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu"] + flags
+    if flags[0] in SERVED:
+        assert tserve.main(argv + ["--max-new", "2"]) == 0
+        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rep["requests"] == 8
+        if flags[0] == "--max-queue":
+            assert rep["rejections"] == 8 - int(flags[1])
+        else:
+            assert rep["rejections"] == 0
+            assert 0 <= rep["timeouts"] <= 8
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu"] + flags)
+        tserve.main(argv)
 
 
 def test_dry_run_reports_on_meta(capsys):

@@ -470,8 +470,8 @@ def test_register_prefix_and_submit_validation(engines, params):
     with pytest.raises(ValueError, match="lm"):
         TEngine(dataclasses.replace(tcfg, is_encoder_decoder=True),
                 TServeConfig(**SHARED), tp, device="cpu")
-    with pytest.raises(NotImplementedError):     # not ported yet
-        TEngine(tcfg, TServeConfig(**SHARED, max_queue=2), tp, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the bounded queue is served; the journal is not yet
+    TEngine(tcfg, TServeConfig(**SHARED, max_queue=2), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
         TEngine(tcfg, TServeConfig(**SHARED, journal_path="j"), tp,
                 device="cpu")
