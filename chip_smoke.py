@@ -188,7 +188,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      decode and at prefill, and the turns' metrics.  Then both at 2
      layers in fp32: the Engine's tokens on the card against the same
      batch decoded on the CPU path (``batched_greedy``; phase 5's rule
-     at the first split).
+     at the first split).  The CPU side runs in a process of its own
+     (``--moe-cpu-reference``, on ``MOE_REFERENCE_THREADS`` threads),
+     which draws the same weights on the card from the seed and frees
+     them there before phase 11 starts; its tokens are checked after
+     phase 13, and the phases between are timed with it beside them.
  11. the SSM/hybrid family: mamba2-130m (cut to ``MAMBA2_LAYERS`` of
      its 24 Mamba-2 layers, d_model 768, 24 SSD heads of 64, state 128,
      vocab 50280, tied) and zamba2-1.2b (cut to ``ZAMBA2_LAYERS`` of its
@@ -377,6 +381,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (``launch_counts``), on a fault counter of a serve (``healthy``) and
      on an engine entering degraded mode (its warning is an error
      there).  The line after ``{"dryrun": ...}`` is ``{"faults": ...}``.
+ 18. the journal and the supervisor (``journal_and_supervisor``): (a)
+     ``supervised_crash``: qwen3-0.6b ``sparse()`` at full width and all
+     28 layers, bf16, phase 17's serve geometry with a pinned 64-row
+     head; phase 4's 16 requests with 32 new tokens served uninterrupted
+     (cold, then two warm serves), journaled (the same) and under the
+     ``Supervisor`` with ``ChaosConfig(seed=7, rate=0.0,
+     crash_tick=CRASH_AT)`` and a snapshot every ``SNAPSHOT_EVERY``
+     ticks; gates: one restart, every handle's streamed events joined
+     are its tokens (indices 0..n-1 once each), tokens equal the
+     uninterrupted serve's or split at a near tie, the audit clean after
+     every step with one journaled pin after the restart, the prefix
+     handle re-bound, no capture live at the crash, the teardown frees at
+     least the dead engine's cache and ``memory_allocated`` after the
+     restored serve is within 1% of the uninterrupted engine's (both
+     read with cuBLAS's per-stream workspaces released); printed:
+     the recovery's ms, the restored engine's capture and instantiate s,
+     warm tok/s plain against journaled, the fsyncs.  (b)
+     ``supervised_hang`` at ``fault_config()``: a watchdog
+     ``HANG_MARGIN`` times the slowest steady step of a cold journaled
+     serve, a stall ``STALL_MARGIN`` times the watchdog from tick
+     ``HANG_AT``; gates: one watchdog trip and one restart, tokens equal
+     or split at a near tie, the fresh engine captures again and no
+     warm-up or capture step trips the watchdog.  (c) ``exact_crash``: a
+     supervised crash at 2 layers fp32 on the card against the
+     uninterrupted serve of the port's CPU path (in a process of its own,
+     ``--journal-cpu-reference``, started with the phase): every token
+     equal.  The line after ``{"faults": ...}`` is ``{"journal": ...}``.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is
@@ -2226,19 +2257,18 @@ def batched_greedy(params, cfg, prompts, max_new, prompt_pad, max_len,
     return out, gaps
 
 
-def moe_vs_cpu(cfg, dev, counters) -> None:
-    """Phase 10 (c): ``cfg`` cut to 2 layers in fp32, each layer packed as
-    drawn; the Engine's greedy tokens on the card against
-    :func:`batched_greedy` on the CPU path: equal, or the first step at
-    which any request splits is a near tie of that request's CPU logits
-    (phase 5's rule; after it the slots' routes differ, so nothing later
-    is compared).  Both attention kernels on the FMA route."""
-    from repro_torch import models
-    from repro_torch.serving import Engine, ServeConfig
-    tag = f"moe fidelity {cfg.name}"
+#: phase 10 (c)'s CPU reference: its command-line flag and torch
+#: threads (it runs beside phases 11-13 on a host of 8 cores)
+MOE_REFERENCE = "--moe-cpu-reference"
+MOE_REFERENCE_THREADS = 2
+
+
+def moe_fidelity_setup(cfg) -> tuple:
+    """Phase 10 (c)'s model, serve and stream for ``cfg``: (``cfg`` cut
+    to 2 layers in fp32, the ServeConfig, the prompts)."""
+    from repro_torch.serving import ServeConfig
     small = dataclasses.replace(cfg, n_layers=2, layer_kinds=(),
                                 dtype="float32")
-    params = models.init_model(small, seed=SEED + 1, device=dev, packed=True)
     # 4 new tokens (8 before PR 30): the CPU path streams a dbrx layer's
     # 6.3 GB of fp32 packs per forward, a second or more each (dbrx's CPU
     # path took 43.0 s of phase 10 at 8 tokens)
@@ -2247,23 +2277,147 @@ def moe_vs_cpu(cfg, dev, counters) -> None:
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, small.vocab_size, size=int(n)).astype(np.int32)
                for n in (5, 17, 26, 32)]
+    return small, scfg, prompts
+
+
+def moe_fidelity_params(small, dev):
+    """(c)'s weights, each layer packed as drawn on ``dev`` from the
+    seed: the card draws the same values in any process."""
+    from repro_torch import models
+    return models.init_model(small, seed=SEED + 1, device=dev, packed=True)
+
+
+def weights_digest(tree) -> int:
+    """The sum of every tensor's elements in ``tree`` (dicts, lists and
+    packs) read as integers of their width, computed where the tensors
+    lie: equal for trees of equal bits."""
+    if isinstance(tree, torch.Tensor):
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[tree.element_size()]
+        return int(tree.view(ints).sum())
+    if isinstance(tree, dict):
+        parts = list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        parts = list(tree)
+    elif dataclasses.is_dataclass(tree):
+        parts = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    else:                           # a pack's shape fields, a None
+        return 0
+    return sum(weights_digest(v) for v in parts)
+
+
+def moe_cpu_reference(out: str) -> int:
+    """This script's CPU-reference mode for phase 10 (c): each MoE
+    config's weights drawn on the card as (c) draws them, copied to the
+    CPU and freed on the card (then the file ``moe_drawn(out)`` is
+    made), and :func:`batched_greedy` on the port's CPU path on
+    ``MOE_REFERENCE_THREADS`` threads.  Each config's tokens, top-2 gaps,
+    seconds and :func:`weights_digest` are written to ``out`` as
+    JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(MOE_REFERENCE_THREADS)
+    dev = torch.device("cuda", 0)
+    drawn = {}
+    for cfg in moe_configs():
+        small, _, _ = moe_fidelity_setup(cfg)
+        params = moe_fidelity_params(small, dev)
+        drawn[cfg.name] = (weights_digest(params), _to(params, "cpu"))
+        del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    moe_drawn(out).touch()
+    result = {}
+    for cfg in moe_configs():
+        small, scfg, prompts = moe_fidelity_setup(cfg)
+        digest, params = drawn.pop(cfg.name)
+        t0 = time.perf_counter()
+        want, gaps = batched_greedy(params, small, prompts,
+                                    scfg.max_new_tokens, scfg.prompt_pad,
+                                    scfg.max_len)
+        result[cfg.name] = {"tokens": want, "gaps": gaps, "digest": digest,
+                            "s": time.perf_counter() - t0}
+        del params
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+def moe_drawn(out) -> Path:
+    """The file by which (c)'s reference says its weights left the card."""
+    return Path(f"{out}.drawn")
+
+
+def start_moe_reference() -> tuple:
+    """Start (c)'s reference process: (process, its output file)."""
+    moe_drawn(ROOT / "build" / "chip_smoke" / "moe_cpu.json").unlink(
+        missing_ok=True)
+    return start_cpu_reference(MOE_REFERENCE, "moe_cpu.json")
+
+
+def moe_vs_cpu(cfg, dev, counters) -> tuple:
+    """Phase 10 (c)'s card side: ``cfg`` cut to 2 layers in fp32, each
+    layer packed as drawn, served by the Engine, both attention kernels
+    on the FMA route.  Returns (its greedy tokens, the weights'
+    digest) for :func:`moe_check`."""
+    from repro_torch.serving import Engine
+    small, scfg, prompts = moe_fidelity_setup(cfg)
+    params = moe_fidelity_params(small, dev)
+    digest = weights_digest(params)
     zero_counts(counters)
     got = Engine(small, scfg, params, device=dev).generate(prompts)
-    check_routes(tag, launch_counts(counters), "fma")
+    check_routes(f"moe fidelity {cfg.name}", launch_counts(counters), "fma")
+    return got, digest
+
+
+def wait_moe_drawn(proc, out: Path) -> None:
+    """Wait until (c)'s reference has freed its weights on the card, so
+    that phase 11 has the card to itself."""
     t0 = time.perf_counter()
-    want, gaps = batched_greedy(_to(params, "cpu"), small, prompts,
-                                scfg.max_new_tokens, scfg.prompt_pad,
-                                scfg.max_len)
-    splits = [first_split(a, b) for a, b in zip(got, want)]
-    step = min((t for t in splits if t is not None), default=None)
-    log(f"[{tag}] 2 layers fp32, {len(prompts)} requests of "
-        f"{scfg.max_new_tokens} tokens (CPU path {time.perf_counter() - t0:.1f}"
-        f" s): first splits {splits}, min CPU top-2 gap "
-        f"{min(min(g) for g in gaps):.3e}")
-    bad = [i for i, t in enumerate(splits) if t == step and t is not None
-           and gaps[i][t] >= GAP_TOL]
-    if any(len(g) != scfg.max_new_tokens for g in got) or bad:
-        raise AssertionError(f"{tag}: card {got} vs CPU {want}")
+    while not moe_drawn(out).exists():
+        if proc.poll() is not None:
+            raise AssertionError(f"phase 10 (c): the CPU reference exited "
+                                 f"{proc.returncode}")
+        if time.perf_counter() - t0 > 600:
+            raise AssertionError("phase 10 (c): the CPU reference drew no "
+                                 "weights in 600 s")
+        time.sleep(0.1)
+    log(f"[phase 10] (c) waited {time.perf_counter() - t0:.1f} s for the "
+        "CPU reference to draw its weights and free them on the card")
+
+
+def moe_check(cards: list, proc, out: Path) -> None:
+    """Phase 10 (c)'s check: each config's greedy tokens on the card
+    (``cards``: (cfg, tokens, digest), from :func:`moe_vs_cpu`) against
+    :func:`batched_greedy` on the CPU path in the reference process, on
+    weights of the same digest: equal, or the first step at which any
+    request splits is a near tie of that request's CPU logits (phase
+    5's rule; after it the slots' routes differ, so nothing later is
+    compared)."""
+    t0 = time.perf_counter()
+    if proc.wait(timeout=900):
+        raise AssertionError(f"phase 10 (c): the CPU reference exited "
+                             f"{proc.returncode}")
+    waited = time.perf_counter() - t0
+    cpu = json.loads(out.read_text())
+    for cfg, got, digest in cards:
+        tag = f"moe fidelity {cfg.name}"
+        _, scfg, prompts = moe_fidelity_setup(cfg)
+        ref = cpu[cfg.name]
+        if ref["digest"] != digest:
+            raise AssertionError(f"{tag}: the CPU reference drew other "
+                                 f"weights (digest {ref['digest']} vs the "
+                                 f"card's {digest})")
+        want, gaps = ref["tokens"], ref["gaps"]
+        splits = [first_split(a, b) for a, b in zip(got, want)]
+        step = min((t for t in splits if t is not None), default=None)
+        log(f"[{tag}] 2 layers fp32, {len(prompts)} requests of "
+            f"{scfg.max_new_tokens} tokens (CPU path {ref['s']:.1f} s in "
+            f"its own process on {MOE_REFERENCE_THREADS} threads, waited "
+            f"{waited:.1f} s): first splits {splits}, min CPU top-2 gap "
+            f"{min(min(g) for g in gaps):.3e}")
+        bad = [i for i, t in enumerate(splits) if t == step and t is not None
+               and gaps[i][t] >= GAP_TOL]
+        if any(len(g) != scfg.max_new_tokens for g in got) or bad:
+            raise AssertionError(f"{tag}: card {got} vs CPU {want}")
 
 
 # --- phase 11: the SSM/hybrid family -----------------------------------------
@@ -4745,15 +4899,30 @@ def chaos_cpu_reference(out: str) -> int:
     return 0
 
 
-def start_cpu_reference() -> tuple:
-    """Start (d)'s CPU side in a process of its own, so that it runs
-    while the card serves (a)-(c): (process, its output file)."""
-    out = ROOT / "build" / "chip_smoke" / "faults_cpu.json"
+def start_cpu_reference(flag: str = CPU_REFERENCE,
+                        name: str = "faults_cpu.json") -> tuple:
+    """Start a phase's CPU side (this script with ``flag``: phase 17
+    (d)'s by default) in a process of its own, so that it runs while the
+    card serves the phase's other parts: (process, its output file)."""
+    out = ROOT / "build" / "chip_smoke" / name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.unlink(missing_ok=True)
     proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                             CPU_REFERENCE, str(out)], cwd=str(ROOT))
+                             flag, str(out)], cwd=str(ROOT))
+    CHILDREN.append(proc)
     return proc, out
+
+
+#: every process :func:`start_cpu_reference` started: the script stops
+#: those still running when it exits
+CHILDREN: list = []
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def chaos_vs_cpu(cfg, dev, prompts, prios, proc, out: Path) -> None:
@@ -4822,6 +4991,438 @@ def faults_and_chaos(dev, counters) -> tuple:
         t0 = time.perf_counter()
         chaos_vs_cpu(cfg, dev, prompts, prios, proc, out)
         log(f"[phase 17] (d) {time.perf_counter() - t0:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return launches, found
+
+
+# --- phase 18: the journal and the supervisor ------------------------------
+
+#: (a): qwen3-0.6b ``sparse()`` at full width and depth on phase 17's serve
+#: geometry, phase 4's 16 requests of 16-128 tokens with 32 new tokens
+#: each, a pinned 64-row head (4 pages); the crash lands on monkey tick
+#: ``CRASH_AT``, in the first wave's decode, with 8 requests queued
+JOURNAL_NEW, HEAD_PAGES, CRASH_AT, SNAPSHOT_EVERY = 32, 4, 3, 4
+#: (b): the hang on ``fault_config()``: the device wedges at monkey tick
+#: ``HANG_AT``; the watchdog is ``HANG_MARGIN`` times the slowest steady
+#: step of a cold journaled serve, and every later fetch stalls
+#: ``STALL_MARGIN`` times the watchdog
+HANG_AT, HANG_MARGIN, STALL_MARGIN = 3, 8.0, 4.0
+#: (c): 2 layers in fp32, 8 requests of 16 new tokens (two chunks), the
+#: crash at tick 1
+EXACT_REQUESTS, EXACT_NEW, EXACT_CRASH = 8, 16, 1
+#: the flag of this script's own CPU-reference mode (phase 18 (c))
+EXACT_REFERENCE = "--journal-cpu-reference"
+
+
+def journal_dir(name: str) -> Path:
+    """A fresh directory for phase 18's journals and snapshots, inside the
+    checkout (``build/`` is ignored by git)."""
+    d = ROOT / "build" / "chip_smoke" / "phase18" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def head_tokens(vocab: int, rows: int) -> np.ndarray:
+    return np.random.default_rng(SEED + 18).integers(
+        1, vocab, size=rows).astype(np.int32)
+
+
+def journal_serve(eng, prompts, head) -> tuple:
+    """Register ``head``, serve ``prompts`` (``JOURNAL_NEW`` tokens each)
+    on ``eng`` to the end, auditing after every step: (handles, the
+    decode-loop seconds, the prefix handle).  ``eng`` is an Engine or a
+    Supervisor."""
+    ph = eng.register_prefix(head)
+    handles = [eng.submit(p, max_new=JOURNAL_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    ticks = 0
+    while not all(h.done for h in handles):
+        if ticks > 400:
+            raise AssertionError("phase 18: the serve does not drain")
+        eng.step()
+        eng.audit()
+        ticks += 1
+    torch.cuda.synchronize()
+    return handles, time.perf_counter() - t0, ph
+
+
+def engine_allocated() -> int:
+    """``memory_allocated()`` with cuBLAS's per-stream workspaces released
+    first: each engine's capture stream keeps one (32 MiB on an H100) for
+    the life of the process, which is not the engine's memory.  Call it
+    only when no captured graph will replay again (a graph holds its
+    workspace's address)."""
+    import gc
+    gc.collect()                    # what earlier work left in cycles
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def tokens_of(handles) -> int:
+    return sum(len(h.tokens) for h in handles)
+
+
+def check_streams(tag: str, handles, events) -> None:
+    """Each handle's streamed events, joined, are its final tokens: the
+    indices run 0..n-1, each exactly once, no token duplicated or
+    dropped."""
+    for h in handles:
+        evs = [e for e in events if e.uid == h.uid]
+        if [e.index for e in evs] != list(range(len(h.tokens))) or \
+                [e.token for e in evs] != h.tokens:
+            raise AssertionError(f"{tag}: request {h.uid}'s stream is not "
+                                 f"its tokens: {len(evs)} events for "
+                                 f"{len(h.tokens)} tokens")
+
+
+def supervised_crash(cfg, params, dev, counters) -> dict:
+    """(a): three serves of the same stream at full width and depth: an
+    uninterrupted engine (cold, then two warm serves), a journaled one
+    (cold, then two warm: the best warm tok/s against the uninterrupted
+    engine's best, the fsyncs), and a
+    ``Supervisor`` with a crash at ``CRASH_AT`` and snapshots every
+    ``SNAPSHOT_EVERY`` ticks (launch counts set to 0 just before, read
+    just after).  Gates: one restart; every stream its tokens; tokens
+    equal the uninterrupted serve's or split at a near tie; the audit
+    clean after every step, with one journaled pin after the restart; the
+    prefix handle re-bound; the dead engine's cache freed at the restart
+    and ``memory_allocated`` after the restored serve within 1% of the
+    uninterrupted engine's."""
+    import gc
+
+    from repro_torch.serving import (ChaosConfig, ChaosMonkey, Engine,
+                                     ServeConfig, Supervisor)
+    prompts = phase4_prompts(cfg.vocab_size)
+    head = head_tokens(cfg.vocab_size, HEAD_PAGES * FAULT_SERVE["page_size"])
+    scfg = ServeConfig(**FAULT_SERVE)
+
+    def serves(eng) -> tuple:
+        """A cold serve, then the best of two warm ones: (the cold
+        serve's tokens, the warm seconds)."""
+        cold, _, ph = journal_serve(eng, prompts, head)
+        ph.release()
+        secs = []
+        for _ in range(2):
+            _, s, ph = journal_serve(eng, prompts, head)
+            ph.release()
+            secs.append(s)
+        return [h.tokens for h in cold], min(secs)
+
+    eng = Engine(cfg, scfg, params, device=dev)
+    want, warm_s = serves(eng)
+    plain_mem = engine_allocated()
+    plain_cache = eng.stats().cache_bytes
+    del eng
+    gc.collect()
+
+    d = journal_dir("journaled")
+    eng = Engine(cfg, dataclasses.replace(
+        scfg, journal_path=str(d / "wal.jsonl")), params, device=dev)
+    _, jwarm_s = serves(eng)
+    fsyncs = eng.journal.fsyncs
+    eng.journal.close()
+    del eng
+    gc.collect()
+
+    d = journal_dir("supervised")
+    sup = Supervisor(cfg, scfg, params, device=dev,
+                     journal_path=str(d / "wal.jsonl"),
+                     snapshot_dir=str(d / "snap"),
+                     snapshot_every=SNAPSHOT_EVERY)
+    ChaosMonkey(sup.engine, ChaosConfig(seed=7, rate=0.0,
+                                        crash_tick=CRASH_AT)).attach()
+    torn = []                       # memory_allocated after the teardown
+    teardown = sup._teardown
+
+    def measured(old):
+        teardown(old)
+        torn.append(torch.cuda.memory_allocated())
+
+    sup._teardown = measured
+    zero_counts(counters)
+    ph = sup.register_prefix(head)
+    handles = [sup.submit(p, max_new=JOURNAL_NEW) for p in prompts]
+    events, pins, freed, capturing = [], None, None, False
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while not all(h.done for h in handles):
+            if len(events) > 10 * tokens_of(handles) + 1000:
+                raise AssertionError("(a): the supervised serve does not "
+                                     "drain")
+            restarts = sup.restarts
+            torch.cuda.synchronize()
+            level = torch.cuda.memory_allocated()
+            events += sup.step()
+            report = sup.audit()
+            if sup.restarts != restarts:
+                capturing = torch.cuda.is_current_stream_capturing()
+                freed = level - torn[-1]
+                pins = report["journal_pins"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    sup_mem = engine_allocated()
+    st = sup.stats()
+    rebound = ph._engine is sup.engine and not ph.released
+    rows = [scfg.prompt_rows(len(p)) for p in prompts]
+    equal = sum(split_at_tie(f"journal a: request {i}", params, cfg, dev, p,
+                             r, h.tokens, w, params["embed"].dtype)
+                for i, (p, r, h, w) in enumerate(zip(prompts, rows, handles,
+                                                     want)))
+    rec = sup.last_recovery
+    caps = st.graph_captures
+    found = {
+        "restarts": sup.restarts, "token_equal": equal,
+        "requests": len(prompts), "tokens": tokens_of(handles),
+        "recovery_ms": {k: round(v, 3) for k, v in rec.items()},
+        "restored_captures": len(caps),
+        "restored_capture_s": round(sum(c["capture_s"] for c in caps), 4),
+        "restored_instantiate_s": round(
+            sum(c["instantiate_s"] for c in caps), 4),
+        "plain_tok_per_s": round(tokens_of(handles) / warm_s, 1),
+        "workspaces_cleared": hasattr(torch._C,
+                                      "_cuda_clearCublasWorkspaces"),
+        "journal_tok_per_s": round(tokens_of(handles) / jwarm_s, 1),
+        "journal_fsyncs": fsyncs,
+        "supervised_tok_per_s": round(tokens_of(handles) / wall, 1),
+        "freed_at_restart_bytes": freed, "cache_bytes": plain_cache,
+        "allocated_plain": plain_mem, "allocated_restored": sup_mem}
+    log(f"[journal a] {cfg.n_layers} layers: restarts {sup.restarts}, "
+        f"{equal}/{len(prompts)} requests token-equal to the uninterrupted "
+        f"serve; recovery ms {json.dumps(found['recovery_ms'])}; restored "
+        f"engine: {len(caps)} captures, capture "
+        f"{found['restored_capture_s']} s, instantiate "
+        f"{found['restored_instantiate_s']} s; warm tok/s (best of 2) plain "
+        f"{found['plain_tok_per_s']}, journaled {found['journal_tok_per_s']}"
+        f" ({fsyncs} fsyncs), supervised through the crash (cold) "
+        f"{found['supervised_tok_per_s']}; memory_allocated freed at the "
+        f"restart {freed} (the cache {plain_cache}), after the restored "
+        f"serve {sup_mem} against {plain_mem} (cuBLAS workspaces cleared: "
+        f"{found['workspaces_cleared']}); journal pins after the "
+        f"restart {pins}; launches {json.dumps(launches)}")
+    if sup.restarts != 1 or st.restarts != 1:
+        raise AssertionError(f"(a): {sup.restarts} restarts, want 1")
+    check_streams("(a)", handles, events)
+    if pins != 1 or not rebound:
+        raise AssertionError(f"(a): journal pins {pins} after the restart, "
+                             f"prefix handle re-bound {rebound}")
+    if capturing:
+        raise AssertionError("(a): a graph capture was live at the crash")
+    if freed is None or freed < plain_cache:
+        raise AssertionError(f"(a): the restart freed {freed} bytes, less "
+                             f"than the dead engine's cache {plain_cache}")
+    if abs(sup_mem - plain_mem) > 0.01 * plain_mem:
+        raise AssertionError(f"(a): {sup_mem} bytes allocated after the "
+                             f"restored serve, {plain_mem} after the "
+                             "uninterrupted one")
+    if any(h.status.value != "done" for h in handles):
+        raise AssertionError("(a): a request did not finish")
+    missing = [k for k in ("nm_spmm", "paged_attention", "flash_attention")
+               if not launches[k]]
+    if missing:
+        raise AssertionError(f"(a): kernels never launched: {missing}")
+    healthy("journal a", st)
+    ph.release()
+    return found, launches
+
+
+def step_times(eng, handles) -> list:
+    """Drive ``eng`` to the end: each step's (ms, warming up or capturing
+    a graph)."""
+    from repro_torch.serving import Supervisor
+    out = []
+    while not all(h.done for h in handles):
+        n = len(eng.stats().chunk_runs)
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, Supervisor._warming(
+            eng, eng.stats().chunk_runs[n:])))
+    return out
+
+
+def supervised_hang(dev) -> dict:
+    """(b): a hang at ``fault_config()``: a cold uninterrupted serve
+    times every step; the watchdog is ``HANG_MARGIN`` times its slowest
+    steady step and the injected stall ``HANG_MARGIN`` times the
+    watchdog.  Gates: the watchdog trips once (one restart, one watchdog
+    warning); the tokens equal the uninterrupted serve's or split at a
+    near tie; the fresh engine warms up and captures its graphs again
+    and no such step trips the watchdog."""
+    from repro_torch.serving import (ChaosConfig, ChaosMonkey, Engine,
+                                     ServeConfig, Supervisor)
+    cfg = fault_config()
+    params = sparse_model(cfg, dev, SEED + 18)
+    prompts = phase4_prompts(cfg.vocab_size, requests=8)
+    scfg = ServeConfig(**dict(FAULT_SERVE, decode_chunk=4,
+                              max_new_tokens=32))
+    # the reference serve journals too: its steps pay the fsync the
+    # supervised engine's steps pay
+    eng = Engine(cfg, dataclasses.replace(scfg, journal_path=str(
+        journal_dir("hang_reference") / "wal.jsonl")), params, device=dev)
+    base = [eng.submit(p) for p in prompts]
+    steps = step_times(eng, base)
+    want = [h.tokens for h in base]
+    eng.journal.close()
+    del eng
+    steady = max(ms for ms, warm in steps[2:] if not warm)
+    watchdog = HANG_MARGIN * steady
+    hang_s = STALL_MARGIN * watchdog / 1e3
+    sup = Supervisor(cfg, scfg, params, device=dev,
+                     journal_path=str(journal_dir("hang") / "wal.jsonl"),
+                     watchdog_ms=watchdog)
+    ChaosMonkey(sup.engine, ChaosConfig(seed=0, rate=0.0, hang_tick=HANG_AT,
+                                        hang_s=hang_s)).attach()
+    handles = [sup.submit(p) for p in prompts]
+    fresh = []                  # the fresh engine's warm-up/capture ms
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        while not all(h.done for h in handles):
+            restarted, n = sup.restarts, len(sup.engine.stats().chunk_runs)
+            t0 = time.perf_counter()
+            sup.step()
+            ms = (time.perf_counter() - t0) * 1e3
+            if restarted and Supervisor._warming(
+                    sup.engine, sup.engine.stats().chunk_runs[n:]):
+                fresh.append(ms)
+            sup.audit()
+    trips = sum("watchdog" in str(w.message) for w in caught)
+    hows = [how for _, how in sup.engine.stats().chunk_runs]
+    caps = sup.engine.stats().graph_captures
+    rows = [scfg.prompt_rows(len(p)) for p in prompts]
+    equal = sum(split_at_tie(f"journal b: request {i}", params, cfg, dev, p,
+                             r, h.tokens, w, params["embed"].dtype)
+                for i, (p, r, h, w) in enumerate(zip(prompts, rows, handles,
+                                                     want)))
+    slowest = max((ms for ms, warm in steps if warm), default=0.0)
+    log(f"[journal b] {cfg.n_layers} layers: steady step <= {steady:.2f} ms, "
+        f"watchdog {watchdog:.2f} ms, stall {hang_s:.3f} s a fetch from "
+        f"tick {HANG_AT}; watchdog trips {trips}, restarts {sup.restarts}; "
+        f"the fresh engine's chunks {hows.count('eager')} eager, "
+        f"{hows.count('capture')} captures "
+        f"({sum(c['capture_s'] + c['instantiate_s'] for c in caps):.3f} s "
+        f"capture + instantiate), {hows.count('replay')} replays; its "
+        f"warm-up and capture steps {[round(ms, 1) for ms in fresh]} ms "
+        f"({sum(ms > watchdog for ms in fresh)} past the watchdog, none "
+        f"tripping it); slowest warm-up or capture step of the cold serve "
+        f"{slowest:.1f} ms; "
+        f"{equal}/{len(prompts)} requests token-equal to the uninterrupted "
+        f"serve")
+    if trips != 1 or sup.restarts != 1:
+        raise AssertionError(f"(b): {trips} watchdog trips, {sup.restarts} "
+                             "restarts, want 1 and 1")
+    if "capture" not in hows:
+        raise AssertionError("(b): the fresh engine captured no graph")
+    if any(h.status.value != "done" for h in handles):
+        raise AssertionError("(b): a request did not finish")
+    healthy("journal b", sup.stats())
+    return {"steady_ms": round(steady, 3), "watchdog_ms": round(watchdog, 3),
+            "hang_s": round(hang_s, 4), "trips": trips,
+            "restarts": sup.restarts, "token_equal": equal,
+            "fresh_captures": len(caps),
+            "fresh_warming_ms": [round(ms, 3) for ms in fresh]}
+
+
+def exact_setup():
+    """(c)'s model, CPU params, prompts and serve config."""
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.serving import ServeConfig
+    small = chaos_small(qwen3_0_6b.sparse())
+    cpu_params = sparse_model(small, torch.device("cpu"), SEED + 18)
+    prompts = phase4_prompts(small.vocab_size, requests=EXACT_REQUESTS)
+    scfg = ServeConfig(**dict(FAULT_SERVE, max_new_tokens=EXACT_NEW))
+    return small, cpu_params, prompts, scfg
+
+
+def exact_cpu_reference(out: str) -> int:
+    """This script's CPU-reference mode for phase 18 (c): the
+    uninterrupted serve of (c)'s stream on the port's CPU path, its tokens
+    written to ``out`` as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.serving import Engine
+    small, cpu_params, prompts, scfg = exact_setup()
+    eng = Engine(small, scfg, cpu_params, device="cpu")
+    handles = [eng.submit(p) for p in prompts]
+    eng.run()
+    Path(out).write_text(json.dumps([h.tokens for h in handles]))
+    return 0
+
+
+def exact_crash(dev, proc, out: Path) -> dict:
+    """(c): a supervised crash at 2 layers in fp32 on ``dev`` against the
+    uninterrupted serve of the port's CPU path (``exact_cpu_reference``,
+    started at the phase's beginning): the tokens must be equal, every
+    one."""
+    from repro_torch.serving import ChaosConfig, ChaosMonkey, Supervisor
+    small, cpu_params, prompts, scfg = exact_setup()
+    t0 = time.perf_counter()
+    if proc.wait(timeout=600):
+        raise AssertionError(f"(c): the CPU reference exited "
+                             f"{proc.returncode}")
+    cpu_s = time.perf_counter() - t0
+    cpu_tokens = json.loads(out.read_text())
+    sup = Supervisor(small, scfg, _to(cpu_params, dev), device=dev,
+                     journal_path=str(journal_dir("exact") / "wal.jsonl"))
+    ChaosMonkey(sup.engine, ChaosConfig(seed=7, rate=0.0,
+                                        crash_tick=EXACT_CRASH)).attach()
+    handles = [sup.submit(p) for p in prompts]
+    events = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while not all(h.done for h in handles):
+            events += sup.step()
+            sup.audit()
+    got = [h.tokens for h in handles]
+    equal = sum(a == b for a, b in zip(got, cpu_tokens))
+    log(f"[journal c] 2 layers fp32: restarts {sup.restarts}; "
+        f"{equal}/{len(prompts)} requests token-equal to the CPU path's "
+        f"uninterrupted serve (waited {cpu_s:.1f} s for it)")
+    if sup.restarts != 1:
+        raise AssertionError(f"(c): {sup.restarts} restarts, want 1")
+    check_streams("(c)", handles, events)
+    for i, (a, b) in enumerate(zip(got, cpu_tokens)):
+        if a != b:
+            split = first_split(a, b)
+            _, gaps, _ = greedy(cpu_params, small, prompts[i], len(b),
+                                scfg.prompt_rows(len(prompts[i])), 512,
+                                forced=b)
+            raise AssertionError(
+                f"(c): request {i} differs from the CPU path at token "
+                f"{split} (CPU top-2 gap there "
+                f"{gaps[split] if split is not None else None})")
+    return {"restarts": sup.restarts, "token_equal": equal,
+            "requests": len(prompts)}
+
+
+def journal_and_supervisor(dev, counters) -> tuple:
+    """Phase 18: (a) ``supervised_crash`` at 28 layers, (b)
+    ``supervised_hang``, (c) ``exact_crash``.  Returns (a)'s launches and
+    what each part found."""
+    from repro_torch.configs import qwen3_0_6b
+    proc, out = start_cpu_reference(EXACT_REFERENCE, "journal_cpu.json")
+    found = {}
+    try:
+        t0 = time.perf_counter()
+        cfg = qwen3_0_6b.sparse()
+        params = sparse_model(cfg, dev, SEED + 18)
+        found["crash"], launches = supervised_crash(cfg, params, dev,
+                                                    counters)
+        del params
+        log(f"[phase 18] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        found["hang"] = supervised_hang(dev)
+        log(f"[phase 18] (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        found["exact"] = exact_crash(dev, proc, out)
+        log(f"[phase 18] (c) {time.perf_counter() - t0:.1f} s")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4969,8 +5570,12 @@ def main() -> int:
         got = moe_serve(mcfg, dev, counters)
         for name in ("nm_spmm", "paged_attention", "flash_attention"):
             launches[name] += got[name]
-    for mcfg in moe_configs():
-        moe_vs_cpu(mcfg, dev, counters)
+    # (c)'s CPU side runs in a process of its own beside phases 11-13;
+    # its check follows phase 13
+    moe_ref = start_moe_reference()
+    moe_cards = [(mcfg, *moe_vs_cpu(mcfg, dev, counters))
+                 for mcfg in moe_configs()]
+    wait_moe_drawn(*moe_ref)
     timed("10 qwen2-moe-a2.7b and dbrx-132b", t0)
 
     t0 = time.perf_counter()
@@ -5005,6 +5610,7 @@ def main() -> int:
         for name in ("nm_spmm", "paged_attention", "flash_attention"):
             launches[name] += got[name]
     timed("13 gemma2-27b and gemma3-1b", t0)
+    moe_check(moe_cards, *moe_ref)
 
     t0 = time.perf_counter()
     got, train = training(dev, counters, spec_acceptance["pack"])
@@ -5031,6 +5637,12 @@ def main() -> int:
         launches[name] += got[name]
     timed("17 faults and chaos", t0)
 
+    t0 = time.perf_counter()
+    got, journal = journal_and_supervisor(dev, counters)
+    for name in ("nm_spmm", "paged_attention", "flash_attention"):
+        launches[name] += got[name]
+    timed("18 journal and supervisor", t0)
+
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -5042,6 +5654,7 @@ def main() -> int:
     log(json.dumps({"launchers": launchers}, default=str))
     log(json.dumps({"dryrun": dryrun_found}))
     log(json.dumps({"faults": faults}))
+    log(json.dumps({"journal": journal}))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -5053,4 +5666,12 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CPU_REFERENCE]:
         sys.exit(chaos_cpu_reference(sys.argv[2]))
-    sys.exit(main())
+    if sys.argv[1:2] == [EXACT_REFERENCE]:
+        sys.exit(exact_cpu_reference(sys.argv[2]))
+    if sys.argv[1:2] == [MOE_REFERENCE]:
+        sys.exit(moe_cpu_reference(sys.argv[2]))
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

@@ -31,11 +31,17 @@ hand-written kernels at these geometries).  Rows:
     batch slot is preempted and resumes warm) against priority 0 (they
     wait for a batch slot to drain): interactive TTFT both ways,
     ``preemptions``, ``ttft_p95_speedup``; ``syncs`` and ``chunks`` of
-    the preempting serve beside the JAX bench's columns.
+    the preempting serve beside the JAX bench's columns;
+  * ``crash-restore``: the het-paged mix with and without the
+    write-ahead journal (``journal_tok_per_s``, ``journal_overhead_pct``,
+    the median of three interleaved pairs), then served under the
+    ``Supervisor`` with a crash pinned to ``CRASH_TICK``: end-to-end
+    ``tok_per_s`` through the kill and restore, ``restarts`` and the
+    recovery's timings; ``syncs`` and ``chunks`` of the restored engine
+    beside the JAX bench's columns.  Reported, not gated.
 
-Left out until their modules are ported (``NOT_PORTED``, printed by
-:func:`main`): the ``crash-*`` restore rows (ROADMAP queue 1 item 12b)
-and the ``sharded-*`` rows (item 13).
+Left out until its module is ported (``NOT_PORTED``, printed by
+:func:`main`): the ``sharded-*`` rows (ROADMAP queue 1 item 13).
 
 Times are host wall clock around the engine's own calls, which fetch
 their results (one sync per chunk), so the device has finished when
@@ -55,7 +61,8 @@ import torch
 from repro_torch import models as MZ
 from repro_torch.core.sparse_linear import SparsityConfig, pack_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving import (Engine, ServeConfig, build_decode_step,
+from repro_torch.serving import (ChaosConfig, ChaosMonkey, Engine,
+                                 ServeConfig, Supervisor, build_decode_step,
                                  build_prefill_step, sample_token_slots)
 
 SMOKE = os.environ.get("REPRO_BENCH_SMOKE", "") == "1"
@@ -99,7 +106,6 @@ SH_REQS = SH_SLOTS * SH_ROUNDS      # the TTFT percentiles
 
 #: the JAX bench's rows the port leaves out, with the item that ports them
 NOT_PORTED = {
-    "crash-restore": "ROADMAP queue 1 item 12b (journal, supervisor)",
     "sharded-d*": "ROADMAP queue 1 item 13 (tensor parallelism)",
 }
 
@@ -500,6 +506,78 @@ def _preempt_scenario(device) -> list:
             / max(pre["inter_ttft_p95_ms"], 1e-9), 2)}]
 
 
+# --- crash-restore scenario (journal overhead + recovery latency) ----------
+CRASH_TICK = 2                      # monkey ticks before the injected kill
+
+
+def _crash_restore_scenario(device) -> list:
+    """The heterogeneous mix served three ways: plain paged (re-timed in
+    this process), paged with the journal, and supervised with a crash
+    at ``CRASH_TICK`` (a quarter of the decode chunk, so the kill lands
+    mid-stream), snapshots every 4 ticks bounding the replay."""
+    import shutil
+    import tempfile
+    import warnings
+
+    cfg, params = _model("dense", device)
+    rng = np.random.default_rng(1)
+    requests = [rng.integers(1, VOCAB, size=L).astype(np.int32)
+                for L in HET_LENS]
+    paged_scfg = dataclasses.replace(_het_scfg(),
+                                     num_pages=_het_pool_pages())
+    tmp = tempfile.mkdtemp(prefix="bench_crash_")
+    try:
+        # only the journal differs; three rounds per serve and three
+        # interleaved pairs (their median overhead), as in the JAX bench
+        reqs3 = requests * 3
+        pairs = []
+        for i in range(3):
+            base = _serve_chunked(cfg, params, HET_SLOTS, reqs3,
+                                  scfg=paged_scfg, warm_all=True,
+                                  warm_requests=requests, rounds=3,
+                                  device=device)
+            jr_scfg = dataclasses.replace(
+                paged_scfg, journal_path=os.path.join(tmp, f"wal{i}.jsonl"))
+            jr = _serve_chunked(cfg, params, HET_SLOTS, reqs3, scfg=jr_scfg,
+                                warm_all=True, warm_requests=requests,
+                                rounds=3, device=device)
+            pairs.append((base["tok_per_s"], jr["tok_per_s"]))
+        overhead = float(np.median(
+            [(b - j) / max(b, 1e-9) * 100.0 for b, j in pairs]))
+        jr_tps = float(np.median([j for _, j in pairs]))
+
+        sup_scfg = dataclasses.replace(paged_scfg,
+                                       decode_chunk=max(2, HET_CHUNK // 4))
+        sup = Supervisor(cfg, sup_scfg, params, device=device,
+                         journal_path=os.path.join(tmp, "sup_wal.jsonl"),
+                         snapshot_dir=os.path.join(tmp, "snap"),
+                         snapshot_every=4)
+        ChaosMonkey(sup.engine, ChaosConfig(
+            seed=0, rate=0.0, crash_tick=CRASH_TICK)).attach()
+        for p in requests:
+            sup.submit(p, max_new=HET_MAX_NEW)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            done = sup.run()
+        wall = time.perf_counter() - t0
+        toks = sum(len(r.out) for r in done)
+        rec = sup.last_recovery
+        st = sup.stats()
+        return [{
+            "config": "crash-restore", "slots": HET_SLOTS, "tokens": toks,
+            "tok_per_s": round(toks / wall, 1),
+            "syncs": st.sync_count, "chunks": len(st.chunk_s),
+            "restarts": sup.restarts,
+            "recovery_ms": round(rec.get("total_ms", 0.0), 1),
+            "load_ms": round(rec.get("load_ms", 0.0), 1),
+            "replay_ms": round(rec.get("replay_ms", 0.0), 1),
+            "journal_tok_per_s": round(jr_tps, 1),
+            "journal_overhead_pct": round(overhead, 2)}]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run(device="cuda") -> dict:
     from repro_torch.kernels.dispatch import resolve_device
     device = resolve_device(device)
@@ -534,6 +612,7 @@ def run(device="cuda") -> dict:
     rows.extend(_spec_scenario(paged_tps, device))
     rows.extend(_shared_scenario(device))
     rows.extend(_preempt_scenario(device))
+    rows.extend(_crash_restore_scenario(device))
     return {"rows": rows, "decode_chunk": DECODE_CHUNK, "max_new": MAX_NEW,
             "het": {"lens": HET_LENS, "page_size": HET_PAGE,
                     "max_len": HET_MAX_LEN, "pool_pages": _het_pool_pages(),
@@ -547,6 +626,8 @@ def run(device="cuda") -> dict:
                         "inter_len": PR_INTER_LEN,
                         "inter_new": PR_INTER_NEW,
                         "interactive": PR_INTER_N},
+            "crash": {"crash_tick": CRASH_TICK, "snapshot_every": 4,
+                      "max_new": HET_MAX_NEW},
             "not_ported": dict(NOT_PORTED),
             "device": str(device)}
 
@@ -560,7 +641,8 @@ def main(out=None) -> None:
     print("config,slots,tokens,tok_per_s,p50_ms,p95_ms,ttft_p50_ms,"
           "ttft_p95_ms,syncs,ref_tok_per_s,speedup")
     for r in out["rows"]:
-        if r["config"].startswith(("het-", "spec-", "shared-", "mixed-")):
+        if r["config"].startswith(("het-", "spec-", "shared-", "mixed-",
+                                   "crash-")):
             continue
         print(f"{r['config']},{r['slots']},{r['tokens']},"
               f"{r['tok_per_s']},{r['p50_ms']},{r['p95_ms']},"
@@ -635,6 +717,19 @@ def main(out=None) -> None:
                   f"{r['base_tok_per_s']},{r['base_inter_ttft_p50_ms']},"
                   f"{r['base_inter_ttft_p95_ms']},"
                   f"{r['base_admission_waits']},{r['ttft_p95_speedup']}")
+    crash = [r for r in out["rows"] if r["config"].startswith("crash-")]
+    if crash:
+        cr = out.get("crash", {})
+        print(f"# crash-restore on the heterogeneous mix — journal overhead "
+              f"against het-paged, plus a supervised kill at tick "
+              f"{cr.get('crash_tick')} restored from snapshot and journal")
+        print("config,slots,tokens,tok_per_s,restarts,recovery_ms,"
+              "load_ms,replay_ms,journal_tok_per_s,journal_overhead_pct")
+        for r in crash:
+            print(f"{r['config']},{r['slots']},{r['tokens']},"
+                  f"{r['tok_per_s']},{r['restarts']},{r['recovery_ms']},"
+                  f"{r['load_ms']},{r['replay_ms']},"
+                  f"{r['journal_tok_per_s']},{r['journal_overhead_pct']}")
     for rows, why in out.get("not_ported", {}).items():
         print(f"# not ported: {rows} rows ({why})")
 

@@ -16,10 +16,16 @@ Examples:
 The report has the JAX report's keys, its robustness counters
 (``timeouts`` … ``degraded_recoveries``) included: ``--max-queue``
 bounds the admission queue and ``--deadline-ms`` gives every request a
-wall-clock budget.  Flags of unported work raise ``NotImplementedError``
-when given another value than their default: ``--model-parallel`` and
-``--devices`` (item 13), and the supervisor, journal, snapshot and
-watchdog flags (item 12b).
+wall-clock budget.  ``--journal`` writes the write-ahead request journal;
+``--supervise`` (which needs ``--journal``) serves under the crash-safe
+``Supervisor`` with ``--snapshot-dir``/``--snapshot-every`` snapshots and
+a ``--watchdog-ms`` watchdog, and the report gains ``restarts``,
+``recovery_ms`` and ``last_recovery`` (the last recovery's timings).
+Every launch is a fresh serve: it refuses a ``--journal`` file or a
+``--snapshot-dir`` that an earlier serve left.
+Flags of unported work raise ``NotImplementedError`` when given another
+value than their default: ``--model-parallel`` and ``--devices`` (ROADMAP
+queue 1 item 13).
 
 ``--dry-run`` builds nothing: it runs the per-slot prefill and one decode
 chunk of the paged serving loops on ``meta`` tensors (``--page-size``,
@@ -39,12 +45,7 @@ from typing import List, Optional
 import numpy as np
 
 #: flag (its ``args`` name) → the ROADMAP queue 1 item that ports it
-NOT_PORTED = {
-    "model_parallel": "item 13", "devices": "item 13",
-    "supervise": "item 12b", "journal": "item 12b",
-    "snapshot_dir": "item 12b", "snapshot_every": "item 12b",
-    "watchdog_ms": "item 12b",
-}
+NOT_PORTED = {"model_parallel": "item 13", "devices": "item 13"}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -96,12 +97,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--deadline-ms", type=float, default=0,
                     help="per-request wall-clock budget from submission; "
                          "past it the request times out (0 = none)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="serve under the crash-safe supervisor: a step() "
+                         "failure (an injected crash included) or a hang "
+                         "past --watchdog-ms tears the engine down and "
+                         "restores it from the journal and the latest "
+                         "snapshot (needs --journal)")
+    ap.add_argument("--journal", default="",
+                    help="write-ahead request journal path (append-only "
+                         "JSONL, fsync'd at chunk boundaries)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="engine snapshot directory (with --supervise)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot every N scheduler ticks (0 = never)")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="with --supervise: a step slower than this, past "
+                         "the grace steps and graph captures, counts as a "
+                         "hung engine (0 = off)")
     # the JAX launcher's flags of work the port has not taken yet
-    ap.add_argument("--supervise", action="store_true")
-    ap.add_argument("--journal", default="")
-    ap.add_argument("--snapshot-dir", default=None)
-    ap.add_argument("--snapshot-every", type=int, default=0)
-    ap.add_argument("--watchdog-ms", type=float, default=0.0)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--devices", type=int, default=0)
     ap.add_argument("--dry-run", action="store_true")
@@ -115,12 +128,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.dry_run:
         print(json.dumps(dry_run(args)))
         return 0
+    if args.supervise and not args.journal:
+        ap.error("--supervise needs --journal (recovery replays it)")
+    from repro_torch.serving.journal import earlier_serve
+    stale = earlier_serve(args.journal, args.snapshot_dir)
+    if stale is not None:           # every launch is a fresh serve
+        ap.error(stale)
 
     from repro_torch import configs as C
     from repro_torch import models as MZ
     from repro_torch.checkpoint import restore_latest
     from repro_torch.kernels.dispatch import resolve_device
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import Engine, ServeConfig, Supervisor
 
     device = resolve_device(args.device)
     mod = C._module(args.arch)
@@ -143,8 +162,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                        prompt_buckets=args.prompt_buckets,
                        prefix_cache=args.prefix_cache,
                        max_queue=args.max_queue,
-                       spec_k=spec_k, spec_draft=args.spec_draft)
-    server = Engine(cfg, scfg, params, device=device)
+                       spec_k=spec_k, spec_draft=args.spec_draft,
+                       journal_path=args.journal)
+    if args.supervise:
+        server = Supervisor(cfg, scfg, params, device=device,
+                            journal_path=args.journal,
+                            snapshot_dir=args.snapshot_dir,
+                            snapshot_every=args.snapshot_every,
+                            watchdog_ms=args.watchdog_ms)
+    else:
+        server = Engine(cfg, scfg, params, device=device)
 
     rng_np = np.random.default_rng(args.seed)
     handle = None
@@ -187,6 +214,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         "degraded": stats.degraded,
         "degraded_recoveries": stats.degraded_recoveries,
     }
+    if args.supervise:
+        report.update({
+            "restarts": server.restarts,
+            "recovery_ms": round(
+                server.last_recovery.get("total_ms", 0.0), 1),
+            "last_recovery": {k: round(v, 1) for k, v in
+                              server.last_recovery.items()},
+        })
     if scfg.paged:
         report.update({
             "page_size": scfg.page_size,

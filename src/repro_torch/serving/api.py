@@ -20,6 +20,13 @@
     ``submit(..., prefix=handle)`` prepends it.  Sharing itself is
     automatic (by content, at admission) whenever
     ``ServeConfig.prefix_cache`` is on.
+  * ``snapshot(dir)`` / ``Engine.restore(...)`` — with
+    ``ServeConfig.journal_path`` every submission, pin, admission,
+    delivered chunk and terminal status goes to a write-ahead journal
+    (``serving.journal``) before ``step()`` returns; a fresh engine
+    restored from the latest snapshot plus the journal's tail resumes
+    every request with no token duplicated or dropped
+    (``serving.supervisor`` does it on a crash or a hang).
   * speculative decoding with ``ServeConfig.spec_k > 0``: each decode
     step drafts ``spec_k`` tokens per slot with the draft params (the
     model itself, ``spec_draft="self"``, or its sparse packs,
@@ -32,9 +39,8 @@ speculative drafted/accepted counts ride in it; ``sync_count`` counts
 them (a retried fetch counts once).  Faults are contained by the
 :class:`~repro_torch.serving.faults.FaultTolerance` mixin (its docstring
 holds the policy); ``REPRO_CHAOS_SEED`` attaches a
-:class:`~repro_torch.serving.chaos.ChaosMonkey` at construction.  The
-journal, the supervisor and sharding are ROADMAP queue 1 items 12b and
-13.
+:class:`~repro_torch.serving.chaos.ChaosMonkey` at construction.
+Sharding is ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.faults import FaultTolerance
+from repro_torch.serving.journal import (Journal, recover_engine,
+                                         snapshot_engine)
 from repro_torch.serving.prefix import PrefixHandle
 from repro_torch.serving.state import (IDLE_TICKS, TERMINAL_STATUSES,
                                        ChunkBuffers, EngineStats, Request,
@@ -78,11 +86,6 @@ def _fetch_chunk(bufs: ChunkBuffers) -> tuple:
     """The engine's ``_device_fetch`` seam: the chunk's one transfer,
     unpacked into host ``(tokens, emitted, done, tally)``."""
     return bufs.fetch(_fetch)
-
-
-_NOT_PORTED = {
-    "journal_path": "ROADMAP queue 1 item 12b",
-}
 
 
 class Engine(FaultTolerance):
@@ -112,12 +115,6 @@ class Engine(FaultTolerance):
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Any, *,
                  draft_params: Any = None, device="cuda"):
         scfg.validate()
-        defaults = ServeConfig()
-        for field, item in _NOT_PORTED.items():
-            if getattr(scfg, field) != getattr(defaults, field):
-                raise NotImplementedError(
-                    f"ServeConfig.{field} is not served by the port yet "
-                    f"({item})")
         if cfg.n_experts and (scfg.spec or scfg.prefix_cache):
             raise NotImplementedError(
                 f"{cfg.name}: speculative decoding and prefix sharing are not "
@@ -135,6 +132,7 @@ class Engine(FaultTolerance):
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self._uid_next = 0
+        self._tick = 0                  # completed scheduler ticks
         self.sync_count = 0
         self._stats: Dict[str, Any] = fresh_stats()
         self._gen = torch.Generator(device=self.device)
@@ -174,6 +172,13 @@ class Engine(FaultTolerance):
             # a build or load error raises here, never inside a guarded
             # chunk, where it would degrade the engine instead
             dispatch.load_kernels()
+        # --- crash safety: pinned prefixes by pid and the journal
+        self._pins: Dict[int, PrefixHandle] = {}
+        self._pin_next = 0
+        self.journal: Optional[Journal] = None
+        if scfg.journal_path:
+            self.journal = Journal(scfg.journal_path)
+            self.journal.log_config(scfg)
         if os.environ.get("REPRO_CHAOS_SEED"):
             from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey
             ChaosMonkey(self, ChaosConfig.from_env()).attach()
@@ -228,7 +233,8 @@ class Engine(FaultTolerance):
                            kernel_failures=d["kernel_failures"],
                            fetch_errors=d["fetch_errors"],
                            degraded=self.degraded,
-                           degraded_recoveries=d["degraded_recoveries"])
+                           degraded_recoveries=d["degraded_recoveries"],
+                           restarts=d["restarts"])
 
     def ttfts_s(self) -> List[float]:
         return [r.ttft_s for r in self.finished if r.ttft_s is not None]
@@ -287,10 +293,20 @@ class Engine(FaultTolerance):
                 self._cache = fill(
                     self.params, torch.from_numpy(arr[None]).to(self.device),
                     self._cache, torch.from_numpy(page_row).to(self.device))
-        return PrefixHandle(self, arr.copy(), nodes)
+        h = PrefixHandle(self, arr.copy(), nodes)
+        h._pid = self._pin_next
+        self._pin_next += 1
+        self._pins[h._pid] = h
+        if self.journal is not None:
+            self.journal.log_pin(h._pid, arr)
+        return h
 
     def _release_prefix(self, handle: PrefixHandle) -> None:
         self._backend.release_prefix(handle._nodes)
+        if handle._pid is not None:
+            self._pins.pop(handle._pid, None)
+            if self.journal is not None:
+                self.journal.log_unpin(handle._pid)
 
     def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
                max_new: Optional[int] = None,
@@ -354,6 +370,8 @@ class Engine(FaultTolerance):
                          time.perf_counter())
         else:
             self.queue.append(req)
+        if self.journal is not None:    # durable before the handle is
+            self.journal.log_submit(req)    # returned to the caller
         return RequestHandle(self, req)
 
     def cancel(self, handle: Union[RequestHandle, Request, int]) -> None:
@@ -529,18 +547,27 @@ class Engine(FaultTolerance):
         """One scheduler tick: cancellations → deadlines → admission
         (+ prefill, preempting lower-priority slots under pool
         exhaustion) → one guarded decode chunk → the single fetch → the
-        numeric guard → the chunk's health.  Returns the tick's tokens in
-        emission order (empty when nothing is live).  Never raises on an
-        injected or transient fault: the requests it touched end terminal
-        or go back to the queue."""
+        numeric guard → the chunk's health → the journal's chunk boundary.
+        Returns the tick's tokens in emission order (empty when nothing is
+        live).  Never raises on an injected or transient fault: the
+        requests it touched end terminal or go back to the queue.  Every
+        tick counts in ``_tick``, an idle one too; with a journal its
+        records are fsync'd before the tokens are returned."""
         self._ensure_device_state()
         self._apply_cancels()
         self._apply_deadlines()
         with dispatch.plain_versions(self.degraded):
             self._admit()
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
-        if not live:
-            return []
+        events = self._decode(live) if live else []
+        self._tick += 1
+        if self.journal is not None:    # the chunk-boundary fsync runs
+            self.journal.record_tick(self, events)  # BEFORE delivery
+        return events
+
+    def _decode(self, live: List[int]) -> List[TokenEvent]:
+        """One guarded decode chunk over the ``live`` slots, its fetch,
+        the numeric guard and the chunk's health; the tick's tokens."""
         generator = self._generator(self._temps[live])
         chunk = self._backend.begin_chunk(live, sampled=generator is not None)
         t0 = time.perf_counter()
@@ -559,6 +586,30 @@ class Engine(FaultTolerance):
         self._backend.end_chunk(
             [i for i in live if self._slot_req[i] is not None])
         return events
+
+    # --- crash safety ---------------------------------------------------
+
+    def snapshot(self, directory: str) -> str:
+        """One atomic, digest-verified checkpoint of the scheduler state
+        (config, queue and slot occupancy, pins, stats, the generator
+        state) through :mod:`repro_torch.checkpoint.store`; returns the
+        step directory (``serving.journal.snapshot_engine``)."""
+        return snapshot_engine(self, directory)
+
+    @classmethod
+    def restore(cls, cfg: ModelConfig, params: Any, *,
+                scfg: Optional[ServeConfig] = None,
+                draft_params: Any = None,
+                journal_path: Optional[str] = None,
+                snapshot_dir: Optional[str] = None, device="cuda"):
+        """A fresh engine on ``device`` with the snapshot and the journal
+        replayed into it; non-terminal requests are re-queued to resume
+        exactly.  Returns the :class:`~repro_torch.serving.journal.Recovered`
+        bundle (``.engine``, ``.handles``, ``.prefixes``, ``.timings``)."""
+        return recover_engine(cfg, params, scfg=scfg,
+                              draft_params=draft_params,
+                              journal_path=journal_path,
+                              snapshot_dir=snapshot_dir, device=device)
 
     # --- convenience wrappers -------------------------------------------
 

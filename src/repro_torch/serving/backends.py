@@ -116,7 +116,9 @@ class MonoBackend(_BackendBase):
     def admit(self, slot: int, prompt_len: int, max_new: int,
               tokens: Optional[np.ndarray] = None,
               rows: Optional[int] = None) -> int:
-        return self.scfg.prompt_pad
+        # ``rows`` is a resumed request's exact prefill width (rows0 +
+        # emitted); fresh admissions use the uniform prompt_pad
+        return rows or self.scfg.prompt_pad
 
     def prefill_args(self, slot: int) -> Tuple:
         return ()

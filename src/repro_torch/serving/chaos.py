@@ -20,11 +20,12 @@ decode-chunk invocation (``engine._invoke_loop``) and the page allocator
     ``BaseException`` no engine guard catches: it kills ``step()``
     mid-tick like a SIGKILL, after the decode chunk ran.  Armed by rate
     or pinned to one tick (``crash_tick`` / ``REPRO_CHAOS_CRASH_TICK``);
-    sticky until a fetch consumes it.  Recovering from it (the journal
-    and the supervisor) is ROADMAP queue 1 item 12b.
+    sticky until a fetch consumes it.  Only the
+    :class:`~repro_torch.serving.supervisor.Supervisor` catches it: it
+    tears the engine down and restores a fresh one from the journal.
   * **hang** — the device wedges: once triggered (``hang_rate`` /
     ``hang_tick``), every later fetch stalls ``hang_s`` seconds (the
-    supervisor's watchdog of item 12b is what would trip on it).
+    supervisor's watchdog trips on it).
 
 Determinism: every tick consumes exactly the same number of draws (six
 uniforms and one slot index) whatever the engine's state, so the fault
@@ -47,10 +48,11 @@ or in code::
 invariants — page-id conservation across the free list, the slot tables
 and the prefix trie; reservation accounting; the legality of every
 request's status history — and raises :class:`AuditError` on a
-violation.  Under chaos it runs after every step.  The port keeps its
-own copy of the JAX package's module: the journal and shard checks
-report nothing until the engine has a journal (item 12b) and a sharded
-backend (item 13).
+violation.  Under chaos it runs after every step.  With a journal
+attached it also holds the journal's mirror to the engine: the mirror
+may trail the engine but never lead it.  The port keeps its own copy of
+the JAX package's module; the shard checks report nothing until the
+port has a sharded backend (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -396,13 +398,37 @@ def _audit_pages(engine: Any) -> Dict[str, int]:
 
 
 def _audit_journal(engine: Any) -> Dict[str, int]:
-    """Journal/engine consistency, when a write-ahead journal is
-    attached: the port's engine has none yet (ROADMAP queue 1 item 12b),
-    so there is nothing to check."""
-    if getattr(engine, "journal", None) is None:
+    """Journal/engine consistency (only when a journal is attached): the
+    journal's in-memory mirror, built by the same ``_apply`` path a
+    replay uses, must agree with the engine at every chunk boundary.
+    The mirror may trail the engine by an unflushed chunk but may never
+    be ahead of it (a journal that replays tokens the engine never
+    emitted would duplicate them after recovery)."""
+    j = getattr(engine, "journal", None)
+    if j is None:
         return {}
-    raise NotImplementedError("the journal audit comes with the journal "
-                              "(ROADMAP queue 1 item 12b)")
+    st = j.state
+    fin = {r.uid: r for r in engine.finished}
+    for i, r in enumerate(engine._slot_req):
+        if r is not None and r.uid not in st.reqs:
+            _fail(f"slot {i} runs request {r.uid} the journal never saw")
+    for uid, jr in st.reqs.items():
+        r = next((c for c in engine.queue + engine._slot_req
+                  if c is not None and c.uid == uid), None) or fin.get(uid)
+        if r is None:
+            if jr.status not in {s.value for s in TERMINAL_STATUSES}:
+                _fail(f"journal holds non-terminal request {uid} the "
+                      "engine does not know")
+            continue
+        if len(jr.out) > len(r.out) or jr.out != r.out[:len(jr.out)]:
+            _fail(f"journal is ahead of engine for request {uid}: "
+                  f"journal={jr.out} engine={r.out}")
+        if jr.rows0 is not None and r.rows0 is not None \
+                and jr.rows0 != r.rows0:
+            _fail(f"request {uid} admit width diverged: journal rows0="
+                  f"{jr.rows0}, engine rows0={r.rows0}")
+    return {"journaled": len(st.reqs), "journal_tick": st.tick,
+            "journal_pins": len(st.pins)}
 
 
 def _audit_shards(engine: Any) -> Dict[str, int]:

@@ -2,9 +2,7 @@
 
 The JAX package's config, field for field, with the derived quantities
 (``chunk_tokens``, ``request_pages``) the scheduler and the backends size
-themselves through.  Fields of features the port does not serve yet
-(bounded queue, journal) are carried for parity; ``Engine`` rejects
-non-default values of them.
+themselves through.
 """
 
 from __future__ import annotations

@@ -32,8 +32,8 @@ so a node's refcount is never below any descendant's — the retained set
 is downward-closed and always has a leaf to evict.
 
 The port keeps its own copy of the JAX package's numpy-only module,
-with the walk the engine audit makes (:meth:`PrefixIndex.iter_nodes`);
-the journal's pin ids are not ported (ROADMAP queue 1 item 12b).
+with the walk the engine audit makes (:meth:`PrefixIndex.iter_nodes`)
+and the handle's pin id in the engine's registry and journal.
 """
 
 from __future__ import annotations
@@ -215,6 +215,7 @@ class PrefixHandle:
         self._tokens = tokens
         self._nodes = nodes
         self._released = False
+        self._pid = None            # pin id in the engine's WAL/registry
 
     @property
     def tokens(self) -> np.ndarray:

@@ -150,7 +150,7 @@ def fresh_stats() -> Dict[str, Any]:
             "prefix_hits": 0, "shared_pages": 0, "cow_copies": 0,
             "timeouts": 0, "rejections": 0, "preemptions": 0,
             "numeric_faults": 0, "kernel_failures": 0, "fetch_errors": 0,
-            "degraded_recoveries": 0,
+            "degraded_recoveries": 0, "restarts": 0,
             "chunk_runs": [], "graph_captures": []}
 
 
@@ -183,6 +183,7 @@ class EngineStats:
     fetch_errors: int = 0           # device->host fetch attempts that raised
     degraded: bool = False          # the engine runs the plain versions
     degraded_recoveries: int = 0    # degraded -> kernels again
+    restarts: int = 0               # supervised crash/hang restorations
 
 
 def init_decode_state(slots: int, device) -> Dict[str, torch.Tensor]:

@@ -15,8 +15,9 @@ waits and the prefix counters (the bench's ``eos_token=-1`` makes every
 request run its budget, so the counts do not hang on bf16 ties).  The
 ``mixed-priority-preempt`` cell's two serves (priority 1 and 0) must
 count the same tokens, preemptions and admission waits.  The port's
-``run()`` must give the JAX rows minus the ``crash-*`` and
-``sharded-*`` ones, in order.  One JAX engine per served cell.
+``run()`` must give the JAX rows minus the ``sharded-*`` ones, in order,
+its ``crash-restore`` row one restart and every token of the mix.  One
+JAX engine per served cell.
 """
 
 import dataclasses
@@ -33,7 +34,7 @@ from test_torch_model import flatten, jax_mesh
 #: what ``_serve_chunked`` counts, in both benches' result dicts
 COUNTS = ("tokens", "syncs", "kv_bytes", "peak_used_bytes",
           "admission_waits", "prefix_hits", "shared_pages", "cow_copies")
-LEFT_OUT = ("crash-", "sharded-")
+LEFT_OUT = ("sharded-",)
 
 
 @pytest.fixture(scope="module")
@@ -187,10 +188,11 @@ def jax_rows(jbench):
 
 
 def test_run_rows_are_the_jax_rows_but_unported(benches, capsys):
-    """``run()`` on the CPU: the JAX rows minus ``crash-*`` and
-    ``sharded-*``, in order; ``main`` names each left-out group with its
-    ROADMAP item and prints the mixed-priority row; the chunked and
-    per-token rows count equal tokens."""
+    """``run()`` on the CPU: the JAX rows minus ``sharded-*``, in order;
+    ``main`` names the left-out group with its ROADMAP item and prints
+    the mixed-priority and crash-restore rows; the chunked and per-token
+    rows count equal tokens; the supervised serve restarts once and
+    delivers every token of the mix."""
     jbench, tbench = benches
     out = tbench.run(device="cpu")
     got = [(r["config"], r["slots"]) for r in out["rows"]]
@@ -200,8 +202,13 @@ def test_run_rows_are_the_jax_rows_but_unported(benches, capsys):
         assert r["tokens"] == r["ref_tokens"] > 0
     tbench.main(out)
     printed = capsys.readouterr().out
-    assert any(line.startswith("mixed-priority-preempt,")
-               for line in printed.splitlines())
-    for prefix, item in (("crash-", "item 12b"), ("sharded-", "item 13")):
+    for row in ("mixed-priority-preempt,", "crash-restore,"):
+        assert any(line.startswith(row) for line in printed.splitlines())
+    crash = next(r for r in out["rows"] if r["config"] == "crash-restore")
+    assert crash["restarts"] == 1
+    assert crash["tokens"] == len(tbench.HET_LENS) * tbench.HET_MAX_NEW
+    assert crash["journal_tok_per_s"] > 0 and crash["recovery_ms"] > 0
+    assert all(r["syncs"] == r["chunks"] for r in out["rows"])
+    for prefix, item in (("sharded-", "item 13"),):
         assert any(line.startswith(f"# not ported: {prefix}") and item in
                    line for line in printed.splitlines()), prefix

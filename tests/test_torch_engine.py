@@ -5,6 +5,8 @@ dense projections; ``test_torch_engine_{nm,combined,block,lookahead}.py``
 run the same tests on packed ones (``FORMAT`` of the collecting module
 picks)."""
 
+import json
+
 import numpy as np
 import pytest
 
@@ -96,15 +98,17 @@ def test_cancel_frees_pages_and_emits_nothing_more(served):
     assert len(eng._backend.free_pages) == eng.scfg.pool_pages
 
 
-def test_engine_validates_requests(served):
+def test_engine_validates_requests(served, tmp_path):
     _, _, tcfg, tp, _ = served
     eng = TEngine(tcfg, TServeConfig(**SERVE), tp, device="cpu")
     for bad in ([], [[1, 2]], [1.5, 2.0], list(range(70)), [tcfg.vocab_size]):
         with pytest.raises(ValueError):
             eng.submit(bad)
-    # the bounded queue is served (its rejections are held against the
-    # JAX engine in tests/test_torch_chaos.py); the journal is not yet
+    # the bounded queue and the journal are served (held against the JAX
+    # engine in tests/test_torch_chaos.py and tests/test_torch_recovery.py)
     TEngine(tcfg, TServeConfig(**SERVE, max_queue=2), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TEngine(tcfg, TServeConfig(**SERVE, journal_path="j"), tp,
-                device="cpu")
+    jp = tmp_path / "j.jsonl"
+    eng = TEngine(tcfg, TServeConfig(**SERVE, journal_path=str(jp)), tp,
+                  device="cpu")
+    eng.journal.close()
+    assert [json.loads(line)["t"] for line in open(jp)] == ["cfg"]

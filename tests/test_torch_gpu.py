@@ -713,19 +713,26 @@ GRAPH_PROMPTS = [[3, 1, 4, 1, 5], list(range(7, 40)), [2, 7, 1, 8, 2, 8],
 COUNTERS = (nm_mod, csa_mod, bsr_mod, lookahead_mod, paged_mod, flash_mod)
 
 
-def _graph_engine(cuda, fmt="nm", dtype="float32", **kw):
+def _graph_model(cuda, fmt="nm", dtype="float32", **kw):
+    """(config, ServeConfig, params) of the 2-layer qwen3 the graph tests
+    serve at ``GRAPH_SERVE``."""
     import dataclasses
 
     from repro_torch import models
     from repro_torch.configs import qwen3_0_6b
     from repro_torch.core.sparse_linear import SparsityConfig, pack_params
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import ServeConfig
     sp = SparsityConfig(**FORMATS[fmt][0])
     cfg = dataclasses.replace(qwen3_0_6b.config(), n_layers=2,
                               layer_kinds=(), dtype=dtype, mlp_sparsity=sp,
                               attn_sparsity=sp)
     params = pack_params(models.init_model(cfg, seed=0, device=cuda), cfg)
-    scfg = ServeConfig(**dict(GRAPH_SERVE, **kw))
+    return cfg, ServeConfig(**dict(GRAPH_SERVE, **kw)), params
+
+
+def _graph_engine(cuda, fmt="nm", dtype="float32", **kw):
+    from repro_torch.serving import Engine
+    cfg, scfg, params = _graph_model(cuda, fmt, dtype, **kw)
     return lambda: Engine(cfg, scfg, params, device=cuda)
 
 
@@ -1541,3 +1548,121 @@ def test_chaos_degraded_engine_runs_the_plain_versions_and_recovers(cuda):
     assert not st.graph_captures and not eng.degraded
     assert [h.tokens for h in handles] == want[0]
     eng.audit()
+
+
+# --- the journal and the supervisor on the card ------------------------------
+
+def _hopper():
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (an H100)")
+
+
+def _engine_allocated():
+    """``memory_allocated()`` with cuBLAS's per-stream workspaces released
+    (each engine's capture stream keeps one for the process's life); only
+    when no captured graph will replay again."""
+    import gc
+    gc.collect()                    # what earlier work left in cycles
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def test_supervised_crash_with_graphs_frees_the_dead_engine(cuda, tmp_path):
+    """A crash mid-serve under the supervisor, every chunk a captured
+    graph: the tokens are the uninterrupted serve's, each request's
+    streamed indices run 0..n-1 once each, no capture is live when
+    ``step()`` dies, the teardown frees at least the dead engine's cache
+    before the fresh engine allocates, and after the restored serve
+    ``memory_allocated`` is within 1% of the uninterrupted engine's."""
+    import gc
+    import warnings
+
+    from repro_torch.serving import (ChaosConfig, ChaosMonkey, Engine,
+                                     Supervisor)
+    _hopper()
+    cfg, scfg, params = _graph_model(cuda)
+    eng = Engine(cfg, scfg, params, device=cuda)
+    want = _serve(eng)
+    plain, cache = _engine_allocated(), eng.stats().cache_bytes
+    del eng
+    gc.collect()
+    sup = Supervisor(cfg, scfg, params, device=cuda,
+                     journal_path=str(tmp_path / "j.jsonl"),
+                     snapshot_dir=str(tmp_path / "snap"), snapshot_every=2)
+    ChaosMonkey(sup.engine, ChaosConfig(seed=7, rate=0.0,
+                                        crash_tick=3)).attach()
+    torn, teardown = [], sup._teardown
+
+    def measured(old):
+        teardown(old)
+        torn.append(torch.cuda.memory_allocated())
+
+    sup._teardown = measured
+    handles = [sup.submit(p) for p in GRAPH_PROMPTS]
+    events, freed = [], None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while not all(h.done for h in handles):
+            torch.cuda.synchronize()
+            restarts, level = sup.restarts, torch.cuda.memory_allocated()
+            events += sup.step()
+            if sup.restarts != restarts:
+                assert not torch.cuda.is_current_stream_capturing()
+                freed = level - torn[-1]
+    end = _engine_allocated()
+    assert sup.restarts == 1 and sup.stats().restarts == 1
+    assert [h.tokens for h in handles] == want[0]
+    for h in handles:
+        assert [e.index for e in events if e.uid == h.uid] == \
+            list(range(len(h.tokens)))
+    assert freed is not None and freed >= cache > 0
+    assert abs(end - plain) <= 0.01 * plain
+    assert sup.engine.stats().graph_captures      # new graphs, captured anew
+    sup.audit()
+
+
+def test_restored_engine_capture_does_not_trip_the_watchdog(cuda, tmp_path,
+                                                           monkeypatch):
+    """Every graph capture made 0.5 s slower than a 250 ms watchdog (far
+    above a 2-layer step): a crash mid-serve restarts the engine once,
+    the fresh engine warms up and captures its keys' graphs again, each
+    capture step outlasts the watchdog, and none trips it."""
+    import time
+    import warnings
+
+    from repro_torch.serving import (ChaosConfig, ChaosMonkey, Engine,
+                                     Supervisor, loops)
+    _hopper()
+    cfg, scfg, params = _graph_model(cuda)
+    want = _serve(Engine(cfg, scfg, params, device=cuda))[0]
+    capture = loops.DecodeChunk._capture
+
+    def slow(self, *args):
+        time.sleep(0.5)
+        capture(self, *args)
+
+    monkeypatch.setattr(loops.DecodeChunk, "_capture", slow)
+    sup = Supervisor(cfg, scfg, params, device=cuda,
+                     journal_path=str(tmp_path / "j.jsonl"),
+                     watchdog_ms=250.0)
+    ChaosMonkey(sup.engine, ChaosConfig(seed=0, rate=0.0,
+                                        crash_tick=4)).attach()
+    handles = [sup.submit(p) for p in GRAPH_PROMPTS]
+    slow_captures = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while not all(h.done for h in handles):
+            restarted, n = sup.restarts, len(sup.engine.stats().chunk_runs)
+            t0 = time.perf_counter()
+            sup.step()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs = sup.engine.stats().chunk_runs[n:]
+            if restarted and any(how == "capture" for _, how in runs):
+                slow_captures += ms > sup.watchdog_ms
+    assert sup.restarts == 1
+    hows = [how for _, how in sup.engine.stats().chunk_runs]
+    assert hows[0] == "eager" and slow_captures >= 1
+    assert [h.tokens for h in handles] == want

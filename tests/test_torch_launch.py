@@ -19,6 +19,7 @@ no serve reaches).  One JAX launch per case.
 import contextlib
 import io
 import json
+import os
 import sys
 
 import jax
@@ -32,6 +33,7 @@ from repro.launch import serve as jserve
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as tserve
+from repro_torch.serving.chaos import ChaosConfig
 from test_torch_model import flatten, jax_mesh
 
 ARCH = "qwen3-0.6b"
@@ -48,9 +50,15 @@ CASES = {
 ROBUSTNESS = {"timeouts", "rejections", "preemptions", "numeric_faults",
               "kernel_failures", "fetch_errors", "degraded",
               "degraded_recoveries"}
-#: item 12a's flags, served since: each case of them in
-#: ``test_unported_flags_raise`` checks the counter it is reported by
-SERVED = {"--max-queue": "rejections", "--deadline-ms": "timeouts"}
+#: items 12a's and 12b's flags, served since: each case of them in
+#: ``test_unported_flags_raise`` runs a short serve and checks what it is
+#: reported by
+SERVED = {"--max-queue": "rejections", "--deadline-ms": "timeouts",
+          "--supervise": "restarts", "--journal": "journal",
+          "--snapshot-dir": "restarts", "--snapshot-every": "restarts",
+          "--watchdog-ms": "restarts"}
+#: item 12b's flags that name a path: the case puts it under ``tmp_path``
+PATHS = {"--journal", "--snapshot-dir"}
 #: wall-clock fields: the only ones allowed to differ
 TIMED = {"wall_s", "tok_per_s", "ttft_p50_ms"}
 
@@ -126,27 +134,91 @@ def test_restores_the_checkpoint(reports):
     (["--supervise"], "item 12"), (["--journal", "wal.jsonl"], "item 12"),
     (["--snapshot-dir", "snap"], "item 12"),
     (["--snapshot-every", "2"], "item 12"),
-    (["--watchdog-ms", "100"], "item 12"),
+    (["--watchdog-ms", "1000"], "item 12"),
 ])
-def test_unported_flags_raise(flags, item, capsys):
+def test_unported_flags_raise(flags, item, capsys, tmp_path, monkeypatch):
     """A flag of unported work raises before any model is built, naming
     the ROADMAP item that ports it; its default value is accepted.  The
-    flags of item 12a, served now, run a short serve instead and are
-    reported: 8 requests over a queue of 4 reject 4, and a deadline
-    ends every request timed out or done."""
+    flags of items 12a and 12b, served now, run a short serve instead and
+    are reported: 8 requests over a queue of 4 reject 4, a deadline ends
+    every request timed out or done, ``--journal`` writes the journal,
+    and ``--supervise`` (an error without ``--journal``) with any of the
+    snapshot and watchdog flags serves under the supervisor; with a crash
+    injected at tick 1, or a 3 s stall of every fetch from tick 2 under
+    the 1 s watchdog, it restarts once and still delivers every token."""
+    flags = [str(tmp_path / f) if f in ("wal.jsonl", "snap") else f
+             for f in flags]
     argv = ["--arch", ARCH, "--reduced", "--device", "cpu"] + flags
-    if flags[0] in SERVED:
-        assert tserve.main(argv + ["--max-new", "2"]) == 0
-        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert rep["requests"] == 8
-        if flags[0] == "--max-queue":
-            assert rep["rejections"] == 8 - int(flags[1])
-        else:
-            assert rep["rejections"] == 0
-            assert 0 <= rep["timeouts"] <= 8
+    if flags[0] not in SERVED:
+        with pytest.raises(NotImplementedError, match=item):
+            tserve.main(argv)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tserve.main(argv)
+    assert flags[0] not in PATHS or flags[1].startswith(str(tmp_path))
+    if flags[0] == "--supervise":
+        with pytest.raises(SystemExit):     # the journal is required
+            tserve.main(argv)
+        monkeypatch.setenv("REPRO_CHAOS_SEED", "0")
+        monkeypatch.setenv("REPRO_CHAOS_RATE", "0")
+        monkeypatch.setenv("REPRO_CHAOS_CRASH_TICK", "1")
+    if flags[0] == "--watchdog-ms":     # a wedged device past the grace
+        monkeypatch.setenv("REPRO_CHAOS_SEED", "0")
+        monkeypatch.setattr(ChaosConfig, "from_env", classmethod(
+            lambda cls: cls(seed=0, rate=0.0, hang_tick=2, hang_s=3.0)))
+    if SERVED[flags[0]] == "restarts":
+        argv += ["--journal", str(tmp_path / "sup.jsonl"), "--slots", "2"]
+        argv += [] if flags[0] == "--supervise" else ["--supervise"]
+        if flags[0] == "--snapshot-every":
+            argv += ["--snapshot-dir", str(tmp_path / "snap")]
+    capsys.readouterr()
+    assert tserve.main(argv + ["--max-new", "2"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["requests"] == 8
+    if flags[0] == "--max-queue":
+        assert rep["rejections"] == 8 - int(flags[1])
+        return
+    assert rep["rejections"] == 0
+    if flags[0] == "--deadline-ms":
+        assert 0 <= rep["timeouts"] <= 8
+        return
+    assert rep["timeouts"] == 0 and rep["generated_tokens"] == 16
+    if flags[0] == "--journal":
+        assert "restarts" not in rep
+        with open(flags[1]) as f:
+            recs = [json.loads(line) for line in f]
+        assert recs[0]["t"] == "cfg"
+        assert sum(r["t"] == "submit" for r in recs) == 8
+        assert sum(len(r["toks"]) for r in recs if r["t"] == "commit") == 16
+        return
+    assert rep["restarts"] == (flags[0] in ("--supervise", "--watchdog-ms"))
+    assert set(rep["last_recovery"]) == (
+        {"load_ms", "replay_ms", "pin_prefill_ms", "total_ms"}
+        if rep["restarts"] else set())
+    if flags[0] == "--snapshot-every":     # a snapshot every 2 of 4 ticks
+        assert os.listdir(tmp_path / "snap")
+
+
+def test_a_launch_refuses_an_earlier_serves_state(tmp_path, capsys):
+    """Every launch is a fresh serve: a second launch on the first one's
+    journal, supervised or not, or on the snapshot directory it left,
+    exits with an error before any model is built, and leaves the first
+    serve's files as they were."""
+    jp, sd = tmp_path / "wal.jsonl", tmp_path / "snap"
+    base = ["--arch", ARCH, "--reduced", "--device", "cpu", "--slots", "2",
+            "--max-new", "2"]
+    supervised = ["--supervise", "--snapshot-dir", str(sd),
+                  "--snapshot-every", "2"]
+    assert tserve.main(base + ["--journal", str(jp)] + supervised) == 0
+    journal, snaps = jp.read_bytes(), sorted(os.listdir(sd))
+    assert journal and snaps
+    for again in (["--journal", str(jp)],
+                  ["--journal", str(jp)] + supervised,
+                  ["--journal", str(tmp_path / "new.jsonl")] + supervised):
+        capsys.readouterr()
+        with pytest.raises(SystemExit):
+            tserve.main(base + again)
+        assert "earlier serve" in capsys.readouterr().err
+    assert jp.read_bytes() == journal and sorted(os.listdir(sd)) == snaps
+    assert not (tmp_path / "new.jsonl").exists()
 
 
 def test_dry_run_reports_on_meta(capsys):

@@ -445,7 +445,7 @@ def test_copy_page_equals_jax(params):
 
 # --- (e) validation ---------------------------------------------------------
 
-def test_register_prefix_and_submit_validation(engines, params):
+def test_register_prefix_and_submit_validation(engines, params, tmp_path):
     """Both sides refuse the same misuses with ``ValueError``."""
     _, _, tcfg, tp = params
     jshared, tshared = engines("shared")
@@ -470,8 +470,13 @@ def test_register_prefix_and_submit_validation(engines, params):
     with pytest.raises(ValueError, match="lm"):
         TEngine(dataclasses.replace(tcfg, is_encoder_decoder=True),
                 TServeConfig(**SHARED), tp, device="cpu")
-    # the bounded queue is served; the journal is not yet
+    # the bounded queue and the journal are served: a pin is journaled
     TEngine(tcfg, TServeConfig(**SHARED, max_queue=2), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TEngine(tcfg, TServeConfig(**SHARED, journal_path="j"), tp,
-                device="cpu")
+    jp = str(tmp_path / "j.jsonl")
+    eng = TEngine(tcfg, TServeConfig(**SHARED, journal_path=jp), tp,
+                  device="cpu")
+    h = eng.register_prefix(np.arange(210, 218, dtype=np.int32))
+    assert h._pid == 0
+    assert eng.journal.state.pins == {0: list(range(210, 218))}
+    h.release()
+    assert eng.journal.state.pins == {}
